@@ -12,6 +12,8 @@ Ported so far (the rest of ``repro/kernels/`` waits for later slices):
   fused_preprocess — crop + area downscale + normalize (+ greyscale)
   flash_attention  — causal/local GQA attention with online softmax
                      (the MLLM extract's attention)
+  fused_prefix     — a plan's whole pixel prefix (diff grid, colour
+                     fractions, crop/preprocess, signature) in one pass
 
 Dispatch rule (every ops.py wrapper follows it): the device of the input
 tensor decides.  A CPU tensor takes the plain version in ``ref.py``; a CUDA
@@ -25,6 +27,7 @@ from typing import Dict
 from repro_torch.kernels._build import REGISTRY, build
 from repro_torch.kernels.flash_attention import kernel as _flash  # noqa: F401
 from repro_torch.kernels.frame_diff import kernel as _diff  # noqa: F401
+from repro_torch.kernels.fused_prefix import kernel as _prefix  # noqa: F401
 from repro_torch.kernels.fused_preprocess import kernel as _prep  # noqa: F401
 
 

@@ -49,8 +49,14 @@ def library_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    so, src = library_path(name), CSRC / f"{name}.cu"
-    return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+    """The library is missing or older than its source or a shared
+    ``csrc/*.cuh`` header."""
+    so = library_path(name)
+    if not so.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in
+                 [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    return so.stat().st_mtime < newest
 
 
 def build(names: Optional[Sequence[str]] = None,

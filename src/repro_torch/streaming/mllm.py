@@ -38,8 +38,9 @@ SCALAR_TASKS = ("present", "color", "brand", "action", "n_jumping", "team")
 
 
 def _same_pad(n: int, k: int = 3, s: int = 2):
-    """JAX "SAME" padding (low, high) of one spatial dim: (0, 1) for the
-    stem's 3x3 stride-2 convs on even sizes, not PyTorch's symmetric 1."""
+    """JAX "SAME" padding (low, high) of one spatial dim for a k-wide
+    stride-s conv: (0, 1) for the stem's 3x3 stride-2 convs on even sizes,
+    not PyTorch's symmetric 1; (1, 1) for TinyDet's 3x3 stride 1."""
     out = -(-n // s)
     total = max((out - 1) * s + k - n, 0)
     return total // 2, total - total // 2

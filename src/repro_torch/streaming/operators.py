@@ -9,9 +9,9 @@ runs there (the hand-written kernels on CUDA, their plain versions on the
 CPU) and brings its small result back.  Operators may drop rows (Skip /
 filters); the runtime forwards the compacted batch.
 
-Not ported yet: ``DetectOp`` (TinyDet), the semantic gate, and the
-observability / fault-injection hooks; ``OpContext`` has no fields for them
-until the port has its own copies of those modules.
+Not ported yet: the semantic gate and the observability / fault-injection
+hooks; ``OpContext`` has no fields for them until the port has its own
+copies of those modules.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.data.tollbooth import BRANDS, COLORS, COLOR_RGB, PLATE_CHARS
 from repro_torch.data.volleyball import ACTIONS
 from repro_torch.kernels.frame_diff.ops import frame_diff
+from repro_torch.kernels.fused_prefix.ref import color_frac
 from repro_torch.kernels.fused_preprocess.ops import fused_preprocess
 from repro_torch.streaming.mllm import (StreamMLLM, make_extract_fn,
                                         variant_models)
@@ -46,10 +47,20 @@ def _bucket_pad(n: int, lo: int = 4) -> int:
 
 @dataclasses.dataclass
 class Op:
-    """Base descriptor. Subclasses add parameters; runtime calls open().
+    """Base descriptor. Subclasses add parameters; runtime calls open()."""
 
-    (The reference's calibrated-cost fields wait for the optimizer's
-    slice, which reads them.)"""
+    #: measured *marginal* cost per input frame (µs), stamped by the cost
+    #: catalog (``repro_torch.core.costs``).  Negative means uncalibrated:
+    #: 0.0 is a legitimate measurement for a free op.
+    cost_us: float = dataclasses.field(default=-1.0, init=False)
+
+    #: measured fixed cost per invocation (µs), paid once per processed
+    #: batch however few frames it holds
+    overhead_us: float = dataclasses.field(default=0.0, init=False)
+
+    #: measured survivor fraction (output rows / input rows) on the
+    #: calibration sample: 1.0 for pure transforms, < 1.0 for filters
+    pass_rate: float = dataclasses.field(default=1.0, init=False)
 
     name: str = dataclasses.field(default="", init=False)
 
@@ -88,17 +99,25 @@ class OpContext:
     """Models every plan may reference, and the device the operators run on.
 
     ``device=None`` means CUDA and raises where CUDA is absent; tests pass
-    ``device="cpu"``.  Each model must live on this device."""
+    ``device="cpu"``.  Each model must live on this device.  A context is
+    shared by the ops opened with it: copying an op (``copy.deepcopy``, as
+    ``Plan.clone`` and the cost calibration do) never copies the models."""
 
     mllm: Optional[StreamMLLM] = None
     mllm_small: Optional[StreamMLLM] = None
     mllm_pruned: Optional[StreamMLLM] = None
+    #: the cascade detector (``repro_torch.streaming.detector.TinyDet``)
+    detector: Optional[torch.nn.Module] = None
     device: Any = None
+    frame_shape: Tuple[int, int, int] = (3, 128, 256)
     #: micro-batch size the driving runtime uses
     micro_batch: int = 16
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+
+    def __deepcopy__(self, memo):
+        return self
 
     def to_device(self, frames: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
@@ -308,7 +327,7 @@ class FusedPreprocessOp(Op):
 
 
 # ===========================================================================
-# Logical-phase cheap filters
+# Logical-phase cheap filters / physical-phase cascade
 # ===========================================================================
 
 @dataclasses.dataclass
@@ -326,20 +345,13 @@ class CheapColorFilterOp(Op):
 
     def open(self, ctx: OpContext) -> None:
         self._ctx = ctx
-        self._rgb = torch.tensor(COLOR_RGB[self.color], dtype=torch.float32,
-                                 device=ctx.device)
 
     def near_fraction(self, frames: torch.Tensor) -> torch.Tensor:
         """Per-frame fraction of pixels within RGB distance 70 of the
         target.  Raw vs normalized is a *per-frame* property (the
-        make_extract_fn convention), never a batch-global one."""
-        x = frames.to(torch.float32)
-        norm = x.reshape(x.shape[0], -1).amax(dim=1) <= 8.0
-        x = torch.where(norm[:, None, None, None],
-                        (x * 0.25 + 0.5) * 255.0, x)
-        d = torch.linalg.vector_norm(x.permute(0, 2, 3, 1) - self._rgb,
-                                     dim=-1)
-        return (d < 70.0).to(torch.float32).mean(dim=(1, 2))
+        make_extract_fn convention), never a batch-global one.  The fused
+        prefix computes its colour stages with this same function."""
+        return color_frac(frames, COLOR_RGB[self.color])
 
     def process(self, batch: Batch) -> Batch:
         if batch["frames"].shape[0] == 0:
@@ -350,6 +362,40 @@ class CheapColorFilterOp(Op):
             roi_frames = roi_frames[:, :, y0:y0 + h, x0:x0 + w]
         frac = self.near_fraction(self._ctx.to_device(roi_frames))
         return _mask_batch(batch, frac.cpu().numpy() >= self.min_frac)
+
+
+def detect_prob(detector: torch.nn.Module,
+                frames: torch.Tensor) -> torch.Tensor:
+    """TinyDet's car-present probability per frame.  Raw frames are
+    normalized as ``x/255 - 0.5`` (the detector's training input), decided
+    per frame; ``DetectOp`` and ``FusedPrefixOp`` share this one body."""
+    with torch.inference_mode():
+        x = frames.to(torch.float32)
+        raw = x.reshape(x.shape[0], -1).amax(dim=1) > 8.0
+        x = torch.where(raw[:, None, None, None], x / 255.0 - 0.5, x)
+        return torch.softmax(detector(x)["present"], dim=-1)[:, 1]
+
+
+@dataclasses.dataclass
+class DetectOp(Op):
+    """TinyDet cascade: drop frames without the object (physical phase)."""
+
+    threshold: float = 0.5
+
+    def __post_init__(self):
+        self.name = "tinydet"
+
+    def open(self, ctx: OpContext) -> None:
+        if ctx.detector is None:
+            raise ValueError("tinydet: the context has no detector")
+        self._ctx = ctx
+
+    def process(self, batch: Batch) -> Batch:
+        if batch["frames"].shape[0] == 0:
+            return batch
+        p = detect_prob(self._ctx.detector,
+                        self._ctx.to_device(batch["frames"]))
+        return _mask_batch(batch, p.cpu().numpy() >= self.threshold)
 
 
 # ===========================================================================
@@ -425,6 +471,12 @@ class MLLMExtractOp(Op):
         return {k: v.cpu().numpy() for k, v in preds.items()}
 
     def process(self, batch: Batch) -> Batch:
+        # a FusedPrefixOp immediately upstream computed the gate signature
+        # in its device pass; the port has no gate yet, so the extract
+        # drops it here and it never reaches a tail or a sink record
+        if "_sig" in batch:
+            batch = dict(batch)
+            batch.pop("_sig")
         n = batch["frames"].shape[0]
         if n == 0:
             return batch

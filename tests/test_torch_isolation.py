@@ -31,4 +31,5 @@ def test_no_jax_or_reference_import(path):
 def test_port_modules_were_found():
     names = {p.name for p in FILES}
     assert {"operators.py", "runtime.py", "mllm.py", "bridge.py",
+            "fused.py", "superopt.py", "signature.py", "detector.py",
             "chip_smoke.py"} <= names

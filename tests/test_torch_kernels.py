@@ -29,6 +29,8 @@ from repro_torch.kernels.frame_diff.kernel import frame_diff_cuda  # noqa: E402
 from repro_torch.kernels.frame_diff.ops import frame_diff  # noqa: E402
 from repro_torch.kernels.fused_preprocess.kernel import fused_preprocess_cuda  # noqa: E402
 from repro_torch.kernels.fused_preprocess.ops import fused_preprocess  # noqa: E402
+from repro_torch.kernels.fused_prefix.kernel import fused_prefix_cuda  # noqa: E402
+from repro_torch.kernels.fused_prefix.ops import fused_prefix  # noqa: E402
 
 TOL = 2e-5
 # one compiled program per shape is cheaper than op-by-op eager dispatch
@@ -192,12 +194,14 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     q = torch.from_numpy(randn(6, (1, 28, 8, 32)))
     k = torch.from_numpy(randn(7, (1, 28, 4, 32)))
     flash_attention(q, k, k)
+    fused_prefix(f, f, spec=(("diff", (4, 8)), ("crop", (0, 0, 64, 64))))
     assert launch_counts() == before
     assert set(before) == {"frame_diff_u8", "fused_preprocess_u8",
-                           "flash_attention_f32"}
+                           "flash_attention_f32", "fused_prefix_launch"}
 
 
-@pytest.mark.parametrize("call", ["frame_diff", "fused_preprocess", "flash"])
+@pytest.mark.parametrize("call", ["frame_diff", "fused_preprocess", "flash",
+                                  "fused_prefix"])
 def test_kernel_path_refuses_cpu_tensors(call):
     """The CUDA entry points raise on anything but CUDA tensors: there is no
     fallback from the kernel to the plain version."""
@@ -209,5 +213,7 @@ def test_kernel_path_refuses_cpu_tensors(call):
             frame_diff_cuda(f, f, regions=(4, 8))
         elif call == "fused_preprocess":
             fused_preprocess_cuda(f, crop=(64, 0, 64, 256), factor=2)
+        elif call == "fused_prefix":
+            fused_prefix_cuda(f, f, spec=(("diff", (4, 8)),))
         else:
             flash_attention_cuda(q, k, k)
