@@ -10,9 +10,12 @@ Phases (any failure exits non-zero and prints no result line):
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the main path's shapes and at ragged ones, with its device
      time, its roofline bound and a yardstick: PyTorch's SDPA for
-     attention, the unfused chain (frame_diff + fused_preprocess kernels,
-     colour and signature in PyTorch) for fused_prefix (timed only here;
-     the port never calls SDPA);
+     attention (prefill and decode; it cannot soft-cap, so it runs
+     without the cap), the unfused chain (frame_diff + fused_preprocess
+     kernels, colour and signature in PyTorch) for fused_prefix (timed
+     only here; the port never calls SDPA); decode_attention at gemma2's
+     decode shape and ragged ones, ssd_scan at mamba2's chunks and the
+     reference sweep's grouped shape, flash_attention at D 256, S 8192;
   3. Q8's naive plan: Source -> MLLM extract (full width: 4 layers,
      d_model 256, 8/4 heads, PATCH 16, seeded random weights) -> filter
      -> Sink over 512 TollBooth frames, micro-batch 16;
@@ -31,7 +34,19 @@ Phases (any failure exits non-zero and prints no result line):
   8. Q8's fused plan: the reduced plan plus the TinyDet cascade, its
      Skip -> FusedPreprocess -> CheapColor -> Detect prefix in one
      FusedPrefixOp (what the physical phase builds when it fuses), against
-     its unfused twin: same records, MLLM frames and operator counts.
+     its unfused twin: same records, MLLM frames and operator counts;
+  9. gemma2-2b at full width (26 layers, seeded random weights) through
+     ``ServingEngine(max_slots=4, s_max=8192)``: the serving launcher's 8
+     requests plus one of 4200 prompt tokens (bucket 8192, so the local
+     layers' window bites in prefill and decode); flash_attention (D 256)
+     on every prefill, decode_attention on every decode step; then a
+     profiled window of decode ticks (device busy share, top kernels);
+ 10. mamba2-130m at full width through the same engine and requests, the
+     long one replaced by 512 tokens (two SSD chunks): ssd_scan on every
+     prefill;
+ 11. card == CPU: both LMs at full width and depth 2, the same weights on
+     both devices, three requests: equal tokens, prefill and decode
+     logits within 1e-3.
 
 Each phase that drives a plan zeroes the kernels' launch counts first and
 reads them after; a kernel of the plan that was never launched fails the
@@ -64,8 +79,10 @@ FP32_OPS_S = 67e12           # H100 SXM fp32 outside the tensor cores
 # distance is rounded as in the plain version); the preprocess divides
 # where PyTorch multiplies by a reciprocal, and patch means sum in another
 # order: a few ulps, well inside 1e-5
+# decode_attention: the reference sweep's fp32 tolerance; ssd_scan its SSD
+# sweep's (sums of up to 256 products in another order)
 TOL = {"frame_diff": 1e-6, "fused_preprocess": 1e-5, "flash_attention": 2e-5,
-       "fused_prefix": 1e-5}
+       "fused_prefix": 1e-5, "decode_attention": 2e-5, "ssd_scan": 1e-4}
 KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
     "frame_diff": ("frame_diff_u8",
                    "src/repro_torch/kernels/csrc/frame_diff.cu",
@@ -79,9 +96,27 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
     "fused_prefix": ("fused_prefix_launch",
                      "src/repro_torch/kernels/csrc/fused_prefix.cu",
                      "src/repro/kernels/fused_prefix/kernel.py:114"),
+    "decode_attention": ("decode_attention_partials_f32",
+                         "src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:69"),
+    "ssd_scan": ("ssd_scan_f32", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:55"),
 }
-#: the plans driven end to end, by the name used in ``launches_by_path``
-PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized")
+#: a kernel's other launches, each its own C entry point with its own
+#: count, made once with every launch of the kernel's entry above
+COMPANIONS = {"decode_attention": ("decode_attention_combine_f32",),
+              "ssd_scan": ("ssd_cb_f32",)}
+#: the paths driven end to end, by the name used in ``launches_by_path``
+PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
+         "gemma2_serve", "mamba2_serve")
+#: the serving phases: 8 requests of the launcher's generator plus a long
+#: one; s_max and slots as a deployment of gemma2-2b on one card would
+SERVE_SLOTS, SERVE_S_MAX, SERVE_NEW = 4, 8192, 12
+LONG_PROMPT = {"gemma2-2b": 4200, "mamba2-130m": 512}
+#: card == CPU: the logits' tolerance.  fp32 on both, but cuBLAS and the
+#: CPU's BLAS sum d_model (up to 2304) products and the 256000-row
+#: unembedding in other orders; logits are at most 30 after the soft-cap
+LM_TOL = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -145,6 +180,16 @@ def device_ms(fn, n: int = 40, reps: int = 5) -> float:
             return statistics.median(times)
     raise SmokeFailure("timing: the host could not enqueue ahead of the "
                        "card (does the function synchronize?)")
+
+
+TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound")
+
+
+def timing(t):
+    """A timing dict as the kernels line writes it."""
+    return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"]}
 
 
 def bound(nbytes: float, ops: float):
@@ -263,6 +308,7 @@ def kernel_checks(dev):
               f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]})")
     rows["flash_attention"] = shapes[140]
     rows["fused_prefix"] = prefix_checks(compare, frames)
+    lm_kernel_checks(compare, gen, dev, rows)
     for name in ("frame_diff", "fused_preprocess"):
         t = rows[name]
         print(f"  {name} at the path's shape: kernel {t['ms']:.4f} ms, plain "
@@ -391,6 +437,145 @@ def prefix_checks(compare, frames):
     print("  fused_prefix B16 path spec, kernel ms cut after each stage: "
           + ", ".join(f"{st[0]} {ms:.4f}" for st, ms in zip(spec, cum)))
     return t
+
+
+def lm_kernel_checks(compare, gen, dev, rows):
+    """The served LMs' kernels: decode_attention at gemma2-2b's decode shape
+    (4 slots of an 8192-row cache, lengths 7, 30, 4100, 4250; local layer
+    with window 4096, global without) and at ragged shapes; ssd_scan at
+    mamba2-130m's chunks (a 512-token prefill's two chunks of 256, a
+    13-token one) and the reference sweep's grouped shapes;
+    flash_attention at gemma2's prefill of an 8192 bucket (D 256, cap 50,
+    window 4096).  Adds rows["decode_attention"], rows["ssd_scan"] and
+    rows["flash_attention"]["gemma_prefill"]."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda, decode_combine, decode_partials)
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_plain
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def live(lens, window):
+        return [n - max(0, n - window) if window else n for n in lens]
+
+    # decode_attention: (B, S, H, Hk, D, kv_len, kw)
+    gemma = (4, 8192, 8, 4, 256, [7, 30, 4100, 4250])
+    cases = [gemma + (dict(cap=50.0, window=4096),),
+             gemma + (dict(cap=50.0),),
+             (2, 64, 4, 2, 32, [1, 1], {}),                # kv_len = 1
+             (2, 64, 4, 2, 32, [5, 64], dict(window=100)),  # window > len
+             (2, 64, 4, 4, 32, [17, 3], dict(cap=20.0)),    # G = 1
+             (3, 96, 8, 2, 64, [1, 9, 96], dict(window=8)),  # D = 64
+             (2, 300, 4, 2, 32, [299, 300], dict(window=50))]  # S % 256
+    timed = {}
+    for b, s, h, hk, d, lens, kw in cases:
+        q, k, v = randn(b, 1, h, d), randn(b, s, hk, d), randn(b, s, hk, d)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)[:, None]
+        compare("decode_attention",
+                decode_attention_cuda(q, k, v, kv_len, **kw),
+                decode_attention_plain(q, k, v, kv_len, **kw),
+                f"B{b} S{s} H{h}/{hk} D{d} len {lens} {kw}")
+        if (b, s, h, hk, d) != gemma[:5]:
+            continue
+        n_live = sum(live(lens, kw.get("window")))
+        nbytes = 4 * (2 * q.numel() + 2 * hk * d * n_live + b)
+        ops = 4 * d * (h // hk) * hk * n_live
+        parts = decode_partials(q, k, v, kv_len, **kw)
+        # PyTorch's SDPA on the same GQA problem with the same visible keys
+        # as a boolean mask, without the soft-cap (SDPA cannot take one)
+        kpos = torch.arange(s, device=dev)[None, :]
+        mask = kpos < kv_len
+        if kw.get("window"):
+            mask &= kpos > kv_len - 1 - kw["window"]
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        t = dict(
+            ms=device_ms(lambda: decode_attention_cuda(q, k, v, kv_len, **kw)),
+            partials_ms=device_ms(lambda: decode_partials(q, k, v, kv_len,
+                                                          **kw)),
+            combine_ms=device_ms(lambda: decode_combine(*parts, h)),
+            plain_ms=device_ms(lambda: decode_attention_plain(q, k, v, kv_len,
+                                                              **kw), n=8),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask[:, None, None, :],
+                enable_gqa=True)),
+            bound=bound(nbytes, ops), live_keys=n_live, bytes=nbytes)
+        timed["local" if kw.get("window") else "global"] = t
+        print(f"  decode_attention gemma2 decode B4 S8192 H8/4 D256 "
+              f"{'window 4096' if kw.get('window') else 'global'} "
+              f"({n_live} live keys x 4 kv heads): kernel {t['ms']:.4f} ms "
+              f"(partials {t['partials_ms']:.4f}, combine "
+              f"{t['combine_ms']:.4f}), plain {t['plain_ms']:.4f} ms, SDPA "
+              f"without the cap {t['library_ms']:.4f} ms, bound "
+              f"{t['bound'][0]:.5f} ms ({t['bound'][1]}, {nbytes} B)")
+    rows["decode_attention"] = {**timed["local"], "global": timed["global"]}
+
+    # ssd_scan: (BC, H, G, Q, P, N)
+    ssd_rows = {}
+    for bc, h, g, q, p, n in [(2, 24, 1, 256, 64, 128), (1, 24, 1, 13, 64, 128),
+                              (4, 8, 4, 64, 16, 8), (2, 4, 2, 32, 16, 8)]:
+        x = randn(bc, h, q, p)
+        bm, cm = 0.3 * randn(bc, g, q, n), 0.3 * randn(bc, g, q, n)
+        dt = F.softplus(randn(bc, h, 1, q))
+        a = -torch.exp(0.2 * randn(h))
+        cs = torch.cumsum(dt * a[None, :, None, None], dim=-1).contiguous()
+        args = (x, bm, cm, cs, dt)
+        got, want = ssd_scan_cuda(*args), ssd_scan_ref(*args)
+        for name, a_, b_ in zip(("y_diag", "s_local"), got, want):
+            compare("ssd_scan", a_, b_,
+                    f"BC{bc} H{h} G{g} Q{q} P{p} N{n} {name}")
+        if h != 24:
+            continue
+        # C.B once per (chunk, group); per head its pairs' P-wide sums and
+        # the local state
+        pairs = q * (q + 1) // 2
+        ops = bc * g * 2 * n * pairs + bc * h * (2 * p * pairs + 2 * q * n * p)
+        nbytes = 4 * (2 * x.numel() + 2 * bm.numel() + 2 * cs.numel()
+                      + bc * h * n * p)
+        t = dict(ms=device_ms(lambda: ssd_scan_cuda(*args)),
+                 plain_ms=device_ms(lambda: ssd_scan_ref(*args), n=8),
+                 library_ms=None, bound=bound(nbytes, ops))
+        ssd_rows[q] = t
+        print(f"  ssd_scan mamba2 BC{bc} H24 Q{q} P64 N128: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, no library "
+              f"call, bound {t['bound'][0]:.5f} ms ({t['bound'][1]})")
+    rows["ssd_scan"] = {**ssd_rows[256], "q13": ssd_rows[13]}
+
+    # flash_attention at gemma2's prefill of an 8192 bucket, local layer
+    s, w = 8192, 4096
+    q, k, v = randn(1, s, 8, 256), randn(1, s, 4, 256), randn(1, s, 4, 256)
+    kw = dict(causal=True, cap=50.0, window=w)
+
+    def plain():
+        out = flash_attention_ref(q.permute(0, 2, 1, 3).reshape(1, 4, 2, s, 256),
+                                  k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                                  **kw)
+        return out.reshape(1, 8, s, 256).permute(0, 2, 1, 3)
+
+    compare("flash_attention", flash_attention_cuda(q, k, v, **kw), plain(),
+            f"B1 S{s} H8/4 D256 {kw}")
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    t = dict(ms=device_ms(lambda: flash_attention_cuda(q, k, v, **kw), n=2,
+                          reps=3),
+             plain_ms=device_ms(plain, n=1, reps=3),
+             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                 qh, kh, vh, attn_mask=mask, enable_gqa=True), n=2, reps=3),
+             bound=bound(4 * (2 * q.numel() + 2 * k.numel()),
+                         4 * 256 * pairs * 8))
+    rows["flash_attention"]["gemma_prefill"] = t
+    print(f"  flash_attention gemma2 prefill B1 S8192 H8/4 D256 cap 50 window "
+          f"4096: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, SDPA "
+          f"without the cap {t['library_ms']:.3f} ms, bound "
+          f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
 
 
 def sdpa_ms(q, k, v):
@@ -548,21 +733,33 @@ def trace(name, plan, ctx, n_frames=128):
         run_plan(plan.clone(), ctx, n_frames, MICRO_BATCH, STREAM_SEED)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
+    return device_summary(prof, wall_ms, name, f"{n_frames} frames", 6)
+
+
+def device_summary(prof, wall_ms, name, what, top):
+    """Device kernel and copy time summed by name from a profile, against
+    the host wall clock; prints the busy share, the count of device events
+    and of host aten calls over ``what``, and the ``top`` names.  None when
+    the profiler saw no device activity."""
+    kernels, n_events, n_aten = {}, 0, 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
+            n_events += 1
             kernels[ev.name] = kernels.get(ev.name, 0.0) + \
                 ev.time_range.elapsed_us() / 1e3
-    busy = sum(kernels.values())
+        elif ev.name.startswith("aten::"):
+            n_aten += 1
     if not kernels:
         print(f"  {name}: the profiler saw no device activity; device "
               "busy share not measured")
         return None
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    print(f"  {name}, {n_frames} frames (profiled, wall includes the "
-          f"profiler): wall {wall_ms:.1f} ms, device busy {busy:.2f} ms = "
-          f"{100 * busy / wall_ms:.1f}%, idle {100 - 100 * busy / wall_ms:.1f}%")
-    for kname, ms in top:
+    busy = sum(kernels.values())
+    print(f"  {name}, {what} (profiled, wall includes the profiler): wall "
+          f"{wall_ms:.1f} ms, device busy {busy:.2f} ms = "
+          f"{100 * busy / wall_ms:.1f}%, idle {100 - 100 * busy / wall_ms:.1f}"
+          f"%; {n_events} device kernels and copies, {n_aten} host aten "
+          "calls (nested calls counted)")
+    for kname, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {ms:8.3f} ms  {kname[:90]}")
     return busy / wall_ms
 
@@ -619,6 +816,218 @@ def fused_vs_unfused(ctx, fused, unfused):
           "q8_fused without the filter extracted nothing")
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: LM serving
+# ---------------------------------------------------------------------------
+
+def timed_engine(lm, **kw):
+    """A ``ServingEngine`` that records the host wall time of each prefill
+    (with its padded length) and each batched decode step (with its count
+    of active slots), each ending in ``torch.cuda.synchronize()`` (the
+    engine waits for the sampled tokens at the end of both anyway)."""
+    from repro_torch.serving.engine import ServingEngine
+
+    class Timed(ServingEngine):
+        def _prefill(self, tokens, last_pos):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._prefill(tokens, last_pos)
+            torch.cuda.synchronize()
+            self.prefill_ms.append((tokens.shape[1],
+                                    (time.perf_counter() - t0) * 1e3))
+            return out
+
+        def _decode_step(self, tokens, active):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._decode_step(tokens, active)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            self.decode_ms.append(ms)
+            self.decode_active.append((int(active.sum()), ms))
+            return out
+
+    eng = Timed(lm, **kw)
+    eng.prefill_ms, eng.decode_ms, eng.decode_active = [], [], []
+    return eng
+
+
+def serve_requests(cfg, long_len):
+    """The serving launcher's 8 requests (seed 0, prompts of 4-23 tokens,
+    12 new tokens each) plus one of ``long_len`` prompt tokens."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving.engine import Request
+
+    reqs = make_requests(cfg, 8, SERVE_NEW)
+    rs = np.random.RandomState(1)
+    reqs.append(Request(uid=8, prompt=list(rs.randint(2, cfg.vocab_size,
+                                                      long_len)),
+                        max_new_tokens=SERVE_NEW))
+    return reqs
+
+
+def serve_phase(name, arch, dev, per_prefill=(), per_decode=()):
+    """One LM at full width through ``ServingEngine``: seeded random
+    weights drawn on the card, a warm-up run (a short and a long request),
+    then the measured run of ``serve_requests`` with the launch counts
+    zeroed just before and read just after.  Each kernel of
+    ``per_prefill`` must have launched once per layer per prefill, each of
+    ``per_decode`` once per layer per decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import LM
+    from repro_torch.serving.engine import Request
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"  {arch}: {n_params / 1e9:.3f} G parameters (fp32, "
+          f"{4 * n_params / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}")
+    kw = dict(max_slots=SERVE_SLOTS, s_max=SERVE_S_MAX, eos_id=-1)
+    warm = timed_engine(lm, **kw)
+    rs = np.random.RandomState(2)
+    warm.run([Request(uid=-1, prompt=[2, 3, 4, 5], max_new_tokens=2),
+              Request(uid=-2, prompt=list(rs.randint(
+                  2, cfg.vocab_size, LONG_PROMPT[arch])), max_new_tokens=2)])
+    del warm
+    torch.cuda.empty_cache()
+
+    eng = timed_engine(lm, **kw)
+    reqs = serve_requests(cfg, LONG_PROMPT[arch])
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    tokens = sum(len(r.output) for r in done)
+    long_ms = [ms for n, ms in eng.prefill_ms if n >= LONG_PROMPT[arch]]
+    # decode throughput apart from the prefills: tokens sampled by decode
+    # steps over the steps' time, and over the ticks with every slot busy
+    full = [ms for n, ms in eng.decode_active if n == SERVE_SLOTS]
+    res = {"requests": len(done), "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "decode_tokens_per_s": sum(n for n, _ in eng.decode_active)
+           / (sum(ms for _, ms in eng.decode_active) / 1e3),
+           "full_batch_ticks": len(full),
+           "full_batch_decode_tokens_per_s":
+               SERVE_SLOTS * len(full) / (sum(full) / 1e3) if full else None,
+           "decode_steps": eng.stats["decode_steps"],
+           "decode_step_ms_median": statistics.median(eng.decode_ms),
+           "decode_step_ms_max": max(eng.decode_ms),
+           "prefill_ms_long": long_ms[0] if long_ms else None,
+           "long_prompt": LONG_PROMPT[arch],
+           "prefill_ms_short_median": statistics.median(
+               [ms for n, ms in eng.prefill_ms if n < LONG_PROMPT[arch]]),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "stats": dict(eng.stats), "parameters": n_params}
+    print(f"  {name}: served {len(done)} requests, {tokens} tokens in "
+          f"{wall:.3f} s = {tokens / wall:.1f} tokens/s over the whole smoke "
+          f"request set; decode alone {res['decode_tokens_per_s']:.1f} "
+          f"tokens/s, {res['full_batch_ticks']} ticks with all "
+          f"{SERVE_SLOTS} slots busy at "
+          f"{res['full_batch_decode_tokens_per_s'] or 0:.1f} tokens/s; "
+          f"{res['decode_steps']} decode steps, median "
+          f"{res['decode_step_ms_median']:.3f} ms (max "
+          f"{res['decode_step_ms_max']:.3f}); prefill of the "
+          f"{LONG_PROMPT[arch]}-token request {res['prefill_ms_long']:.1f} ms"
+          f", short prefills median {res['prefill_ms_short_median']:.1f} ms;"
+          f" peak memory {res['peak_memory_gb']:.2f} GB; stats {eng.stats}")
+    print(f"  {name} launches by kernel: "
+          + ", ".join(f"{k} {n}" for k, n in sorted(counts.items()) if n))
+    check(len(done) == len(reqs) and eng.stats["finished"] == len(reqs),
+          f"{name}: {len(done)} of {len(reqs)} requests finished")
+    check(all(len(r.output) == SERVE_NEW and r.done for r in done)
+          and all(0 <= t < cfg.padded_vocab for r in done for t in r.output),
+          f"{name}: a request's tokens are missing or out of the vocab")
+    check(eng.stats["prefill_tokens"] == sum(len(r.prompt) for r in reqs),
+          f"{name}: prefill_tokens {eng.stats['prefill_tokens']}")
+    n_prefill = len(eng.prefill_ms)
+    for kernels, per, n in ((per_prefill, "prefills", n_prefill),
+                            (per_decode, "steps", res["decode_steps"])):
+        want = cfg.n_layers * n
+        for k in kernels:
+            for sym in (KERNELS[k][0],) + COMPANIONS.get(k, ()):
+                check(counts[sym] == want,
+                      f"{name}: {sym} launched {counts[sym]} times, not "
+                      f"{want} ({cfg.n_layers} layers x {n} {per})")
+    return res, counts, lm, eng
+
+
+def trace_decode(name, eng, cfg, n_ticks=6):
+    """Where a decode tick's time goes: four short requests admitted and
+    one tick run first, then ``n_ticks`` batched decode ticks profiled
+    (device kernel time by name against the host wall clock)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import make_requests
+
+    for r in make_requests(cfg, SERVE_SLOTS, n_ticks + 4):
+        eng.submit(r)
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_summary(prof, wall_ms, name,
+                          f"{n_ticks} decode ticks of {SERVE_SLOTS} slots", 8)
+
+
+def lm_card_vs_cpu(dev):
+    """Both LMs at full width and depth 2 (one gemma2 period, two mamba2
+    layers), the same weights on the card and the CPU: three requests
+    through two slots give equal tokens, and the prefill and three decode
+    steps' logits agree within LM_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.model import LM
+    from repro_torch.serving.engine import ServingEngine
+
+    for arch in ("gemma2-2b", "mamba2-130m"):
+        cfg = get_config(arch).replace(n_layers=2)
+        cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+        card = LM(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        outs = [[r.output for r in ServingEngine(
+            lm, max_slots=2, s_max=64, eos_id=-1).run(
+                make_requests(cfg, 3, 6))] for lm in (cpu, card)]
+        prompt = torch.tensor([make_requests(cfg, 1, 1)[0].prompt])
+        errs = []
+        logits = {}
+        for lm in (cpu, card):
+            cache = lm.init_cache(1, 64)
+            lg, cache = lm.prefill(prompt, cache)
+            steps = [lg]
+            for t in range(3):
+                tok = torch.tensor([[outs[0][0][t]]])
+                lg, cache = lm.decode(tok, cache,
+                                      torch.tensor(prompt.shape[1] + t))
+                steps.append(lg)
+            logits[lm.device.type] = [x.cpu() for x in steps]
+        for a, b in zip(logits["cuda"], logits["cpu"]):
+            check(torch.isfinite(a).all() and a.shape == b.shape,
+                  f"{arch}: non-finite or misshapen logits on the card")
+            errs.append((a - b).abs().max().item())
+        same = outs[0] == outs[1]
+        print(f"  {arch} depth 2: card == CPU tokens {same} ({outs[1]}); "
+              f"logits max_abs_err prefill {errs[0]:.3e}, decode "
+              + ", ".join(f"{e:.3e}" for e in errs[1:])
+              + f" (tol {LM_TOL:g})")
+        check(same, f"{arch}: card and CPU tokens differ")
+        check(max(errs) < LM_TOL, f"{arch}: card vs CPU logits {max(errs)}")
+        del cpu, card
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -631,7 +1040,7 @@ def main() -> int:
               "repository root", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    runs, counts, busy = {}, {}, {}
+    runs, counts, busy, serving = {}, {}, {}, {}
     try:
         smi = smi_line()
         print(f"[1] card: {smi}; torch {torch.__version__}, "
@@ -690,6 +1099,30 @@ def main() -> int:
             "q8_unfused", q8_plan("unfused"), ctx,
             ["frame_diff", "fused_preprocess", "flash_attention"])
         fused_vs_unfused(ctx, runs["q8_fused"], runs["q8_unfused"])
+        del ctx
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        print("[9] gemma2-2b, full width, through ServingEngine(max_slots=4, "
+              "s_max=8192)")
+        serving["gemma2_serve"], counts["gemma2_serve"], lm, eng = \
+            serve_phase("gemma2_serve", "gemma2-2b", dev,
+                        per_prefill=["flash_attention"],
+                        per_decode=["decode_attention"])
+        print("[6] device busy share of gemma2-2b's decode ticks")
+        busy["gemma2_decode"] = trace_decode("gemma2_decode", eng, lm.cfg)
+        del lm, eng
+        torch.cuda.empty_cache()
+        print("[10] mamba2-130m, full width, through the same engine")
+        serving["mamba2_serve"], counts["mamba2_serve"], lm, eng = \
+            serve_phase("mamba2_serve", "mamba2-130m", dev,
+                        per_prefill=["ssd_scan"])
+        print("[6] device busy share of mamba2-130m's decode ticks")
+        busy["mamba2_decode"] = trace_decode("mamba2_decode", eng, lm.cfg)
+        del lm, eng
+        torch.cuda.empty_cache()
+        print("[11] card vs CPU: both LMs at full width, depth 2")
+        lm_card_vs_cpu(dev)
         torch.cuda.synchronize()
     except (SmokeFailure, RuntimeError, ValueError, KeyError,
             subprocess.SubprocessError) as e:
@@ -705,11 +1138,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": errs[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            "unfused_chain_ms": t.get("unfused_chain_ms"),
-            "projection_ms": t.get("projection_ms")})
+            **({"companion_launches": {
+                c: sum(counts[p][c] for p in PATHS)
+                for c in COMPANIONS[name]}} if name in COMPANIONS else {}),
+            "max_abs_err": errs[name], **timing(t),
+            **{k: timing(v) if isinstance(v, dict) else v
+               for k, v in t.items() if k not in TIMING_KEYS}})
     physical = opt_report.phases[-1]
     print(json.dumps({"q8": {
         **{p: {"fps": r.fps, "wall_s": r.wall_s,
@@ -722,6 +1156,10 @@ def main() -> int:
         "frames": N_FRAMES, "micro_batch": MICRO_BATCH,
         "stream_seed": STREAM_SEED, "detector_seed": DETECTOR_SEED}},
         default=str))
+    print(json.dumps({"serving": {**serving, "device_busy_share": {
+        k: busy[k] for k in ("gemma2_decode", "mamba2_decode")},
+        "slots": SERVE_SLOTS, "s_max": SERVE_S_MAX,
+        "new_tokens": SERVE_NEW}}))
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

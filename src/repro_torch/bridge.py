@@ -1,4 +1,5 @@
-"""Load the JAX package's stream-model parameters into the port's modules.
+"""Load the JAX package's parameters into the port's modules (the stream
+models and the LMs).
 
 The reference's parameter tree arrives as nested dicts of **numpy** arrays
 (the caller converts, e.g. ``jax.tree_util.tree_map(np.asarray, params)``;
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.models.model import LM
 from repro_torch.streaming.detector import TinyDet
 from repro_torch.streaming.mllm import StreamMLLM
 
@@ -92,3 +94,11 @@ def load_reference_detector_params(det: TinyDet,
     """TinyDet's reference parameters into ``det`` (HWIO -> OIHW convs)."""
     _load(det, flatten(params), ("conv1", "conv2", "conv3"), det.device)
     return det
+
+
+def load_reference_lm_params(lm: LM, params: Mapping[str, Any]) -> LM:
+    """The reference ``LM``'s parameter tree (numpy leaves, built with
+    ``tp=1``) into ``lm``, every leaf at the same dotted path, shapes from
+    the arrays, on the model's device."""
+    _load(lm, flatten(params), (), lm.device)
+    return lm

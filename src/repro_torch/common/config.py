@@ -1,13 +1,24 @@
-"""Architecture configuration: the subset the stream MLLM reads.
+"""Architecture configuration: the fields the port's models read.
 
-Counterpart of ``repro/common/config.py``.  Only ``ArchConfig`` and
-``AttentionConfig`` are ported, with the fields the streaming MLLM backbone
-uses; the LM zoo's MoE/SSM/shape-cell configuration waits for its slice.
+Counterpart of ``repro/common/config.py``.  ``ArchConfig``,
+``AttentionConfig``, ``SSMConfig`` and ``BlockSpecEntry`` are ported with
+the fields the stream MLLM and the served LMs (dense attention and Mamba2
+stacks) use.  ``MoEConfig`` and the shape cells wait for the slices that
+run them.
+
+Block kind strings are ``"<mixer>+<mlp>"``:
+  mixer: ``attn`` | ``attn_local`` | ``attn_global`` | ``mamba``
+  mlp:   ``dense`` | ``moe`` | ``none``
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+from repro_torch.common.utils import pad_to_multiple
+
+VOCAB_PAD = 256  # the embedding table's rows are padded to a multiple of this
 
 
 @dataclass(frozen=True)
@@ -17,7 +28,19 @@ class AttentionConfig:
     head_dim: int
     rope_theta: float = 10000.0
     rotary_pct: float = 1.0
+    qk_norm: bool = False            # RMSNorm on q and k per head
     softcap: Optional[float] = None  # attention logit soft-capping
+    window: Optional[int] = None     # sliding-window size for attn_local
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    head_dim: int = 64
+    expand: int = 2
+    n_groups: int = 1
+    chunk: int = 256
 
 
 @dataclass(frozen=True)
@@ -29,12 +52,22 @@ class ArchConfig:
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
+    ssm: Optional[SSMConfig] = None
     block_pattern: Tuple[str, ...] = ("attn+dense",)
-    norm: str = "rmsnorm"
+    encoder_decoder: bool = False
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    post_block_norm: bool = False    # sandwich norms (gemma2)
+    embed_scale: bool = False        # embeddings scaled by sqrt(d_model)
+    final_softcap: Optional[float] = None
+    tie_embeddings: bool = True
     frontend: Optional[str] = None   # "patch" for the stream MLLM
     mlp_gated: bool = True
     remat: bool = True
     notes: str = ""
+
+    @property
+    def padded_vocab(self) -> int:
+        return pad_to_multiple(self.vocab_size, VOCAB_PAD)
 
     @property
     def n_periods(self) -> int:
@@ -43,3 +76,29 @@ class ArchConfig:
             f"pattern length {len(self.block_pattern)}"
         )
         return self.n_layers // len(self.block_pattern)
+
+    @property
+    def has_mamba(self) -> bool:
+        return any(BlockSpecEntry.parse(k).mixer == "mamba"
+                   for k in self.block_pattern)
+
+    @property
+    def has_moe(self) -> bool:
+        return any(BlockSpecEntry.parse(k).mlp == "moe"
+                   for k in self.block_pattern)
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class BlockSpecEntry:
+    """One entry of a block pattern, parsed."""
+
+    mixer: str
+    mlp: str
+
+    @staticmethod
+    def parse(kind: str) -> "BlockSpecEntry":
+        mixer, mlp = kind.split("+")
+        return BlockSpecEntry(mixer, mlp)

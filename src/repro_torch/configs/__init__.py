@@ -1,1 +1,62 @@
-"""Configurations the port runs (the stream MLLM backbones)."""
+"""Architecture registry of the configurations the port runs:
+``get_config(name)`` and ``smoke_config(name)``.
+
+Counterpart of ``repro/configs/__init__.py`` over the archs the port serves
+(gemma2-2b, mamba2-130m) and the two stream MLLM backbones.  An arch of the
+reference's registry that the port does not run yet raises a ``KeyError``
+that names the slice it waits for.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from repro_torch.common.config import ArchConfig
+from repro_torch.configs import gemma2_2b, mamba2_130m, samsara_stream
+
+REGISTRY: Dict[str, ArchConfig] = {
+    c.name: c for c in (
+        gemma2_2b.CONFIG,
+        mamba2_130m.CONFIG,
+        samsara_stream.STREAM_MLLM_CONFIG,
+        samsara_stream.STREAM_MLLM_SMALL_CONFIG,
+    )
+}
+
+_SMOKE: Dict[str, Callable[[], ArchConfig]] = {
+    "gemma2-2b": gemma2_2b.smoke,
+    "mamba2-130m": mamba2_130m.smoke,
+    "samsara-stream-mllm": samsara_stream.smoke,
+    "samsara-stream-mllm-small": samsara_stream.smoke,
+}
+
+#: archs of the reference's registry the port does not run yet -> the
+#: slice that ports what they need
+NOT_PORTED = {
+    "moonshot-v1-16b-a3b": "the MoE slice",
+    "qwen3-moe-235b-a22b": "the MoE slice",
+    "jamba-1.5-large-398b": "the MoE slice (its MLPs are experts)",
+    "seamless-m4t-medium": "the encoder-decoder slice",
+    "pixtral-12b": "the patch-frontend slice",
+    "chatglm3-6b": "the dense-zoo slice (rotary_pct 0.5 serving)",
+    "glm4-9b": "the dense-zoo slice (rotary_pct 0.5 serving)",
+    "phi3-mini-3.8b": "the dense-zoo slice",
+}
+
+
+def _lookup(name: str) -> None:
+    if name in NOT_PORTED:
+        raise KeyError(f"arch {name!r} is not ported yet: it waits for "
+                       f"{NOT_PORTED[name]}; the port runs {sorted(REGISTRY)}")
+    if name not in REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(REGISTRY)}")
+
+
+def get_config(name: str) -> ArchConfig:
+    _lookup(name)
+    return REGISTRY[name]
+
+
+def smoke_config(name: str) -> ArchConfig:
+    """A reduced same-family config for CPU tests."""
+    _lookup(name)
+    return _SMOKE[name]()

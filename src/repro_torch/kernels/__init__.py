@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the stream processor's hot spots.
+"""Hand-written Hopper kernels for the stream processor's and the served
+LMs' hot spots.
 
 Each kernel directory mirrors ``repro/kernels/<name>/``:
   kernel.py — the ``ctypes`` binding of ``csrc/<name>.cu`` (CUDA C++ for
@@ -7,13 +8,18 @@ Each kernel directory mirrors ``repro/kernels/<name>/``:
   ops.py    — the public wrapper the operators and models call
   ref.py    — the plain PyTorch version of the same function
 
-Ported so far (the rest of ``repro/kernels/`` waits for later slices):
+Ported so far (``int8_matmul`` waits for a later slice):
   frame_diff       — per-region mean |cur − prev| / 255 (the Skip operator)
   fused_preprocess — crop + area downscale + normalize (+ greyscale)
   flash_attention  — causal/local GQA attention with online softmax
                      (the MLLM extract's attention)
   fused_prefix     — a plan's whole pixel prefix (diff grid, colour
                      fractions, crop/preprocess, signature) in one pass
+  decode_attention — one query token per sequence against its KV cache
+                     (split-KV partials + logsumexp combine; the served
+                     LMs' decode step)
+  ssd_scan         — Mamba2's within-chunk SSD terms (the served SSMs'
+                     prefill)
 
 Dispatch rule (every ops.py wrapper follows it): the device of the input
 tensor decides.  A CPU tensor takes the plain version in ``ref.py``; a CUDA
@@ -25,10 +31,12 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels._build import REGISTRY, build
+from repro_torch.kernels.decode_attention import kernel as _decode  # noqa: F401
 from repro_torch.kernels.flash_attention import kernel as _flash  # noqa: F401
 from repro_torch.kernels.frame_diff import kernel as _diff  # noqa: F401
 from repro_torch.kernels.fused_prefix import kernel as _prefix  # noqa: F401
 from repro_torch.kernels.fused_preprocess import kernel as _prep  # noqa: F401
+from repro_torch.kernels.ssd_scan import kernel as _ssd  # noqa: F401
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,22 +1,38 @@
-"""GQA self-attention for prefill (causal), through the flash kernel.
+"""GQA self-attention: prefill through the flash kernel, cached decode
+through the decode-attention kernel.
 
-Counterpart of ``repro/models/attention.py`` for the path the stream MLLM
-runs: ``_project_qkv``, ``_out_proj`` and ``attend_prefill``.  Head counts
-come from the weights (``wq`` (d, H, Dh), ``wk``/``wv`` (d, Hk, Dh), ``wo``
-(H, Dh, d)), so a pruned variant with other shapes runs unchanged.  There is
-no tensor-parallel head padding: the port runs on one card.  The attention
-itself is ``kernels.flash_attention.ops.flash_attention`` in model layout;
-the reference computes the same function in plain jnp (``full_attention``).
+Counterpart of ``repro/models/attention.py`` for the paths the port runs:
+``attention_spec``, ``_project_qkv``, ``_out_proj``, ``attend_prefill``
+(causal, sliding-window for ``attn_local``) and ``attend_decode``.  Head
+counts come from the weights (``wq`` (d, H, Dh), ``wk``/``wv`` (d, Hk, Dh),
+``wo`` (H, Dh, d)), so a pruned variant with other shapes runs unchanged.
+There is no tensor-parallel head padding: the port runs on one card, which
+is the reference's layout at ``tp=1``.  The attention itself is the
+kernels' (``kernels.flash_attention.ops.flash_attention`` and
+``kernels.decode_attention.ops.decode_attention``); the reference computes
+the same functions in plain jnp (``full_attention``, ``_decode_attend``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.common.config import AttentionConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope
+from repro_torch.models.param import ParamSpec
+
+
+def attention_spec(d_model: int, att: AttentionConfig) -> Dict[str, ParamSpec]:
+    d = att.head_dim
+    return {
+        "wq": ParamSpec((d_model, att.n_heads, d)),
+        "wk": ParamSpec((d_model, att.n_kv_heads, d)),
+        "wv": ParamSpec((d_model, att.n_kv_heads, d)),
+        "wo": ParamSpec((att.n_heads, d, d_model)),
+    }
 
 
 def _project_qkv(params: Dict[str, torch.Tensor], xq: torch.Tensor,
@@ -40,11 +56,44 @@ def _out_proj(params: Dict[str, torch.Tensor],
 
 
 def attend_prefill(params: Dict[str, torch.Tensor], att: AttentionConfig,
-                   x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention over a full sequence x (B, S, d)."""
+                   x: torch.Tensor, positions: torch.Tensor, *,
+                   local: bool = False, return_kv: bool = False):
+    """Causal self-attention over a full sequence x (B, S, d).  A local
+    layer masks its sliding window when S exceeds it (below that the window
+    hides nothing), as the reference chooses.  With ``return_kv`` also the
+    rotated (k, v), (B, S, Hk, Dh) each, for the cache."""
     q, k, v = _project_qkv(params, x, x)
     q = apply_rope(q, positions, att.rotary_pct, att.rope_theta)
     k = apply_rope(k, positions, att.rotary_pct, att.rope_theta)
+    window = att.window if (local and att.window is not None
+                            and x.shape[1] > att.window) else None
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=True, cap=att.softcap)
-    return _out_proj(params, out)
+                          causal=True, cap=att.softcap, window=window)
+    y = _out_proj(params, out)
+    return (y, (k, v)) if return_kv else y
+
+
+def attend_decode(params: Dict[str, torch.Tensor], att: AttentionConfig,
+                  x: torch.Tensor, cache_k: torch.Tensor,
+                  cache_v: torch.Tensor, lens: torch.Tensor, *,
+                  local: bool = False) -> torch.Tensor:
+    """One new token per sequence against its KV cache.
+
+    x (B, 1, d); cache_k/v (B, S_max, Hk, Dh); lens (B,) int, each
+    sequence's length before this token.  The new token's k/v are written
+    into the caches at ``lens`` in place (the reference returns new
+    caches), then it attends to the ``lens + 1`` cached keys (its sliding
+    window on a local layer).  Returns y (B, 1, d)."""
+    b = x.shape[0]
+    q, k_new, v_new = _project_qkv(params, x, x)
+    pos = lens[:, None]
+    q = apply_rope(q, pos, att.rotary_pct, att.rope_theta)
+    k_new = apply_rope(k_new, pos, att.rotary_pct, att.rope_theta)
+    bidx = torch.arange(b, device=x.device)
+    cache_k[bidx, lens] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[bidx, lens] = v_new[:, 0].to(cache_v.dtype)
+    kv_len = (lens + 1).to(torch.int32)[:, None]
+    window: Optional[int] = att.window if local else None
+    out = decode_attention(q.contiguous(), cache_k, cache_v, kv_len,
+                           cap=att.softcap, window=window)
+    return _out_proj(params, out.to(x.dtype))

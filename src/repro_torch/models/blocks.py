@@ -1,64 +1,132 @@
-"""Pre-norm residual decoder blocks and their stacked periods.
+"""Pre-norm residual blocks and their stacked periods.
 
-Counterpart of ``repro/models/blocks.py`` for ``block_pattern =
-("attn+dense",)``.  A *period* is one repetition of the pattern; every
-weight of the stack keeps its leading per-period axis, as the reference's
-scanned stack does, and ``apply_stack`` loops over that axis.
+Counterpart of ``repro/models/blocks.py`` for the mixers ``attn``,
+``attn_local``, ``attn_global`` and ``mamba`` with a ``dense`` or no MLP.
+A *period* is one repetition of ``cfg.block_pattern`` (gemma2's (local,
+global) pair); every weight and cache leaf of the stack keeps its leading
+per-period axis, as the reference's scanned stack does, and
+``apply_stack`` loops over that axis.  Modes: ``causal`` (no cache),
+``prefill_cache`` (fills the cache) and ``decode`` (one token against it).
+The port writes caches in place; the reference returns new ones.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.common.config import ArchConfig
-from repro_torch.models.attention import attend_prefill
-from repro_torch.models.layers import apply_mlp, apply_norm
-from repro_torch.models.param import ParamSpec, stack
+from repro_torch.common.config import ArchConfig, BlockSpecEntry
+from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import apply_mlp, mlp_spec, norm, norm_spec
+from repro_torch.models.param import stack
 
-SUPPORTED = ("attn+dense",)
+MIXERS = ("attn", "attn_local", "attn_global", "mamba")
+MODES = ("causal", "prefill_cache", "decode")
+
+
+def _entry(kind: str) -> BlockSpecEntry:
+    ent = BlockSpecEntry.parse(kind)
+    if ent.mlp == "moe":
+        raise NotImplementedError(
+            f"block {kind!r}: MoE MLPs wait for the port's MoE slice")
+    if ent.mixer not in MIXERS or ent.mlp not in ("dense", "none"):
+        raise NotImplementedError(f"block {kind!r}: the port runs mixers "
+                                  f"{MIXERS} with a dense or no MLP")
+    return ent
 
 
 def _check(cfg: ArchConfig) -> None:
-    if tuple(cfg.block_pattern) != SUPPORTED or cfg.norm != "rmsnorm" \
-            or not cfg.mlp_gated:
+    if cfg.encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs gated rmsnorm {SUPPORTED} stacks "
-            f"only, got {cfg.block_pattern} / {cfg.norm}")
+            f"{cfg.name}: cross attention waits for the port's "
+            "encoder-decoder slice")
+    if cfg.attention is not None and cfg.attention.qk_norm:
+        raise NotImplementedError(
+            f"{cfg.name}: qk-norm waits for the slice of a model that "
+            "uses it")
+    for kind in cfg.block_pattern:
+        _entry(kind)
 
 
-def block_spec(cfg: ArchConfig) -> Dict[str, Any]:
-    _check(cfg)
-    d, att = cfg.d_model, cfg.attention
-    return {
-        "pre_norm": {"scale": ParamSpec((d,), "ones")},
-        "mixer": {
-            "wq": ParamSpec((d, att.n_heads, att.head_dim)),
-            "wk": ParamSpec((d, att.n_kv_heads, att.head_dim)),
-            "wv": ParamSpec((d, att.n_kv_heads, att.head_dim)),
-            "wo": ParamSpec((att.n_heads, att.head_dim, d)),
-        },
-        "pre_mlp_norm": {"scale": ParamSpec((d,), "ones")},
-        "mlp": {
-            "w_in": ParamSpec((d, cfg.d_ff)),
-            "w_out": ParamSpec((cfg.d_ff, d)),
-            "w_gate": ParamSpec((d, cfg.d_ff)),
-        },
-    }
+def block_spec(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
+    ent = _entry(kind)
+    d = cfg.d_model
+    spec: Dict[str, Any] = {"pre_norm": norm_spec(d, cfg.norm)}
+    if ent.mixer == "mamba":
+        spec["mixer"] = ssm_mod.mamba_spec(d, cfg.ssm)
+    else:
+        spec["mixer"] = attn.attention_spec(d, cfg.attention)
+    if cfg.post_block_norm:
+        spec["post_mixer_norm"] = norm_spec(d, cfg.norm)
+    if ent.mlp != "none":
+        spec["pre_mlp_norm"] = norm_spec(d, cfg.norm)
+        spec["mlp"] = mlp_spec(d, cfg.d_ff, cfg.mlp_gated)
+        if cfg.post_block_norm:
+            spec["post_mlp_norm"] = norm_spec(d, cfg.norm)
+    return spec
 
 
 def stack_spec(cfg: ArchConfig) -> Dict[str, Any]:
-    return stack({"i0": block_spec(cfg)}, cfg.n_periods)
+    _check(cfg)
+    return stack({f"i{j}": block_spec(cfg, kind)
+                  for j, kind in enumerate(cfg.block_pattern)},
+                 cfg.n_periods)
 
 
-def apply_block(cfg: ArchConfig, params: Dict[str, Any], x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """One pre-norm residual block: x + attn(norm(x)), then + mlp(norm)."""
-    h = apply_norm(params["pre_norm"]["scale"], x)
-    x = x + attend_prefill(params["mixer"], cfg.attention, h, positions)
-    h = apply_norm(params["pre_mlp_norm"]["scale"], x)
-    mlp = params["mlp"]
-    return x + apply_mlp(mlp["w_in"], mlp["w_gate"], mlp["w_out"], h)
+def block_cache_shapes(cfg: ArchConfig, kind: str, batch: int,
+                       s_max: int) -> Dict[str, Tuple[int, ...]]:
+    """Shape of each cache leaf of one block."""
+    if _entry(kind).mixer == "mamba":
+        return ssm_mod.mamba_decode_cache_spec(cfg.d_model, cfg.ssm, batch)
+    att = cfg.attention
+    kv = (batch, s_max, att.n_kv_heads, att.head_dim)
+    return {"k": kv, "v": kv}
+
+
+def apply_block(cfg: ArchConfig, kind: str, params: Dict[str, Any],
+                x: torch.Tensor, *, mode: str, positions: torch.Tensor,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block: x + mixer(norm(x)) (sandwiched by a post norm when the
+    config says so), then the same with the MLP.  ``cache`` (this block's
+    leaves for this period) is filled or advanced in place."""
+    ent = _entry(kind)
+    h = norm(params["pre_norm"], x, cfg.norm)
+    mix = params["mixer"]
+    if ent.mixer == "mamba":
+        if mode == "decode":
+            y = ssm_mod.mamba_decode(mix, cfg.ssm, h, cache)
+        elif mode == "prefill_cache":
+            y = ssm_mod.mamba_prefill_with_cache(mix, cfg.ssm, h, cache)
+        else:
+            y = ssm_mod.mamba_prefill(mix, cfg.ssm, h)
+    else:
+        local = ent.mixer == "attn_local"
+        if mode == "decode":
+            y = attn.attend_decode(mix, cfg.attention, h, cache["k"],
+                                   cache["v"], lens, local=local)
+        elif mode == "prefill_cache":
+            y, (k, v) = attn.attend_prefill(mix, cfg.attention, h, positions,
+                                            local=local, return_kv=True)
+            cache["k"][:, :k.shape[1]] = k.to(cache["k"].dtype)
+            cache["v"][:, :v.shape[1]] = v.to(cache["v"].dtype)
+        else:
+            y = attn.attend_prefill(mix, cfg.attention, h, positions,
+                                    local=local)
+    if cfg.post_block_norm:
+        y = norm(params["post_mixer_norm"], y, cfg.norm)
+    x = x + y
+    if ent.mlp != "none":
+        h = norm(params["pre_mlp_norm"], x, cfg.norm)
+        mlp = params["mlp"]
+        # the reference picks GeLU by the config's name
+        act = "gelu" if cfg.name.startswith("gemma") else "silu"
+        y = apply_mlp(mlp["w_in"], mlp.get("w_gate"), mlp["w_out"], h, act)
+        if cfg.post_block_norm:
+            y = norm(params["post_mlp_norm"], y, cfg.norm)
+        x = x + y
+    return x
 
 
 def _period(tree: Any, i: int) -> Any:
@@ -68,10 +136,23 @@ def _period(tree: Any, i: int) -> Any:
 
 
 def apply_stack(cfg: ArchConfig, stacked: Dict[str, Any], x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """Run every period of the stacked weights in order."""
+                positions: torch.Tensor, *, mode: str = "causal",
+                cache: Optional[Dict[str, Any]] = None,
+                lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run every period of the stacked weights in order.  ``cache`` is a
+    dict per block key ``i{j}`` of (n_periods, B, ...) tensors, filled
+    (``prefill_cache``) or advanced (``decode``) in place."""
     _check(cfg)
-    n = stacked["i0"]["pre_norm"]["scale"].shape[0]
-    for i in range(n):
-        x = apply_block(cfg, _period(stacked, i)["i0"], x, positions)
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}; have {MODES}")
+    if (cache is None) != (mode == "causal"):
+        raise ValueError(f"mode {mode!r} with cache={cache is not None}")
+    for i in range(stacked["i0"]["pre_norm"]["scale"].shape[0]):
+        p_params = _period(stacked, i)
+        for j, kind in enumerate(cfg.block_pattern):
+            key = f"i{j}"
+            x = apply_block(
+                cfg, kind, p_params[key], x, mode=mode, positions=positions,
+                cache=None if cache is None else _period(cache[key], i),
+                lens=lens)
     return x

@@ -1,23 +1,61 @@
-"""Core layers: RMSNorm, rotary embeddings, gated MLP.
+"""Core layers: norms, rotary embeddings, MLPs, embeddings, soft-capping.
 
-Counterpart of ``repro/models/layers.py`` (the subset the stream MLLM
-calls).  Plain functions on tensors; weights are passed explicitly and keep
-the reference's (in, out) storage.
+Counterpart of ``repro/models/layers.py``.  Plain functions on tensors;
+weights are passed explicitly and keep the reference's (in, out) storage.
 """
 from __future__ import annotations
+
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.param import ParamSpec
 
-def apply_norm(scale: torch.Tensor, x: torch.Tensor,
-               eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in fp32, cast back to the input's dtype."""
+
+# --------------------------------------------------------------------------
+# Normalization
+# --------------------------------------------------------------------------
+
+def norm_spec(d: int, kind: str) -> Dict[str, ParamSpec]:
+    if kind == "layernorm":
+        return {"scale": ParamSpec((d,), "ones"),
+                "bias": ParamSpec((d,), "zeros")}
+    return {"scale": ParamSpec((d,), "ones")}
+
+
+def apply_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
+               *, kind: str = "rmsnorm",
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RMSNorm (or LayerNorm with ``bias``) in fp32, cast back to the
+    input's dtype."""
     x32 = x.to(torch.float32)
-    ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-    y = x32 * torch.rsqrt(ms + eps) * scale.to(torch.float32)
+    if kind == "layernorm":
+        mu = torch.mean(x32, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+        y = (x32 - mu) * torch.rsqrt(var + eps)
+        y = y * scale.to(torch.float32) + bias.to(torch.float32)
+    else:
+        ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+        y = x32 * torch.rsqrt(ms + eps) * scale.to(torch.float32)
     return y.to(x.dtype)
 
+
+def norm(params: Dict[str, torch.Tensor], x: torch.Tensor,
+         kind: str) -> torch.Tensor:
+    """``apply_norm`` from a ``norm_spec`` parameter dict."""
+    return apply_norm(params["scale"], x, kind=kind, bias=params.get("bias"))
+
+
+def rms_norm_simple(x: torch.Tensor, scale: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """Scale-only RMSNorm over the last dim (qk-norm, the Mamba2 gate)."""
+    return apply_norm(scale, x, eps)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings
+# --------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, rotary_pct: float, theta: float,
                device=None) -> torch.Tensor:
@@ -48,8 +86,62 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, rotary_pct: float,
     return torch.cat([y1, y2, x_pass], dim=-1).to(x.dtype)
 
 
-def apply_mlp(w_in: torch.Tensor, w_gate: torch.Tensor, w_out: torch.Tensor,
-              x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU MLP: ``(silu(x·w_in) * (x·w_gate))·w_out``; the
-    activation is on ``w_in``.  Weights are (in, out)."""
-    return (F.silu(x @ w_in) * (x @ w_gate)) @ w_out
+# --------------------------------------------------------------------------
+# Soft-capping (gemma2)
+# --------------------------------------------------------------------------
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# --------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU, or ungated)
+# --------------------------------------------------------------------------
+
+def mlp_spec(d_model: int, d_ff: int,
+             gated: bool = True) -> Dict[str, ParamSpec]:
+    spec = {"w_in": ParamSpec((d_model, d_ff)),
+            "w_out": ParamSpec((d_ff, d_model))}
+    if gated:
+        spec["w_gate"] = ParamSpec((d_model, d_ff))
+    return spec
+
+
+def apply_mlp(w_in: torch.Tensor, w_gate: Optional[torch.Tensor],
+              w_out: torch.Tensor, x: torch.Tensor,
+              act: str = "silu") -> torch.Tensor:
+    """``(act(x·w_in) * (x·w_gate))·w_out``, the activation on ``w_in``;
+    ungated when ``w_gate`` is None.  ``act="gelu"`` is the tanh
+    approximation, as ``jax.nn.gelu``'s default.  Weights are (in, out)."""
+    h = x @ w_in
+    h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
+    if w_gate is not None:
+        h = h * (x @ w_gate)
+    return h @ w_out
+
+
+# --------------------------------------------------------------------------
+# Embedding / unembedding
+# --------------------------------------------------------------------------
+
+def embed_spec(vocab: int, d_model: int) -> Dict[str, ParamSpec]:
+    """The token table, tied to the unembedding."""
+    return {"table": ParamSpec((vocab, d_model), "small")}
+
+
+def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """tokens (B, S) int -> (B, S, d), times ``scale`` when given."""
+    x = params["table"][tokens]
+    if scale is not None:
+        x = x * scale
+    return x
+
+
+def unembed(params: Dict[str, Any], x: torch.Tensor,
+            final_cap: Optional[float] = None) -> torch.Tensor:
+    """x (B, S, d) -> logits (B, S, V) over the padded vocab, through the
+    tied table."""
+    return softcap(x @ params["table"].t(), final_cap)

@@ -19,6 +19,10 @@ from repro_torch.kernels.fused_preprocess.ref import fused_preprocess_ref  # noq
 from repro_torch.kernels.fused_prefix.kernel import (fused_prefix_cuda,  # noqa: E402
                                                      out_frame_shape)
 from repro_torch.kernels.fused_prefix.ref import fused_prefix_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.semantic.signature import signature_layout  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -123,3 +127,85 @@ def test_fused_prefix_kernel(dev, case, dtype):
             assert x.dtype == y.dtype and x.shape == y.shape, name
             torch.testing.assert_close(x.float().cpu(), y.float().cpu(),
                                        atol=1e-5, rtol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,lens,kw", [
+    # gemma2-2b's decode shape: 4 slots of an 8192-row cache
+    (4, 8192, 8, 4, 256, [7, 30, 4100, 4250], dict(cap=50.0, window=4096)),
+    (4, 8192, 8, 4, 256, [7, 30, 4100, 4250], dict(cap=50.0)),
+    (2, 64, 4, 2, 32, [1, 1], {}),
+    (2, 64, 4, 2, 32, [5, 64], dict(window=100)),
+    (2, 64, 4, 4, 32, [17, 3], dict(cap=20.0)),
+    (3, 300, 8, 2, 64, [1, 9, 300], dict(window=8)),
+    (1, 512, 8, 1, 128, [333], dict(cap=20.0, window=64))])
+def test_decode_attention_kernel(dev, b, s, h, hk, d, lens, kw):
+    """The kernel against its plain version; keys at or past kv_len are
+    NaN in the cache and must never be read."""
+    gen = torch.Generator().manual_seed(4)
+    q = torch.randn(b, 1, h, d, generator=gen)
+    k = torch.randn(b, s, hk, d, generator=gen)
+    v = torch.randn(b, s, hk, d, generator=gen)
+    kv_len = torch.tensor(lens, dtype=torch.int32)[:, None]
+    want = decode_attention(q, k, v, kv_len, **kw)
+    for i, n in enumerate(lens):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    reset_launch_counts()
+    got = decode_attention_cuda(q.to(dev), k.to(dev), v.to(dev),
+                                kv_len.to(dev), **kw).cpu()
+    counts = launch_counts()
+    assert counts["decode_attention_partials_f32"] == 1
+    assert counts["decode_attention_combine_f32"] == 1
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("bc,h,g,q,p,n", [
+    (2, 24, 1, 256, 64, 128), (1, 24, 1, 13, 64, 128),   # mamba2-130m
+    (4, 8, 4, 64, 16, 8), (2, 4, 2, 32, 16, 8)])          # reference sweep
+def test_ssd_scan_kernel(dev, bc, h, g, q, p, n):
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(bc, h, q, p, generator=gen)
+    bm = 0.3 * torch.randn(bc, g, q, n, generator=gen)
+    cm = 0.3 * torch.randn(bc, g, q, n, generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn(bc, h, 1, q, generator=gen))
+    a = -torch.exp(0.2 * torch.randn(h, generator=gen))
+    cs = torch.cumsum(dt * a[None, :, None, None], dim=-1)
+    want = ssd_scan_ref(x, bm, cm, cs, dt)
+    reset_launch_counts()
+    got = ssd_scan_cuda(*(t.to(dev).contiguous() for t in (x, bm, cm, cs, dt)))
+    counts = launch_counts()
+    assert counts["ssd_cb_f32"] == 1 and counts["ssd_scan_f32"] == 1
+    for a_, b_ in zip(got, want):
+        torch.testing.assert_close(a_.cpu(), b_, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("s,kw", [(300, dict(cap=50.0)),
+                                  (600, dict(cap=50.0, window=256))])
+def test_flash_attention_kernel_d256(dev, s, kw):
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn(1, s, 8, 256, generator=gen)
+    k = torch.randn(1, s, 4, 256, generator=gen)
+    v = torch.randn(1, s, 4, 256, generator=gen)
+    got = flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw).cpu()
+    torch.testing.assert_close(got, flash_attention(q, k, v, **kw),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m"])
+def test_lm_serving_card_equals_cpu(dev, arch):
+    """The smoke LMs through the engine on the card and on the CPU, same
+    weights: the same tokens."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.model import LM
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = smoke_config(arch)
+    cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = LM(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    outs = []
+    for lm in (cpu, card):
+        eng = ServingEngine(lm, max_slots=2, s_max=64, eos_id=-1)
+        outs.append([r.output for r in eng.run(make_requests(cfg, 4, 6))])
+    assert outs[0] == outs[1]

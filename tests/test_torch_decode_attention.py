@@ -1,0 +1,198 @@
+"""The port's decode attention (plain version, on the CPU) against the JAX
+package's Pallas kernel in interpret mode, its jnp oracle and the JAX
+model's own decode attention.
+
+Inputs are made with numpy from a seed and handed to both packages.  fp32
+tolerance 2e-5 (the reference sweep's): the two packages sum in different
+orders; bf16 3e-2, as the reference sweep holds its own kernel.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.common.config import AttentionConfig as JaxAttentionConfig  # noqa: E402
+from repro.kernels.decode_attention.ops import decode_attention as jax_decode  # noqa: E402
+from repro.kernels.decode_attention.ref import decode_attention_ref as jax_decode_ref  # noqa: E402
+from repro.models import attention as jax_attn  # noqa: E402
+
+from repro_torch.common.config import AttentionConfig  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import num_splits  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
+
+TOL = 2e-5
+jax_decode_ref = jax.jit(jax_decode_ref, static_argnames=("cap", "window"))
+
+
+def randn(seed, shape, scale=1.0):
+    return (scale * np.random.RandomState(seed).standard_normal(shape)
+            ).astype(np.float32)
+
+
+def lengths(seed, b, s):
+    return np.random.RandomState(seed).randint(1, s + 1, (b, 1)).astype(
+        np.int32)
+
+
+def port(q, k, v, kv_len, **kw):
+    return decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), torch.from_numpy(kv_len),
+                            **kw).numpy()
+
+
+def oracle(q, k, v, kv_len, **kw):
+    b, _, h, d = q.shape
+    hk = k.shape[2]
+    out = jax_decode_ref(jnp.asarray(q[:, 0].reshape(b, hk, h // hk, d)),
+                         jnp.asarray(k), jnp.asarray(v), jnp.asarray(kv_len),
+                         **kw)
+    return np.asarray(out).reshape(b, 1, h, d)
+
+
+def close(a, b, tol=TOL):
+    np.testing.assert_allclose(np.asarray(a, np.float32),
+                               np.asarray(b, np.float32), atol=tol, rtol=tol)
+
+
+# the reference sweep's shapes (tests/test_kernels.py)
+SWEEP = [(2, 256, 4, 2, 32, 4), (1, 512, 8, 8, 64, 8), (3, 128, 4, 1, 32, 2)]
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,nsplit", SWEEP)
+@pytest.mark.parametrize("kw", [{}, {"cap": 50.0}, {"window": 64},
+                                {"cap": 50.0, "window": 64}],
+                         ids=["plain", "cap", "window", "cap+window"])
+def test_decode_attention_sweep(b, s, h, hk, d, nsplit, kw):
+    q, k, v = randn(0, (b, 1, h, d)), randn(1, (b, s, hk, d)), \
+        randn(2, (b, s, hk, d))
+    kv_len = lengths(0, b, s)
+    got = port(q, k, v, kv_len, **kw)
+    close(got, jax_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          jnp.asarray(kv_len), nsplit=nsplit,
+                          interpret=True, **kw))
+    close(got, oracle(q, k, v, kv_len, **kw))
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,nsplit", SWEEP)
+def test_decode_attention_bf16(b, s, h, hk, d, nsplit):
+    """bf16 inputs: the plain version (fp32 inside) against the Pallas
+    kernel at the reference sweep's bf16 tolerance.  The CUDA kernel takes
+    fp32 only."""
+    q, k, v = randn(0, (b, 1, h, d)), randn(1, (b, s, hk, d)), \
+        randn(2, (b, s, hk, d))
+    kv_len = lengths(0, b, s)
+    got = decode_attention(*(torch.from_numpy(a).to(torch.bfloat16)
+                             for a in (q, k, v)), torch.from_numpy(kv_len))
+    assert got.dtype == torch.bfloat16
+    want = jax_decode(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                      jnp.asarray(kv_len), nsplit=nsplit, interpret=True)
+    close(got.float().numpy(), want, tol=3e-2)
+
+
+@pytest.mark.parametrize("case", ["kv_len_1", "window_longer_than_len",
+                                  "g1", "d64", "s_max_300", "gemma_shape"])
+def test_decode_attention_ragged(case):
+    """Shapes the engine gives: a slot of one key, a window longer than the
+    slot, no grouping, D = 64, a cache length that is not a multiple of the
+    Pallas kernel's tiles, and gemma2's heads (H/Hk 8/4, D 256, cap 50,
+    window 4096) over a short cache."""
+    b, s, h, hk, d, kw, lens = {
+        "kv_len_1": (2, 64, 4, 2, 32, {}, [1, 1]),
+        "window_longer_than_len": (2, 64, 4, 2, 32, {"window": 100},
+                                   [5, 64]),
+        "g1": (2, 64, 4, 4, 32, {"cap": 20.0}, [17, 3]),
+        "d64": (3, 96, 8, 2, 64, {"window": 8}, [1, 9, 96]),
+        "s_max_300": (2, 300, 4, 2, 32, {"window": 50}, [299, 300]),
+        "gemma_shape": (2, 40, 8, 4, 256, {"cap": 50.0, "window": 4096},
+                        [7, 30]),
+    }[case]
+    q, k, v = randn(3, (b, 1, h, d)), randn(4, (b, s, hk, d)), \
+        randn(5, (b, s, hk, d))
+    kv_len = np.asarray(lens, np.int32)[:, None]
+    close(port(q, k, v, kv_len, **kw), oracle(q, k, v, kv_len, **kw))
+
+
+def test_keys_at_or_beyond_kv_len_are_never_visible():
+    """Right-padded prefill leaves keys past a slot's length in its cache:
+    changing them changes nothing."""
+    b, s, h, hk, d = 2, 64, 4, 2, 32
+    q, k, v = randn(6, (b, 1, h, d)), randn(7, (b, s, hk, d)), \
+        randn(8, (b, s, hk, d))
+    kv_len = np.asarray([[10], [33]], np.int32)
+    k2, v2 = k.copy(), v.copy()
+    for i, n in enumerate(kv_len[:, 0]):
+        k2[i, n:] = 1e4
+        v2[i, n:] = -1e4
+    np.testing.assert_array_equal(port(q, k, v, kv_len),
+                                  port(q, k2, v2, kv_len))
+
+
+@pytest.mark.parametrize("window", [3, 8, 16])
+def test_decode_window_equals_prefill_window_at_the_last_row(window):
+    """The decode mask (kpos > kv_len - 1 - window) and the prefill mask
+    (kpos > qpos - window) agree at qpos = kv_len - 1, on both sides of the
+    window's edge: decode row t of a cache equals row t of windowed causal
+    prefill attention over the same keys."""
+    s, h, hk, d = 24, 4, 2, 32
+    q, k, v = randn(9, (1, s, h, d)), randn(10, (1, s, hk, d)), \
+        randn(11, (1, s, hk, d))
+    pre = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=True, cap=50.0,
+                          window=window).numpy()
+    for t in range(s):
+        got = port(q[:, t:t + 1], k, v, np.asarray([[t + 1]], np.int32),
+                   cap=50.0, window=window)
+        close(got[:, 0], pre[:, t])
+
+
+def test_plain_version_kernel_layout_vs_oracle():
+    b, s, hk, g, d = 2, 128, 2, 3, 32
+    q, k, v = randn(12, (b, hk, g, d)), randn(13, (b, s, hk, d)), \
+        randn(14, (b, s, hk, d))
+    kv_len = lengths(1, b, s)
+    got = decode_attention_ref(*(torch.from_numpy(a)
+                                 for a in (q, k, v, kv_len)), window=40)
+    close(got.numpy(), jax_decode_ref(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), jnp.asarray(kv_len),
+                                      window=40))
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_attend_decode_matches_reference(local):
+    """The model's decode attention with per-slot lengths: the new k/v are
+    written at each slot's length and attention reads the slot's live keys
+    (its window on a local layer), as JAX ``attend_decode`` computes."""
+    d_model, b, s_max = 64, 3, 48
+    jatt = JaxAttentionConfig(n_heads=4, n_kv_heads=2, head_dim=16,
+                              softcap=50.0, window=16)
+    att = AttentionConfig(n_heads=4, n_kv_heads=2, head_dim=16,
+                          softcap=50.0, window=16)
+    p = {"wq": randn(20, (d_model, 4, 16), 0.125),
+         "wk": randn(21, (d_model, 2, 16), 0.125),
+         "wv": randn(22, (d_model, 2, 16), 0.125),
+         "wo": randn(23, (4, 16, d_model), 0.25)}
+    x = randn(24, (b, 1, d_model))
+    ck, cv = randn(25, (b, s_max, 2, 16)), randn(26, (b, s_max, 2, 16))
+    lens = np.asarray([0, 20, 47], np.int32)
+    y, jk, jv = jax_attn.attend_decode(
+        {n: jnp.asarray(a) for n, a in p.items()}, jatt, 1, jnp.asarray(x),
+        jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(lens), local=local)
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    got = attn.attend_decode({n: torch.from_numpy(a) for n, a in p.items()},
+                             att, torch.from_numpy(x), tk, tv,
+                             torch.from_numpy(lens).long(), local=local)
+    close(got.numpy(), y)
+    close(tk.numpy(), jk)
+    close(tv.numpy(), jv)
+
+
+def test_num_splits_cover_the_cache():
+    assert num_splits(1) == 1 and num_splits(128) == 1
+    assert num_splits(300) == 3
+    assert num_splits(8192) == 32 and num_splits(1 << 20) == 32

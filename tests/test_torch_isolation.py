@@ -32,4 +32,8 @@ def test_port_modules_were_found():
     names = {p.name for p in FILES}
     assert {"operators.py", "runtime.py", "mllm.py", "bridge.py",
             "fused.py", "superopt.py", "signature.py", "detector.py",
+            "model.py", "ssm.py", "engine.py", "sampler.py", "serve.py",
+            "gemma2_2b.py", "mamba2_130m.py", "utils.py",
             "chip_smoke.py"} <= names
+    kernels = {p.parent.name for p in FILES if p.name == "kernel.py"}
+    assert {"decode_attention", "ssd_scan", "flash_attention"} <= kernels

@@ -31,6 +31,10 @@ from repro_torch.kernels.fused_preprocess.kernel import fused_preprocess_cuda  #
 from repro_torch.kernels.fused_preprocess.ops import fused_preprocess  # noqa: E402
 from repro_torch.kernels.fused_prefix.kernel import fused_prefix_cuda  # noqa: E402
 from repro_torch.kernels.fused_prefix.ops import fused_prefix  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import ssd  # noqa: E402
 
 TOL = 2e-5
 # one compiled program per shape is cheaper than op-by-op eager dispatch
@@ -195,13 +199,21 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     k = torch.from_numpy(randn(7, (1, 28, 4, 32)))
     flash_attention(q, k, k)
     fused_prefix(f, f, spec=(("diff", (4, 8)), ("crop", (0, 0, 64, 64))))
+    decode_attention(q[:, :1], k, k, torch.tensor([[28]], dtype=torch.int32))
+    x = torch.from_numpy(randn(10, (1, 16, 2, 8)))
+    ssd(x, torch.ones(1, 16, 2), -torch.ones(2), x[:, :, :1], x[:, :, :1],
+        torch.ones(2), chunk=16)
     assert launch_counts() == before
     assert set(before) == {"frame_diff_u8", "fused_preprocess_u8",
-                           "flash_attention_f32", "fused_prefix_launch"}
+                           "flash_attention_f32", "fused_prefix_launch",
+                           "decode_attention_partials_f32",
+                           "decode_attention_combine_f32", "ssd_cb_f32",
+                           "ssd_scan_f32"}
 
 
 @pytest.mark.parametrize("call", ["frame_diff", "fused_preprocess", "flash",
-                                  "fused_prefix"])
+                                  "fused_prefix", "decode_attention",
+                                  "ssd_scan"])
 def test_kernel_path_refuses_cpu_tensors(call):
     """The CUDA entry points raise on anything but CUDA tensors: there is no
     fallback from the kernel to the plain version."""
@@ -215,5 +227,13 @@ def test_kernel_path_refuses_cpu_tensors(call):
             fused_preprocess_cuda(f, crop=(64, 0, 64, 256), factor=2)
         elif call == "fused_prefix":
             fused_prefix_cuda(f, f, spec=(("diff", (4, 8)),))
+        elif call == "decode_attention":
+            decode_attention_cuda(q[:, :1], k, k,
+                                  torch.tensor([[28]], dtype=torch.int32))
+        elif call == "ssd_scan":
+            x = torch.from_numpy(randn(10, (1, 2, 16, 8)))
+            c = x[:, :1, :, :1].contiguous()
+            ssd_scan_cuda(x, x[:, :1], x[:, :1], c.transpose(2, 3),
+                          c.transpose(2, 3))
         else:
             flash_attention_cuda(q, k, k)
