@@ -13,9 +13,17 @@ Phases (any failure exits non-zero and prints no result line):
      attention (prefill and decode; it cannot soft-cap, so it runs
      without the cap), the unfused chain (frame_diff + fused_preprocess
      kernels, colour and signature in PyTorch) for fused_prefix (timed
-     only here; the port never calls SDPA); decode_attention at gemma2's
-     decode shape and ragged ones, ssd_scan at mamba2's chunks and the
-     reference sweep's grouped shape, flash_attention at D 256, S 8192;
+     only here; the port never calls SDPA); decode_attention at gemma2's,
+     chatglm3-6b's (a group of 16) and phi3-mini's (D 96) decode shapes
+     and ragged ones, ssd_scan at mamba2's chunks and the reference
+     sweep's grouped shape, flash_attention at gemma2's, chatglm3-6b's and
+     phi3-mini's prefill of an 8192 bucket; the last two again at
+     chatglm3's and phi3's magnitudes (q, k, v as the reference's init
+     makes them: scores in the hundreds), held to the plain version and
+     to float64 beside it (card and CPU); int8_matmul (exact: equal to
+     its plain version) at the reference sweep's shapes, kernel_bench's
+     256x512x512, ragged ones and chatglm3-6b's projections at M = 4, with
+     ``torch._int_mm`` plus the two scale multiplies as yardstick;
   3. Q8's naive plan: Source -> MLLM extract (full width: 4 layers,
      d_model 256, 8/4 heads, PATCH 16, seeded random weights) -> filter
      -> Sink over 512 TollBooth frames, micro-batch 16;
@@ -44,9 +52,24 @@ Phases (any failure exits non-zero and prints no result line):
  10. mamba2-130m at full width through the same engine and requests, the
      long one replaced by 512 tokens (two SSD chunks): ssd_scan on every
      prefill;
- 11. card == CPU: both LMs at full width and depth 2, the same weights on
-     both devices, three requests: equal tokens, prefill and decode
-     logits within 1e-3.
+ 11. card == CPU: gemma2-2b, mamba2-130m, chatglm3-6b, glm4-9b and
+     phi3-mini-3.8b at full width and depth 2, the same weights on both
+     devices, three requests: equal tokens, prefill and decode logits
+     within 1e-3; the same steps on the card with the attention kernels'
+     plain versions printed beside them;
+ 12. chatglm3-6b at full width (28 layers, seeded random weights) through
+     the same engine and requests (the long prompt 4200 tokens), then the
+     reference's int8 recipe on the same weights on the card:
+     ``quantize_params_int8`` (ratio < 0.35), ``matmul_int8_dynamic`` on
+     every quantized projection of layer 0 at M = 4 and M = 4200 (the
+     path ``chatglm3_int8``: the int8_matmul kernel, equal to its plain
+     version, within 5% of the fp32 product), one stacked leaf's codes,
+     scales and dequantized weights equal to the CPU's,
+     ``dequantize_params`` and the requests again on the dense weights it
+     rebuilds (the path ``chatglm3_dequant_serve``, as the reference
+     serves), with the top-1 agreement of the logits against the fp32 run
+     printed (not gated: random full-width weights over 65k tokens have
+     near ties).
 
 Each phase that drives a plan zeroes the kernels' launch counts first and
 reads them after; a kernel of the plan that was never launched fails the
@@ -55,7 +78,9 @@ run.  The last lines are the card's ``nvidia-smi`` name/power line, one
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -75,14 +100,17 @@ N_FRAMES, MICRO_BATCH, STREAM_SEED = 512, 16, 11
 DETECTOR_SEED = 129
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_OPS_S = 67e12           # H100 SXM fp32 outside the tensor cores
+INT8_OPS_S = 1979e12         # H100 SXM dense int8 on the tensor cores
 # fused_prefix: its diff is exact and its colour counts are exact (the
 # distance is rounded as in the plain version); the preprocess divides
 # where PyTorch multiplies by a reciprocal, and patch means sum in another
 # order: a few ulps, well inside 1e-5
 # decode_attention: the reference sweep's fp32 tolerance; ssd_scan its SSD
-# sweep's (sums of up to 256 products in another order)
+# sweep's (sums of up to 256 products in another order); int8_matmul none:
+# its int32 sums are exact and both versions round (acc * sx) * sw alike
 TOL = {"frame_diff": 1e-6, "fused_preprocess": 1e-5, "flash_attention": 2e-5,
-       "fused_prefix": 1e-5, "decode_attention": 2e-5, "ssd_scan": 1e-4}
+       "fused_prefix": 1e-5, "decode_attention": 2e-5, "ssd_scan": 1e-4,
+       "int8_matmul": 0.0}
 KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
     "frame_diff": ("frame_diff_u8",
                    "src/repro_torch/kernels/csrc/frame_diff.cu",
@@ -101,6 +129,9 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
                          "src/repro/kernels/decode_attention/kernel.py:69"),
     "ssd_scan": ("ssd_scan_f32", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:55"),
+    "int8_matmul": ("int8_matmul_f32",
+                    "src/repro_torch/kernels/csrc/int8_matmul.cu",
+                    "src/repro/kernels/int8_matmul/kernel.py:36"),
 }
 #: a kernel's other launches, each its own C entry point with its own
 #: count, made once with every launch of the kernel's entry above
@@ -108,15 +139,39 @@ COMPANIONS = {"decode_attention": ("decode_attention_combine_f32",),
               "ssd_scan": ("ssd_cb_f32",)}
 #: the paths driven end to end, by the name used in ``launches_by_path``
 PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
-         "gemma2_serve", "mamba2_serve")
+         "gemma2_serve", "mamba2_serve", "chatglm3_serve", "chatglm3_int8",
+         "chatglm3_dequant_serve")
 #: the serving phases: 8 requests of the launcher's generator plus a long
 #: one; s_max and slots as a deployment of gemma2-2b on one card would
 SERVE_SLOTS, SERVE_S_MAX, SERVE_NEW = 4, 8192, 12
-LONG_PROMPT = {"gemma2-2b": 4200, "mamba2-130m": 512}
+LONG_PROMPT = {"gemma2-2b": 4200, "mamba2-130m": 512, "chatglm3-6b": 4200}
+#: chatglm3-6b's quantized projections as (K, N) matrices, the operands of
+#: matmul_int8_dynamic (wq/wk/wv (d, H, Dh) and wo (H, Dh, d) reshaped)
+CHATGLM3_PROJ = {"wq": (4096, 4096), "wk": (4096, 256), "wv": (4096, 256),
+                 "wo": (4096, 4096), "w_in": (4096, 13696),
+                 "w_gate": (4096, 13696), "w_out": (13696, 4096)}
 #: card == CPU: the logits' tolerance.  fp32 on both, but cuBLAS and the
-#: CPU's BLAS sum d_model (up to 2304) products and the 256000-row
-#: unembedding in other orders; logits are at most 30 after the soft-cap
+#: CPU's BLAS sum d_model (up to 4096) products in other orders; the
+#: attention kernels sum each score in the plain version's order, since the
+#: dense zoo (no soft-cap) has scores in the hundreds
 LM_TOL = 1e-3
+
+
+#: the dense zoo's attention at its own magnitudes (phase 2): q, k and v
+#: drawn with the standard deviations the reference's init gives them after
+#: a norm (fan-in over the head axis: q sqrt(d_model / H), k and v
+#: sqrt(d_model / Hk)), so the scores reach the hundreds, as in phase 11.
+#: name -> (d_model, H, Hk, D)
+MAG_SHAPES = {"chatglm3": (4096, 32, 2, 128), "phi3": (3072, 32, 32, 96)}
+#: the kernel against its plain version there, relative to the plain
+#: version's largest magnitude: a score (~500) rounded another way (~1e-4)
+#: moves a near-tied softmax's output by up to ~p(1-p) 1e-4 |v_i - v_j|,
+#: ~1e-4 of the largest |v|
+MAG_TOL = 1e-3
+#: the witness of rounding: against float64, the kernel no farther than
+#: MAG_WITNESS times the plain version (on the card or the CPU, whichever
+#: is farther)
+MAG_WITNESS = 2.0
 
 
 class SmokeFailure(Exception):
@@ -192,8 +247,8 @@ def timing(t):
             "library_ms": t["library_ms"]}
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+def bound(nbytes: float, ops: float, ops_s: float = FP32_OPS_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
 
@@ -202,9 +257,28 @@ def bound(nbytes: float, ops: float):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+#: each kernel's largest error against its plain version, over all checks
+ERRS = {k: 0.0 for k in KERNELS}
+
+
+def compare(name, got, want, label):
+    """A kernel's output against its plain version's on the same inputs,
+    within ``TOL[name]`` (absolute plus relative)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    check(got.shape == want.shape and torch.isfinite(got).all(),
+          f"{name} {label}: shape {tuple(got.shape)} or non-finite")
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    tol = TOL[name]
+    bad = ((got - want).abs() > tol + tol * want.abs()).sum().item()
+    print(f"  {name:17s} {label:44s} max_abs_err {err:.3e}"
+          f" (tol {tol:g})")
+    check(bad == 0, f"{name} {label}: {bad} values outside {tol}")
+    ERRS[name] = max(ERRS[name], err)
+
+
 def kernel_checks(dev):
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     from repro_torch.kernels.frame_diff.kernel import frame_diff_cuda
     from repro_torch.kernels.frame_diff.ref import frame_diff_ref
     from repro_torch.kernels.fused_preprocess.kernel import \
@@ -212,20 +286,7 @@ def kernel_checks(dev):
     from repro_torch.kernels.fused_preprocess.ref import fused_preprocess_ref
 
     gen = torch.Generator().manual_seed(0)
-    errs = {k: 0.0 for k in KERNELS}
     rows = {}
-
-    def compare(name, got, want, label):
-        got, want = got.float().cpu(), want.float().cpu()
-        check(got.shape == want.shape and torch.isfinite(got).all(),
-              f"{name} {label}: shape {tuple(got.shape)} or non-finite")
-        err = (got - want).abs().max().item() if got.numel() else 0.0
-        tol = TOL[name]
-        bad = ((got - want).abs() > tol + tol * want.abs()).sum().item()
-        print(f"  {name:17s} {label:44s} max_abs_err {err:.3e}"
-              f" (tol {tol:g})")
-        check(bad == 0, f"{name} {label}: {bad} values outside {tol}")
-        errs[name] = max(errs[name], err)
 
     def frames(shape):
         return torch.randint(0, 256, shape, generator=gen,
@@ -272,14 +333,6 @@ def kernel_checks(dev):
         return [torch.randn(shape, generator=gen).to(dev) for shape in
                 ((b, s, h, d), (b, s, hk, d), (b, s, hk, d))]
 
-    def flash_ref(q, k, v, **kw):
-        b, s, h, d = q.shape
-        hk = k.shape[2]
-        out = flash_attention_ref(
-            q.permute(0, 2, 1, 3).reshape(b, hk, h // hk, s, d),
-            k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), **kw)
-        return out.reshape(b, h, s, d).permute(0, 2, 1, 3)
-
     cases = [(16, s, 4 * g, 4, 32, dict(causal=True))
              for s in (140, 76, 28, 1, 257) for g in (2, 1)]
     cases += [(4, 140, 8, 4, 32, dict(causal=False)),
@@ -290,7 +343,7 @@ def kernel_checks(dev):
     for b, s, h, hk, d, kw in cases:
         q, k, v = qkv(b, s, h, hk, d)
         compare("flash_attention", flash_attention_cuda(q, k, v, **kw),
-                flash_ref(q, k, v, **kw),
+                flash_attention_plain(q, k, v, **kw),
                 f"B{b} S{s} H{h}/{hk} D{d} {kw}")
     shapes = {}
     for s in (140, 76, 28):
@@ -298,7 +351,7 @@ def kernel_checks(dev):
         pairs = s * (s + 1) // 2
         t = dict(
             ms=device_ms(lambda: flash_attention_cuda(q, k, v)),
-            plain_ms=device_ms(lambda: flash_ref(q, k, v)),
+            plain_ms=device_ms(lambda: flash_attention_plain(q, k, v)),
             library_ms=sdpa_ms(q, k, v),
             bound=bound(4 * (2 * q.numel() + 2 * k.numel()),
                         4 * 32 * pairs * 16 * 8))
@@ -309,12 +362,14 @@ def kernel_checks(dev):
     rows["flash_attention"] = shapes[140]
     rows["fused_prefix"] = prefix_checks(compare, frames)
     lm_kernel_checks(compare, gen, dev, rows)
+    magnitude_checks(gen, dev)
+    rows["int8_matmul"] = int8_checks(dev)
     for name in ("frame_diff", "fused_preprocess"):
         t = rows[name]
         print(f"  {name} at the path's shape: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
               f"({t['bound'][1]})")
-    return rows, errs
+    return rows
 
 
 RED, BLUE = (190., 40., 40.), (40., 40., 190.)
@@ -455,7 +510,7 @@ def lm_kernel_checks(compare, gen, dev, rows):
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_plain
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
@@ -465,10 +520,19 @@ def lm_kernel_checks(compare, gen, dev, rows):
     def live(lens, window):
         return [n - max(0, n - window) if window else n for n in lens]
 
-    # decode_attention: (B, S, H, Hk, D, kv_len, kw)
-    gemma = (4, 8192, 8, 4, 256, [7, 30, 4100, 4250])
+    # decode_attention: (B, S, H, Hk, D, kv_len, kw); the decode shapes of
+    # gemma2-2b (local and global layers), chatglm3-6b / glm4-9b (32 query
+    # heads over 2 kv heads of 128) and phi3-mini-3.8b (32 heads of 96), 4
+    # slots of an 8192-row cache, timed
+    lens = [7, 30, 4100, 4250]
+    gemma = (4, 8192, 8, 4, 256, lens)
+    timed_shapes = {(4, 8192, 8, 4, 256): "gemma2",
+                    (4, 8192, 32, 2, 128): "chatglm3_decode",
+                    (4, 8192, 32, 32, 96): "phi3_decode"}
     cases = [gemma + (dict(cap=50.0, window=4096),),
              gemma + (dict(cap=50.0),),
+             (4, 8192, 32, 2, 128, lens, {}),
+             (4, 8192, 32, 32, 96, lens, {}),
              (2, 64, 4, 2, 32, [1, 1], {}),                # kv_len = 1
              (2, 64, 4, 2, 32, [5, 64], dict(window=100)),  # window > len
              (2, 64, 4, 4, 32, [17, 3], dict(cap=20.0)),    # G = 1
@@ -482,7 +546,8 @@ def lm_kernel_checks(compare, gen, dev, rows):
                 decode_attention_cuda(q, k, v, kv_len, **kw),
                 decode_attention_plain(q, k, v, kv_len, **kw),
                 f"B{b} S{s} H{h}/{hk} D{d} len {lens} {kw}")
-        if (b, s, h, hk, d) != gemma[:5]:
+        which = timed_shapes.get((b, s, h, hk, d))
+        if which is None:
             continue
         n_live = sum(live(lens, kw.get("window")))
         nbytes = 4 * (2 * q.numel() + 2 * hk * d * n_live + b)
@@ -506,15 +571,19 @@ def lm_kernel_checks(compare, gen, dev, rows):
                 qh, kh, vh, attn_mask=mask[:, None, None, :],
                 enable_gqa=True)),
             bound=bound(nbytes, ops), live_keys=n_live, bytes=nbytes)
-        timed["local" if kw.get("window") else "global"] = t
-        print(f"  decode_attention gemma2 decode B4 S8192 H8/4 D256 "
-              f"{'window 4096' if kw.get('window') else 'global'} "
-              f"({n_live} live keys x 4 kv heads): kernel {t['ms']:.4f} ms "
+        if which == "gemma2":
+            which = "local" if kw.get("window") else "global"
+        timed[which] = t
+        print(f"  decode_attention {which} decode B4 S8192 H{h}/{hk} D{d} "
+              f"{kw} ({n_live} live keys x {hk} kv heads): kernel "
+              f"{t['ms']:.4f} ms "
               f"(partials {t['partials_ms']:.4f}, combine "
               f"{t['combine_ms']:.4f}), plain {t['plain_ms']:.4f} ms, SDPA "
               f"without the cap {t['library_ms']:.4f} ms, bound "
               f"{t['bound'][0]:.5f} ms ({t['bound'][1]}, {nbytes} B)")
-    rows["decode_attention"] = {**timed["local"], "global": timed["global"]}
+    rows["decode_attention"] = {**timed["local"], "global": timed["global"],
+                                "chatglm3_decode": timed["chatglm3_decode"],
+                                "phi3_decode": timed["phi3_decode"]}
 
     # ssd_scan: (BC, H, G, Q, P, N)
     ssd_rows = {}
@@ -553,10 +622,7 @@ def lm_kernel_checks(compare, gen, dev, rows):
     kw = dict(causal=True, cap=50.0, window=w)
 
     def plain():
-        out = flash_attention_ref(q.permute(0, 2, 1, 3).reshape(1, 4, 2, s, 256),
-                                  k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-                                  **kw)
-        return out.reshape(1, 8, s, 256).permute(0, 2, 1, 3)
+        return flash_attention_plain(q, k, v, **kw)
 
     compare("flash_attention", flash_attention_cuda(q, k, v, **kw), plain(),
             f"B1 S{s} H8/4 D256 {kw}")
@@ -576,6 +642,197 @@ def lm_kernel_checks(compare, gen, dev, rows):
           f"4096: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, SDPA "
           f"without the cap {t['library_ms']:.3f} ms, bound "
           f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    del q, k, v, qh, kh, vh, mask
+
+    # flash_attention at chatglm3-6b's (32/2 heads of 128: a group of 16,
+    # 4 positions per tile) and phi3-mini's (32/32 of 96) causal prefill of
+    # an 8192 bucket
+    for which, h, hk, d in (("chatglm3_prefill", 32, 2, 128),
+                            ("phi3_prefill", 32, 32, 96)):
+        q, k, v = randn(1, s, h, d), randn(1, s, hk, d), randn(1, s, hk, d)
+
+        def plain():
+            return flash_attention_plain(q, k, v, causal=True)
+
+        compare("flash_attention", flash_attention_cuda(q, k, v), plain(),
+                f"B1 S{s} H{h}/{hk} D{d} causal")
+        pairs = s * (s + 1) // 2
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        t = dict(ms=device_ms(lambda: flash_attention_cuda(q, k, v), n=2,
+                              reps=3),
+                 plain_ms=device_ms(plain, n=1, reps=3),
+                 library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, is_causal=True, enable_gqa=True), n=2,
+                     reps=3),
+                 bound=bound(4 * (2 * q.numel() + 2 * k.numel()),
+                             4 * d * pairs * h))
+        rows["flash_attention"][which] = t
+        print(f"  flash_attention {which} B1 S{s} H{h}/{hk} D{d} causal: "
+              f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, SDPA "
+              f"{t['library_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms "
+              f"({t['bound'][1]})")
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+
+
+def attention64(q, k, v, mask):
+    """float64 attention in model layout, the value both fp32 versions are
+    measured against: q (B, Sq, H, D), k/v (B, S, Hk, D), mask (B, Sq, S)
+    of the visible keys."""
+    b, sq, h, d = q.shape
+    hk = k.shape[2]
+    qg = q.double().reshape(b, sq, hk, h // hk, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double()) / math.sqrt(d)
+    logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
+    out = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(logits, -1),
+                       v.double())
+    return out.reshape(b, sq, h, d)
+
+
+def magnitude_checks(gen, dev):
+    """decode_attention and flash_attention at chatglm3-6b's (a group of
+    16) and phi3-mini's (D 96) shapes with q, k, v at the magnitudes the
+    model gives them (``MAG_SHAPES``): the decode shape of phase 2 (4 slots
+    of 8192, lengths 7/30/4100/4250) and a causal prefill of 2048.  The
+    kernel is held to its plain version within ``MAG_TOL`` of the largest
+    magnitude, and to float64 within ``MAG_WITNESS`` times the farther of
+    the plain version on the card and on the CPU."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_plain
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    lens = torch.tensor([7, 30, 4100, 4250], dtype=torch.int32)[:, None]
+    for name, (dm, h, hk, d) in MAG_SHAPES.items():
+        for kind, b, sq, s in (("decode", 4, 1, 8192),
+                               ("prefill", 1, 2048, 2048)):
+            q = math.sqrt(dm / h) * torch.randn(b, sq, h, d, generator=gen)
+            k, v = (math.sqrt(dm / hk) * torch.randn(b, s, hk, d,
+                                                     generator=gen)
+                    for _ in range(2))
+            if kind == "decode":
+                mask = torch.arange(s)[None, None, :] < lens[:, :, None]
+
+                def kernel(q, k, v):
+                    return decode_attention_cuda(q, k, v, lens.to(q.device))
+
+                def plain(q, k, v):
+                    return decode_attention_plain(q, k, v, lens.to(q.device))
+            else:
+                mask = torch.ones(s, s, dtype=torch.bool).tril()[None]
+                kernel, plain = flash_attention_cuda, flash_attention_plain
+            card = [t.to(dev) for t in (q, k, v)]
+            got, want = kernel(*card).cpu(), plain(*card).cpu()
+            cpu = plain(q, k, v)
+            exact = attention64(*card, mask.to(dev)).cpu()
+            top = exact.abs().max().item()
+            far = {n: (x.double() - exact).abs().max().item() / top
+                   for n, x in (("kernel", got), ("plain", want),
+                                ("cpu", cpu))}
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            rel_cpu = ((got - cpu).abs().max() / cpu.abs().max()).item()
+            label = (f"{name} {kind} B{b} S{s} H{h}/{hk} D{d}, q std "
+                     f"{math.sqrt(dm / h):.2f}, k/v std "
+                     f"{math.sqrt(dm / hk):.2f}")
+            print(f"  magnitudes {label}: kernel vs plain {rel:.3e} of the "
+                  f"largest |out| {top:.1f} (tol {MAG_TOL:g}), vs the plain "
+                  f"version on the CPU {rel_cpu:.3e}; vs float64: "
+                  f"kernel {far['kernel']:.3e}, plain on the card "
+                  f"{far['plain']:.3e}, plain on the CPU {far['cpu']:.3e}")
+            check(torch.isfinite(got).all() and rel <= MAG_TOL,
+                  f"magnitudes {label}: kernel vs plain {rel}")
+            check(far["kernel"] <= MAG_WITNESS * max(far["plain"],
+                                                     far["cpu"]),
+                  f"magnitudes {label}: the kernel is {far['kernel']} from "
+                  f"float64, the plain versions {far['plain']} (card) and "
+                  f"{far['cpu']} (CPU)")
+            del card, got, want, cpu, exact
+        torch.cuda.empty_cache()
+
+
+def int8_yardstick(x_q, w_q, sx, sw):
+    """PyTorch's int8 product, ``torch._int_mm``, followed by the same two
+    scale multiplies (yardstick only; the port never calls it), or None
+    where K or N is not a multiple of 8 (``_int_mm`` refuses them).  It
+    refuses M <= 16 too: there the rows are padded with zeros to 32, and
+    the second value says so."""
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    if k % 8 or n % 8:
+        return None, False
+    padded = m <= 16
+    if padded:
+        x_q = torch.cat([x_q, x_q.new_zeros(32 - m, k)])
+        sx = torch.cat([sx, sx.new_ones(32 - m, 1)])
+    return (lambda: (torch._int_mm(x_q, w_q).float() * sx) * sw), padded
+
+
+def int8_timing(label, x_q, w_q, sx, sw):
+    """The kernel's, the plain version's and the yardstick's device time
+    at one shape, with the bound: int8 operands and f32 scales read once,
+    f32 out written once; 2 M K N int8 operations."""
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_plain
+
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    lib, padded = int8_yardstick(x_q, w_q, sx, sw)
+    if lib is not None:
+        same = torch.equal(lib()[:m], int8_matmul_plain(x_q, w_q, sx, sw))
+    nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
+    big = 2 * m * k * n > 1e11
+    t = dict(ms=device_ms(lambda: int8_matmul_cuda(x_q, w_q, sx, sw),
+                          n=4 if big else 40),
+             plain_ms=device_ms(lambda: int8_matmul_plain(x_q, w_q, sx, sw),
+                                n=2 if big else 8),
+             library_ms=None if lib is None else device_ms(lib),
+             bound=bound(nbytes, 2 * m * k * n, INT8_OPS_S),
+             library_rows_padded_to_32=padded)
+    print(f"  int8_matmul {label} M{m} K{k} N{n}: kernel {t['ms']:.4f} ms, "
+          f"plain {t['plain_ms']:.4f} ms, _int_mm + scales "
+          + ("not timed (K or N not a multiple of 8)" if lib is None else
+             f"{t['library_ms']:.4f} ms{' (M padded to 32)' if padded else ''}"
+             f" (equal to the plain version: {same})")
+          + f", bound {t['bound'][0]:.5f} ms ({t['bound'][1]}, {nbytes} B)")
+    return t
+
+
+def int8_checks(dev):
+    """int8_matmul against its plain version on the card (equal), at the
+    reference sweep's shapes, kernel_bench's 256x512x512, ragged ones (M 4,
+    M 4200, K and N off multiples of 16) and chatglm3-6b's projections at
+    a decode tick (M = 4); each of those but the ragged ones timed.  The
+    row of the kernels line is chatglm3-6b's w_in at M = 4, the largest
+    weight a decode tick reads."""
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda
+    from repro_torch.kernels.int8_matmul.ref import (int8_matmul_plain,
+                                                     quantize_colwise,
+                                                     quantize_rowwise)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cases = [("sweep", 128, 256, 128), ("sweep", 256, 512, 256),
+             ("sweep", 64, 128, 512), ("kernel_bench", 256, 512, 512),
+             ("ragged", 4, 1000, 13), ("ragged", 4200, 4099, 70),
+             ("ragged", 37, 129, 67), ("ragged", 1, 7, 1),
+             ("ragged", 65, 4096, 4100)]
+    cases += [(f"chatglm3 {name}", 4, k, n)
+              for name, (k, n) in CHATGLM3_PROJ.items()]
+    out = {}
+    for label, m, k, n in cases:
+        x_q, sx = quantize_rowwise(torch.randn(m, k, generator=gen,
+                                               device=dev))
+        w_q, sw = quantize_colwise(torch.randn(k, n, generator=gen,
+                                               device=dev))
+        compare("int8_matmul", int8_matmul_cuda(x_q, w_q, sx, sw),
+                int8_matmul_plain(x_q, w_q, sx, sw),
+                f"{label} M{m} K{k} N{n}")
+        if label != "ragged":
+            out[f"{label} M{m} K{k} N{n}"] = int8_timing(label, x_q, w_q,
+                                                          sx, sw)
+    head = out.pop("chatglm3 w_in M4 K4096 N13696")
+    return {**head, **out}
 
 
 def sdpa_ms(q, k, v):
@@ -866,35 +1123,41 @@ def serve_requests(cfg, long_len):
     return reqs
 
 
-def serve_phase(name, arch, dev, per_prefill=(), per_decode=()):
+def serve_phase(name, arch, dev, per_prefill=(), per_decode=(), lm=None):
     """One LM at full width through ``ServingEngine``: seeded random
-    weights drawn on the card, a warm-up run (a short and a long request),
-    then the measured run of ``serve_requests`` with the launch counts
-    zeroed just before and read just after.  Each kernel of
-    ``per_prefill`` must have launched once per layer per prefill, each of
-    ``per_decode`` once per layer per decode step."""
+    weights drawn on the card and a warm-up run (a short and a long
+    request), or the given ``lm``, already warm; then the measured run of
+    ``serve_requests`` with the launch counts zeroed just before and read
+    just after.  Each kernel of ``per_prefill`` must have launched once per
+    layer per prefill, each of ``per_decode`` once per layer per decode
+    step.  Returns the numbers, the counts, the LM, the engine and the
+    finished requests."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.model import LM
     from repro_torch.serving.engine import Request
 
     cfg = get_config(arch)
-    t0 = time.perf_counter()
-    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in lm.parameters())
-    print(f"  {arch}: {n_params / 1e9:.3f} G parameters (fp32, "
-          f"{4 * n_params / 1e9:.2f} GB) drawn on the card in "
-          f"{time.perf_counter() - t0:.2f} s; {cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}")
     kw = dict(max_slots=SERVE_SLOTS, s_max=SERVE_S_MAX, eos_id=-1)
-    warm = timed_engine(lm, **kw)
-    rs = np.random.RandomState(2)
-    warm.run([Request(uid=-1, prompt=[2, 3, 4, 5], max_new_tokens=2),
-              Request(uid=-2, prompt=list(rs.randint(
-                  2, cfg.vocab_size, LONG_PROMPT[arch])), max_new_tokens=2)])
-    del warm
-    torch.cuda.empty_cache()
+    if lm is None:
+        t0 = time.perf_counter()
+        lm = LM(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in lm.parameters())
+        print(f"  {arch}: {n_params / 1e9:.3f} G parameters (fp32, "
+              f"{4 * n_params / 1e9:.2f} GB) drawn on the card in "
+              f"{time.perf_counter() - t0:.2f} s; {cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab_size}")
+        warm = timed_engine(lm, **kw)
+        rs = np.random.RandomState(2)
+        warm.run([Request(uid=-1, prompt=[2, 3, 4, 5], max_new_tokens=2),
+                  Request(uid=-2, prompt=list(rs.randint(
+                      2, cfg.vocab_size, LONG_PROMPT[arch])),
+                      max_new_tokens=2)])
+        del warm
+        torch.cuda.empty_cache()
+    n_params = sum(p.numel() for p in lm.parameters())
 
     eng = timed_engine(lm, **kw)
     reqs = serve_requests(cfg, LONG_PROMPT[arch])
@@ -956,7 +1219,7 @@ def serve_phase(name, arch, dev, per_prefill=(), per_decode=()):
                 check(counts[sym] == want,
                       f"{name}: {sym} launched {counts[sym]} times, not "
                       f"{want} ({cfg.n_layers} layers x {n} {per})")
-    return res, counts, lm, eng
+    return res, counts, lm, eng, done
 
 
 def trace_decode(name, eng, cfg, n_ticks=6):
@@ -982,17 +1245,39 @@ def trace_decode(name, eng, cfg, n_ticks=6):
                           f"{n_ticks} decode ticks of {SERVE_SLOTS} slots", 8)
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """The LM's attention calls the plain versions of flash_attention and
+    decode_attention on the card, for the duration of the block."""
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_plain
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.models import attention
+
+    kernels = attention.flash_attention, attention.decode_attention
+    attention.flash_attention = flash_attention_plain
+    attention.decode_attention = decode_attention_plain
+    try:
+        yield
+    finally:
+        attention.flash_attention, attention.decode_attention = kernels
+
+
 def lm_card_vs_cpu(dev):
-    """Both LMs at full width and depth 2 (one gemma2 period, two mamba2
-    layers), the same weights on the card and the CPU: three requests
-    through two slots give equal tokens, and the prefill and three decode
-    steps' logits agree within LM_TOL."""
+    """The served LMs at full width and depth 2 (one gemma2 period, two
+    layers of the others), the same weights on the card and the CPU: three
+    requests through two slots give equal tokens, and the prefill and
+    three decode steps' logits agree within LM_TOL.  The dense zoo holds
+    the attention kernels' group of 16 (chatglm3, glm4) and head dim 96
+    (phi3-mini) on a real path.  The same steps on the card with the
+    attention kernels' plain versions are printed beside them."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_requests
     from repro_torch.models.model import LM
     from repro_torch.serving.engine import ServingEngine
 
-    for arch in ("gemma2-2b", "mamba2-130m"):
+    for arch in ("gemma2-2b", "mamba2-130m", "chatglm3-6b", "glm4-9b",
+                 "phi3-mini-3.8b"):
         cfg = get_config(arch).replace(n_layers=2)
         cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(3))
         card = LM(cfg, device=dev)
@@ -1001,19 +1286,22 @@ def lm_card_vs_cpu(dev):
             lm, max_slots=2, s_max=64, eos_id=-1).run(
                 make_requests(cfg, 3, 6))] for lm in (cpu, card)]
         prompt = torch.tensor([make_requests(cfg, 1, 1)[0].prompt])
-        errs = []
-        logits = {}
-        for lm in (cpu, card):
+
+        def steps(lm):
+            """The prompt's prefill and three decode steps' logits."""
             cache = lm.init_cache(1, 64)
             lg, cache = lm.prefill(prompt, cache)
-            steps = [lg]
+            out = [lg]
             for t in range(3):
                 tok = torch.tensor([[outs[0][0][t]]])
                 lg, cache = lm.decode(tok, cache,
                                       torch.tensor(prompt.shape[1] + t))
-                steps.append(lg)
-            logits[lm.device.type] = [x.cpu() for x in steps]
-        for a, b in zip(logits["cuda"], logits["cpu"]):
+                out.append(lg)
+            return [x.cpu() for x in out]
+
+        want, got = steps(cpu), steps(card)
+        errs = []
+        for a, b in zip(got, want):
             check(torch.isfinite(a).all() and a.shape == b.shape,
                   f"{arch}: non-finite or misshapen logits on the card")
             errs.append((a - b).abs().max().item())
@@ -1022,10 +1310,172 @@ def lm_card_vs_cpu(dev):
               f"logits max_abs_err prefill {errs[0]:.3e}, decode "
               + ", ".join(f"{e:.3e}" for e in errs[1:])
               + f" (tol {LM_TOL:g})")
+        if not cfg.has_mamba:
+            with plain_attention():
+                ref = [(a - b).abs().max().item()
+                       for a, b in zip(steps(card), want)]
+            print(f"  {arch} depth 2: the card with the attention kernels' "
+                  f"plain versions (printed, not gated): prefill "
+                  f"{ref[0]:.3e}, decode "
+                  + ", ".join(f"{e:.3e}" for e in ref[1:]))
         check(same, f"{arch}: card and CPU tokens differ")
-        check(max(errs) < LM_TOL, f"{arch}: card vs CPU logits {max(errs)}")
+        check(all(e < LM_TOL for e in errs),
+              f"{arch}: card vs CPU logits {errs} (tol {LM_TOL})")
         del cpu, card
     torch.cuda.empty_cache()
+
+
+def layer_projections(params, qparams, layer=0):
+    """Layer ``layer``'s slice of every quantized projection of a dense
+    stack, as the (K, N) operands of ``matmul_int8_dynamic``: name -> (fp32
+    weight, int8 codes, column scale (1, N)).  wq/wk/wv (d, H, Dh) fold
+    their heads into N, whose per-Dh scale is tiled over the heads; wo
+    (H, Dh, d) folds them into K.  Views of the trees: nothing is copied
+    but the scales."""
+    blk, qblk = params["stack"]["i0"], qparams["stack"]["i0"]
+    out = {}
+    for part, names in (("mixer", ("wq", "wk", "wv", "wo")),
+                        ("mlp", ("w_in", "w_gate", "w_out"))):
+        for name in names:
+            w, q = blk[part][name][layer], qblk[part][name]
+            k = w.shape[0] * w.shape[1] if name == "wo" else w.shape[0]
+            w2, q2 = w.reshape(k, -1), q["q"][layer].reshape(k, -1)
+            sw = q["scale"].reshape(1, -1)
+            sw = sw.repeat(1, q2.shape[1] // sw.shape[1])
+            check(tuple(q2.shape) == CHATGLM3_PROJ[name],
+                  f"chatglm3 {name}: (K, N) {tuple(q2.shape)}")
+            out[name] = (w2, q2, sw)
+    return out
+
+
+def chatglm3_int8(dev, rows):
+    """Phase 12: chatglm3-6b at full width through the engine, then the
+    reference's int8 recipe on the same weights on the card: quantize,
+    layer 0's projections through matmul_int8_dynamic at M = 4 and at the
+    long prompt's length (the path ``chatglm3_int8``), dequantize, the
+    same requests again.  Returns the serving numbers and launch counts of
+    the three paths and the int8 summary."""
+    from repro_torch.bridge import flatten
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.int8_matmul.ops import matmul_int8_dynamic
+    from repro_torch.kernels.int8_matmul.ref import (int8_matmul_plain,
+                                                     quantize_rowwise)
+    from repro_torch.serving.quantize import (dequantize_params,
+                                              quantize_params_int8)
+
+    arch, long_m = "chatglm3-6b", LONG_PROMPT["chatglm3-6b"]
+    serving, counts = {}, {}
+    serving["chatglm3_serve"], counts["chatglm3_serve"], lm, eng, done = \
+        serve_phase("chatglm3_serve", arch, dev,
+                    per_prefill=["flash_attention"],
+                    per_decode=["decode_attention"])
+    busy = trace_decode("chatglm3_decode", eng, lm.cfg)
+    del eng
+    torch.cuda.empty_cache()
+    fp32_out = {r.uid: r.output for r in done}
+    # the reference test's logits: two rows of 32 tokens, fp32 weights
+    tokens = torch.arange(64).reshape(2, 32) % lm.cfg.vocab_size
+    fp32_top1 = lm.logits_causal(tokens).argmax(-1).cpu()
+
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.tree()
+    t0 = time.perf_counter()
+    qparams, stats = quantize_params_int8(params)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    print(f"  quantize_params_int8: {stats['orig_bytes'] / 1e9:.3f} GB fp32"
+          f" -> {stats['quant_bytes'] / 1e9:.3f} GB (ratio "
+          f"{stats['ratio']:.4f}, bound 0.35) in {quantize_s:.2f} s")
+    check(stats["ratio"] < 0.35, f"chatglm3 int8: ratio {stats['ratio']}")
+    # the card's codes, scales and dequantized weights against the CPU's on
+    # one stacked leaf (wk, 28 x 4096 x 2 x 128)
+    leaf = qparams["stack"]["i0"]["mixer"]["wk"]
+    cpu_leaf = quantize_params_int8(
+        {"wk": params["stack"]["i0"]["mixer"]["wk"].cpu()})[0]["wk"]
+    same = {"codes": torch.equal(leaf["q"].cpu(), cpu_leaf["q"]),
+            "scales": torch.equal(leaf["scale"].cpu(), cpu_leaf["scale"]),
+            "dequantized": torch.equal(
+                dequantize_params({"wk": leaf})["wk"].cpu(),
+                dequantize_params({"wk": cpu_leaf})["wk"])}
+    print(f"  wk {tuple(leaf['q'].shape)}: card == CPU {same}")
+    check(all(same.values()), f"chatglm3 int8 wk: card vs CPU {same}")
+    del leaf, cpu_leaf
+
+    # the path: every quantized projection of layer 0 at a decode tick's
+    # M and a long prefill's, activations from a seed on the card
+    proj = layer_projections(params, qparams)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    xs = {(m, k): torch.randn(m, k, generator=gen, device=dev)
+          for m in (SERVE_SLOTS, long_m)
+          for k in sorted({w2.shape[0] for w2, _, _ in proj.values()})}
+    reset_launch_counts()
+    outs = {(name, m): matmul_int8_dynamic(xs[m, w2.shape[0]], q2, sw)
+            for name, (w2, q2, sw) in proj.items()
+            for m in (SERVE_SLOTS, long_m)}
+    torch.cuda.synchronize()
+    counts["chatglm3_int8"] = launch_counts()
+    check(counts["chatglm3_int8"]["int8_matmul_f32"] == len(outs),
+          f"chatglm3_int8: int8_matmul_f32 launched "
+          f"{counts['chatglm3_int8']['int8_matmul_f32']} times, not "
+          f"{len(outs)}")
+    rel_max = 0.0
+    for (name, m), got in outs.items():
+        w2, q2, sw = proj[name]
+        x = xs[m, w2.shape[0]]
+        x_q, sx = quantize_rowwise(x)
+        compare("int8_matmul", got, int8_matmul_plain(x_q, q2, sx, sw),
+                f"chatglm3 layer 0 {name} M{m}")
+        exact = x @ w2
+        rel = ((got - exact).abs().max() / exact.abs().max()).item()
+        rel_max = max(rel_max, rel)
+        check(rel < 0.05, f"chatglm3 {name} M{m}: {rel:.4f} of the fp32 "
+              "product, above 0.05")
+    print(f"  chatglm3 layer 0, 7 projections x M {SERVE_SLOTS} and "
+          f"{long_m} through matmul_int8_dynamic: {len(outs)} launches, "
+          f"equal to the plain version, at most {rel_max:.4f} of the fp32 "
+          "product's largest magnitude (bound 0.05)")
+    w2, q2, sw = proj["w_in"]
+    x_q, sx = quantize_rowwise(xs[long_m, w2.shape[0]])
+    rows["int8_matmul"][f"chatglm3 w_in M{long_m} K{w2.shape[0]} "
+                        f"N{w2.shape[1]}"] = \
+        int8_timing("chatglm3 w_in prefill", x_q, q2, sx, sw)
+    del outs, xs, proj, params, x_q, w2, q2, sw
+
+    t0 = time.perf_counter()
+    dq = dequantize_params(qparams)
+    del qparams
+    lm.load_state_dict(flatten(dq), assign=True)
+    del dq
+    torch.cuda.synchronize()
+    dequantize_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    print(f"  dequantize_params into the LM in {dequantize_s:.2f} s; peak "
+          f"memory while quantizing and dequantizing {peak:.2f} GB")
+    int8_top1 = lm.logits_causal(tokens).argmax(-1).cpu()
+    path = "chatglm3_dequant_serve"
+    serving[path], counts[path], lm, eng, done = serve_phase(
+        path, arch, dev, per_prefill=["flash_attention"],
+        per_decode=["decode_attention"], lm=lm)
+    del eng, lm
+    torch.cuda.empty_cache()
+    int8_out = {r.uid: r.output for r in done}
+    top1 = (fp32_top1 == int8_top1).float().mean().item()
+    first = sum(fp32_out[u][0] == int8_out[u][0] for u in fp32_out) \
+        / len(fp32_out)
+    same = sum(a == b for u in fp32_out
+               for a, b in zip(fp32_out[u], int8_out[u])) \
+        / sum(len(o) for o in fp32_out.values())
+    print(f"  int8 weights vs fp32 (printed, not gated): top-1 agreement of "
+          f"the logits on 2 x 32 tokens {top1:.4f}; first served token "
+          f"equal for {first:.4f} of the requests, all served tokens "
+          f"{same:.4f}")
+    summary = {**stats, "quantize_s": quantize_s,
+               "dequantize_s": dequantize_s, "peak_memory_gb": peak,
+               "max_rel_err_vs_fp32": rel_max, "top1_agreement": top1,
+               "first_token_agreement": first, "token_agreement": same,
+               "decode_busy_share": busy}
+    return serving, counts, summary
 
 
 def main() -> int:
@@ -1058,7 +1508,7 @@ def main() -> int:
                     print(f"    {name}: {line.strip()}")
 
         print("[2] kernels vs their plain PyTorch versions on the card")
-        rows, errs = kernel_checks(dev)
+        rows = kernel_checks(dev)
 
         ctx = make_ctx(dev)
         print("[3] Q8 naive plan, full width (samsara-stream-mllm, PATCH 16)")
@@ -1105,7 +1555,7 @@ def main() -> int:
 
         print("[9] gemma2-2b, full width, through ServingEngine(max_slots=4, "
               "s_max=8192)")
-        serving["gemma2_serve"], counts["gemma2_serve"], lm, eng = \
+        serving["gemma2_serve"], counts["gemma2_serve"], lm, eng, _ = \
             serve_phase("gemma2_serve", "gemma2-2b", dev,
                         per_prefill=["flash_attention"],
                         per_decode=["decode_attention"])
@@ -1114,16 +1564,21 @@ def main() -> int:
         del lm, eng
         torch.cuda.empty_cache()
         print("[10] mamba2-130m, full width, through the same engine")
-        serving["mamba2_serve"], counts["mamba2_serve"], lm, eng = \
+        serving["mamba2_serve"], counts["mamba2_serve"], lm, eng, _ = \
             serve_phase("mamba2_serve", "mamba2-130m", dev,
                         per_prefill=["ssd_scan"])
         print("[6] device busy share of mamba2-130m's decode ticks")
         busy["mamba2_decode"] = trace_decode("mamba2_decode", eng, lm.cfg)
         del lm, eng
         torch.cuda.empty_cache()
-        print("[11] card vs CPU: both LMs at full width, depth 2")
+        print("[11] card vs CPU: the served LMs at full width, depth 2")
         lm_card_vs_cpu(dev)
         torch.cuda.synchronize()
+        print("[12] chatglm3-6b, full width, through ServingEngine"
+              "(max_slots=4, s_max=8192), then its int8 weights")
+        more, more_counts, int8_summary = chatglm3_int8(dev, rows)
+        serving.update(more)
+        counts.update(more_counts)
     except (SmokeFailure, RuntimeError, ValueError, KeyError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
@@ -1141,7 +1596,7 @@ def main() -> int:
             **({"companion_launches": {
                 c: sum(counts[p][c] for p in PATHS)
                 for c in COMPANIONS[name]}} if name in COMPANIONS else {}),
-            "max_abs_err": errs[name], **timing(t),
+            "max_abs_err": ERRS[name], **timing(t),
             **{k: timing(v) if isinstance(v, dict) else v
                for k, v in t.items() if k not in TIMING_KEYS}})
     physical = opt_report.phases[-1]
@@ -1158,6 +1613,7 @@ def main() -> int:
         default=str))
     print(json.dumps({"serving": {**serving, "device_busy_share": {
         k: busy[k] for k in ("gemma2_decode", "mamba2_decode")},
+        "chatglm3_int8": int8_summary,
         "slots": SERVE_SLOTS, "s_max": SERVE_S_MAX,
         "new_tokens": SERVE_NEW}}))
     print(smi_line())

@@ -2,7 +2,8 @@
 ``get_config(name)`` and ``smoke_config(name)``.
 
 Counterpart of ``repro/configs/__init__.py`` over the archs the port serves
-(gemma2-2b, mamba2-130m) and the two stream MLLM backbones.  An arch of the
+(gemma2-2b, mamba2-130m, and the dense zoo: chatglm3-6b, glm4-9b,
+phi3-mini-3.8b) and the two stream MLLM backbones.  An arch of the
 reference's registry that the port does not run yet raises a ``KeyError``
 that names the slice it waits for.
 """
@@ -11,12 +12,16 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from repro_torch.common.config import ArchConfig
-from repro_torch.configs import gemma2_2b, mamba2_130m, samsara_stream
+from repro_torch.configs import (chatglm3_6b, gemma2_2b, glm4_9b,
+                                 mamba2_130m, phi3_mini_3_8b, samsara_stream)
 
 REGISTRY: Dict[str, ArchConfig] = {
     c.name: c for c in (
         gemma2_2b.CONFIG,
         mamba2_130m.CONFIG,
+        chatglm3_6b.CONFIG,
+        glm4_9b.CONFIG,
+        phi3_mini_3_8b.CONFIG,
         samsara_stream.STREAM_MLLM_CONFIG,
         samsara_stream.STREAM_MLLM_SMALL_CONFIG,
     )
@@ -25,6 +30,9 @@ REGISTRY: Dict[str, ArchConfig] = {
 _SMOKE: Dict[str, Callable[[], ArchConfig]] = {
     "gemma2-2b": gemma2_2b.smoke,
     "mamba2-130m": mamba2_130m.smoke,
+    "chatglm3-6b": chatglm3_6b.smoke,
+    "glm4-9b": glm4_9b.smoke,
+    "phi3-mini-3.8b": phi3_mini_3_8b.smoke,
     "samsara-stream-mllm": samsara_stream.smoke,
     "samsara-stream-mllm-small": samsara_stream.smoke,
 }
@@ -37,9 +45,6 @@ NOT_PORTED = {
     "jamba-1.5-large-398b": "the MoE slice (its MLPs are experts)",
     "seamless-m4t-medium": "the encoder-decoder slice",
     "pixtral-12b": "the patch-frontend slice",
-    "chatglm3-6b": "the dense-zoo slice (rotary_pct 0.5 serving)",
-    "glm4-9b": "the dense-zoo slice (rotary_pct 0.5 serving)",
-    "phi3-mini-3.8b": "the dense-zoo slice",
 }
 
 

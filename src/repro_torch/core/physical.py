@@ -9,9 +9,7 @@ Counterpart of ``repro/core/physical.py``.  §3.2.3's levers:
     shrinks* the matrices (d_ff -> d_ff·(1-rate)), not masking;
   * fused prefix: the surviving-frame prefix as one ``FusedPrefixOp``
     device pass when calibration says it wins.
-The int8 weight path of the reference is not ported yet (its
-``int8_matmul`` kernel waits for a later slice), and the decision log says
-so.  Model selection and fusion are priced from measured timings, so they
+Model selection and fusion are priced from measured timings, so they
 may differ between runs and devices.
 """
 from __future__ import annotations
@@ -143,8 +141,9 @@ class PhysicalOptimizer:
             f"{accs['big']:.3f} (constraint {self.min_rel:.0%}), "
             f"wall {costs[best]:.2f}s vs {costs['big']:.2f}s")
         report["decisions"].append(
-            "quantization: not applied — the int8 weight path's kernel "
-            "(int8_matmul) is not ported to the GPU yet")
+            "quantization: int8 weight path available for the chosen model "
+            "(serving/quantize.py + the int8_matmul CUDA kernel); applied "
+            "when the accuracy constraint still holds")
 
         # ---- fused prefix execution (calibrated one-pass choice) -----------
         self._fuse_prefix(new, report, catalog, stream_factory, sample)

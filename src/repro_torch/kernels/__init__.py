@@ -8,7 +8,7 @@ Each kernel directory mirrors ``repro/kernels/<name>/``:
   ops.py    — the public wrapper the operators and models call
   ref.py    — the plain PyTorch version of the same function
 
-Ported so far (``int8_matmul`` waits for a later slice):
+Every Pallas kernel of the JAX package has its counterpart here:
   frame_diff       — per-region mean |cur − prev| / 255 (the Skip operator)
   fused_preprocess — crop + area downscale + normalize (+ greyscale)
   flash_attention  — causal/local GQA attention with online softmax
@@ -20,6 +20,8 @@ Ported so far (``int8_matmul`` waits for a later slice):
                      LMs' decode step)
   ssd_scan         — Mamba2's within-chunk SSD terms (the served SSMs'
                      prefill)
+  int8_matmul      — int8 x int8 product with int32 accumulation and row /
+                     column scales (``serving/quantize.py``'s int8 weights)
 
 Dispatch rule (every ops.py wrapper follows it): the device of the input
 tensor decides.  A CPU tensor takes the plain version in ``ref.py``; a CUDA
@@ -36,6 +38,7 @@ from repro_torch.kernels.flash_attention import kernel as _flash  # noqa: F401
 from repro_torch.kernels.frame_diff import kernel as _diff  # noqa: F401
 from repro_torch.kernels.fused_prefix import kernel as _prefix  # noqa: F401
 from repro_torch.kernels.fused_preprocess import kernel as _prep  # noqa: F401
+from repro_torch.kernels.int8_matmul import kernel as _int8  # noqa: F401
 from repro_torch.kernels.ssd_scan import kernel as _ssd  # noqa: F401
 
 

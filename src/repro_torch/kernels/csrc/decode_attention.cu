@@ -22,18 +22,27 @@
 // 4100 live keys reads ~4096 x 4 x 256 x 2 x 4 B = 33.5 MB per layer, ~10 us.
 //
 // Design: a grid of (split, kv head, sequence) blocks.  Each sequence's
-// live range is cut into `nsplit` equal chunks (rounded up to 16 keys), so
+// live range is cut into `nsplit` equal chunks (rounded up to 32 keys), so
 // a long sequence spreads over many SMs while the splits of a short one are
 // empty and exit at once.  One block keeps the G query rows of its kv head
-// together, so K and V are read once for all G heads.  Each of the 8 warps
-// walks its own keys two at a time (lane l owns head dims l, l+32, ...; at
-// D = 16 lanes 16-31 hold zeros), with q, a running max m, sum l and
-// accumulator per row in registers; the dot product is a warp shuffle
-// reduction.  The warps' states are merged
-// in warp order in shared memory (deterministic), and the block writes its
-// partial (acc, m, l).  A second kernel merges the splits by logsumexp.
-// An empty warp, block or split carries m = -1e30, l = 0, acc = 0 (the
-// reference's NEG_INF, never -inf, so no exp(-inf - -inf) = NaN).
+// together (q in shared memory), so K and V are read once for all G heads.
+// Each of the 8 warps walks its own tiles of 32 keys: lane j scores key j
+// against the G rows, each score a sequential chain of fmaf over d = 0 ..
+// D-1 scaled after the sum, the plain version's order (the CPU's BLAS and
+// cuBLAS sum a dot product the same way).  Without a soft-cap the dense
+// zoo's scores reach the hundreds (chatglm3: q std ~11, k std ~45 under the
+// reference's init), where any other order (a pre-scaled q, a shuffle tree
+// over lanes) rounds a score ~1e-4 away from the plain version's, and a
+// near-tied softmax carries that into the logits.  The tile's max and sum
+// per row are warp shuffles; for P*V lane l owns head dims l, l+32, ... (at
+// D = 16 lanes 16-31 idle, at D = 96 each lane owns three) and p_j is
+// broadcast lane to lane.  Running max m, sum l and accumulator per row
+// stay in registers; G = 16 (chatglm3, glm4) is built for D <= 128 only
+// (16 x D/32 accumulators per lane).  The warps' states are merged in warp
+// order in shared memory (deterministic), and the block writes its partial
+// (acc, m, l).  A second kernel merges the splits by logsumexp.  An empty
+// warp, block or split carries m = -1e30, l = 0, acc = 0 (the reference's
+// NEG_INF, never -inf, so no exp(-inf - -inf) = NaN).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -41,14 +50,26 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kKeysPerIter = 2;
-constexpr int kSplitAlign = 16;
+constexpr int kTile = 32;  // keys per warp tile: lane j scores key j
+constexpr int kSplitAlign = kTile;
+constexpr int kVRows = 8;  // rows of V loaded ahead in P*V (divides kTile)
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// four consecutive floats; 16-byte loads where the base pointer allows
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  return vec ? __ldg(reinterpret_cast<const float4*>(p))
+             : make_float4(p[0], p[1], p[2], p[3]);
 }
 
 template <int D, int G>
@@ -60,8 +81,10 @@ decode_partials_kernel(const float* __restrict__ q,
                        float* __restrict__ acc_out,   // (B, Hk, ns, G, D)
                        float* __restrict__ m_out,     // (B, Hk, ns, G)
                        float* __restrict__ l_out,     // (B, Hk, ns, G)
-                       int S, int Hk, int window, float cap, float scale) {
-  constexpr int DT = (D + 31) / 32;  // head dims per lane
+                       int S, int Hk, int window, float cap, float scale,
+                       bool vec) {
+  constexpr int DT = (D + 31) / 32;  // P*V head dims per lane
+  __shared__ __align__(16) float q_s[G][D];
   __shared__ float m_s[kWarps][G];
   __shared__ float l_s[kWarps][G];
   __shared__ float acc_s[G][D];
@@ -79,67 +102,80 @@ decode_partials_kernel(const float* __restrict__ q,
   const int k_beg = lo + split * chunk;
   const int k_end = min(len, k_beg + chunk);
 
-  float qr[G][DT], acc[G][DT], m[G], l[G];
   const float* qb = q + ((size_t)b * Hk + hk) * G * D;
+  for (int e = threadIdx.x; e < G * D; e += kThreads) q_s[e / D][e % D] = qb[e];
+  __syncthreads();
+
+  float acc[G][DT], m[G], l[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = kNegInf;
     l[g] = 0.0f;
 #pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      const int d = lane + 32 * t;
-      qr[g][t] = d < D ? qb[g * D + d] * scale : 0.0f;
-      acc[g][t] = 0.0f;
-    }
+    for (int t = 0; t < DT; ++t) acc[g][t] = 0.0f;
   }
 
   const size_t kv_row = (size_t)Hk * D;   // stride between positions
   const float* kb = k + ((size_t)b * S * Hk + hk) * D;
   const float* vb = v + ((size_t)b * S * Hk + hk) * D;
-  for (int j0 = k_beg + warp * kKeysPerIter; j0 < k_end;
-       j0 += kWarps * kKeysPerIter) {
-    float kk[kKeysPerIter][DT], vv[kKeysPerIter][DT];
-    bool ok[kKeysPerIter];
+  for (int j0 = k_beg + warp * kTile; j0 < k_end; j0 += kWarps * kTile) {
+    const int j = j0 + lane;
+    const bool ok = j < k_end;
+    // key j against the G rows: sequential over d, as the plain version
+    float p[G];
 #pragma unroll
-    for (int u = 0; u < kKeysPerIter; ++u) {
-      ok[u] = j0 + u < k_end;
+    for (int g = 0; g < G; ++g) p[g] = 0.0f;
+    if (ok) {
+      const float* kr = kb + j * kv_row;
+#pragma unroll 8
+      for (int d = 0; d < D; d += 4) {
+        const float4 k4 = load4(kr + d, vec);
 #pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        const int d = lane + 32 * t;
-        const bool in = ok[u] && d < D;
-        kk[u][t] = in ? kb[(j0 + u) * kv_row + d] : 0.0f;
-        vv[u][t] = in ? vb[(j0 + u) * kv_row + d] : 0.0f;
+        for (int g = 0; g < G; ++g) {
+          const float4 q4 = *reinterpret_cast<const float4*>(&q_s[g][d]);
+          float s = fmaf(q4.x, k4.x, p[g]);
+          s = fmaf(q4.y, k4.y, s);
+          s = fmaf(q4.z, k4.z, s);
+          p[g] = fmaf(q4.w, k4.w, s);
+        }
       }
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float s[kKeysPerIter];
-      float m_new = m[g];
-#pragma unroll
-      for (int u = 0; u < kKeysPerIter; ++u) {
-        float dot = 0.0f;
-#pragma unroll
-        for (int t = 0; t < DT; ++t) dot = fmaf(qr[g][t], kk[u][t], dot);
-        dot = warp_sum(dot);
-        if (cap > 0.0f) dot = cap * tanhf(dot / cap);
-        s[u] = ok[u] ? dot : kNegInf;
-        m_new = fmaxf(m_new, s[u]);
-      }
-      const float alpha = expf(m[g] - m_new);
-      float p[kKeysPerIter], psum = 0.0f;
-#pragma unroll
-      for (int u = 0; u < kKeysPerIter; ++u) {
-        p[u] = ok[u] ? expf(s[u] - m_new) : 0.0f;
-        psum += p[u];
-      }
-      l[g] = l[g] * alpha + psum;
+      float s = p[g] * scale;
+      if (cap > 0.0f) s = cap * tanhf(s / cap);
+      s = ok ? s : kNegInf;
+      const float m_new = fmaxf(m[g], warp_max(s));  // lane 0's key is live
+      const float alpha = expf(m[g] - m_new);       // 0 on the first tile
+      p[g] = ok ? expf(s - m_new) : 0.0f;
+      l[g] = l[g] * alpha + warp_sum(p[g]);
       m[g] = m_new;
 #pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        float a = acc[g][t] * alpha;
+      for (int t = 0; t < DT; ++t) acc[g][t] *= alpha;
+    }
+    // P*V in key order, kVRows rows of V in flight at a time; a key past
+    // the tile's live ones has p = 0 and v = 0, so it adds exactly 0
+    const int n = min(kTile, k_end - j0);
+    for (int u0 = 0; u0 < n; u0 += kVRows) {
+      float vv[kVRows][DT];
 #pragma unroll
-        for (int u = 0; u < kKeysPerIter; ++u) a = fmaf(p[u], vv[u][t], a);
-        acc[g][t] = a;
+      for (int uu = 0; uu < kVRows; ++uu) {
+        const float* vr = vb + (j0 + u0 + uu) * kv_row;
+#pragma unroll
+        for (int t = 0; t < DT; ++t) {
+          const int d = lane + 32 * t;
+          vv[uu][t] = u0 + uu < n && d < D ? vr[d] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int uu = 0; uu < kVRows; ++uu) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float pu = __shfl_sync(kFull, p[g], u0 + uu);
+#pragma unroll
+          for (int t = 0; t < DT; ++t)
+            acc[g][t] = fmaf(pu, vv[uu][t], acc[g][t]);
+        }
       }
     }
   }
@@ -217,8 +253,11 @@ int launch_partials(const float* q, const float* k, const float* v,
                     cudaStream_t stream) {
   const dim3 grid(nsplit, Hk, B);
   const float scale = (float)(1.0 / sqrt((double)D));
+  // every row offset is a multiple of 16 floats: only the bases can break
+  // 16-byte alignment (a view at an odd offset)
+  const bool vec = ((size_t)k | (size_t)v) % 16 == 0;
   decode_partials_kernel<D, G><<<grid, kThreads, 0, stream>>>(
-      q, k, v, kv_len, acc, m, l, S, Hk, window, cap, scale);
+      q, k, v, kv_len, acc, m, l, S, Hk, window, cap, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -232,6 +271,11 @@ int dispatch_g(int G, const float* q, const float* k, const float* v,
     case 2: return launch_partials<D, 2>(q, k, v, kv_len, acc, m, l, B, S, Hk, nsplit, window, cap, st);
     case 4: return launch_partials<D, 4>(q, k, v, kv_len, acc, m, l, B, S, Hk, nsplit, window, cap, st);
     case 8: return launch_partials<D, 8>(q, k, v, kv_len, acc, m, l, B, S, Hk, nsplit, window, cap, st);
+    case 16:  // chatglm3 / glm4: 32 query heads over 2 kv heads
+      if constexpr (D <= 128)
+        return launch_partials<D, 16>(q, k, v, kv_len, acc, m, l, B, S, Hk, nsplit, window, cap, st);
+      else
+        return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -261,6 +305,7 @@ extern "C" int decode_attention_partials_f32(
     case 16: return dispatch_g<16>(G, qf, kf, vf, len, a, mm, ll, B, S, Hk, nsplit, window, cap, st);
     case 32: return dispatch_g<32>(G, qf, kf, vf, len, a, mm, ll, B, S, Hk, nsplit, window, cap, st);
     case 64: return dispatch_g<64>(G, qf, kf, vf, len, a, mm, ll, B, S, Hk, nsplit, window, cap, st);
+    case 96: return dispatch_g<96>(G, qf, kf, vf, len, a, mm, ll, B, S, Hk, nsplit, window, cap, st);
     case 128: return dispatch_g<128>(G, qf, kf, vf, len, a, mm, ll, B, S, Hk, nsplit, window, cap, st);
     case 256: return dispatch_g<256>(G, qf, kf, vf, len, a, mm, ll, B, S, Hk, nsplit, window, cap, st);
     default: return (int)cudaErrorInvalidValue;

@@ -26,8 +26,10 @@
 // P*V product broadcasts p_j lane to lane while each lane owns D/32 output
 // columns.  At D = 256 the block's shared memory is 4 x (64 x 256 +
 // 2 x 32 x 257) = 131,328 bytes, above the 48 KB default, so the launch
-// raises the kernel's dynamic shared memory limit first.  Key tiles entirely above the causal diagonal or below the window
-// are never loaded; ragged edges (any S, not a multiple of the tile) are
+// raises the kernel's dynamic shared memory limit first (at D = 96 too:
+// 49,408 bytes).  At G = 16 (chatglm3, glm4) a tile holds 4 positions of
+// its 16 heads.  Key tiles entirely above the causal diagonal or below the
+// window are never loaded; ragged edges (any S, not a multiple of the tile) are
 // masked in the kernel, never padded, so the softmax of real rows sees only
 // real keys.  Everything is fp32 on CUDA cores: the tensor cores' TF32 would
 // lose the fp32 tolerance the plain version is held to.
@@ -192,6 +194,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
     case 16: return launch<16>(qf, kf, vf, of, B, S, H, Hk, causal, cap, window, st);
     case 32: return launch<32>(qf, kf, vf, of, B, S, H, Hk, causal, cap, window, st);
     case 64: return launch<64>(qf, kf, vf, of, B, S, H, Hk, causal, cap, window, st);
+    case 96: return launch<96>(qf, kf, vf, of, B, S, H, Hk, causal, cap, window, st);
     case 128: return launch<128>(qf, kf, vf, of, B, S, H, Hk, causal, cap, window, st);
     case 256: return launch<256>(qf, kf, vf, of, B, S, H, Hk, causal, cap, window, st);
     default: return (int)cudaErrorInvalidValue;

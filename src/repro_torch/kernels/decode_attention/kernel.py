@@ -16,8 +16,10 @@ PARTIALS = CudaKernel("decode_attention", "decode_attention_partials_f32",
                        _F, _I])
 COMBINE = CudaKernel("decode_attention", "decode_attention_combine_f32",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I])
-HEAD_DIMS = (16, 32, 64, 128, 256)
-GROUPS = (1, 2, 4, 8)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+GROUPS = (1, 2, 4, 8, 16)
+#: the widest head a group of 16 query heads is built for (registers)
+MAX_D_G16 = 128
 #: splits per (sequence, kv head): enough blocks for a long sequence to
 #: cover the card's 132 SMs with a handful of kv heads
 MAX_SPLITS = 32
@@ -43,10 +45,12 @@ def _check(q, k, v, kv_len, cap, window):
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, kv_len "
                          f"{tuple(kv_len.shape)}")
-    if d not in HEAD_DIMS or h % hk or h // hk not in GROUPS:
+    if d not in HEAD_DIMS or h % hk or h // hk not in GROUPS \
+            or (h // hk == 16 and d > MAX_D_G16):
         raise ValueError(f"decode_attention: head_dim {d} (takes "
                          f"{HEAD_DIMS}), {h} q heads over {hk} kv heads "
-                         f"(groups {GROUPS})")
+                         f"(groups {GROUPS}; 16 up to head_dim "
+                         f"{MAX_D_G16})")
     if cap is not None and cap <= 0:
         raise ValueError("decode_attention: cap must be positive")
     if window is not None and window <= 0:
@@ -94,6 +98,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len (B, 1) int32 -> (B, 1, H, D).  Any S; D in ``HEAD_DIMS``;
     H/Hk in ``GROUPS``.  kv_len is read on the card (no host sync) and must
     be at least 1, as it is in a decode step (a sequence with no visible
-    key gets zeros here; the plain version averages V)."""
+    key gets zeros here; the plain version averages V).  A group of 16
+    takes D up to ``MAX_D_G16``."""
     acc, m, l = decode_partials(q, k, v, kv_len, cap=cap, window=window)
     return decode_combine(acc, m, l, q.shape[2])

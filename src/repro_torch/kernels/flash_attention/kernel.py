@@ -12,7 +12,7 @@ from repro_torch.kernels._build import CudaKernel, require_cuda
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 KERNEL = CudaKernel("flash_attention", "flash_attention_f32",
                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I])
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 MAX_GROUP = 64
 
 

@@ -7,7 +7,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -19,11 +19,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cpu":
         return flash_attention_cuda(q, k, v, causal=causal, cap=cap,
                                     window=window)
-    b, s, h, d = q.shape
-    hk = k.shape[2]
-    g = h // hk
-    qg = q.permute(0, 2, 1, 3).reshape(b, hk, g, s, d)
-    out = flash_attention_ref(qg, k.permute(0, 2, 1, 3),
-                              v.permute(0, 2, 1, 3), causal=causal, cap=cap,
-                              window=window)
-    return out.reshape(b, h, s, d).permute(0, 2, 1, 3)
+    return flash_attention_plain(q, k, v, causal=causal, cap=cap,
+                                 window=window)

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of flash attention (kernel layout)."""
+"""Plain PyTorch version of flash attention, in the kernel layout and in
+the model layout."""
 from __future__ import annotations
 
 import math
@@ -30,3 +31,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgst,bhtd->bhgsd", probs, v.to(torch.float32))
     return out.to(q.dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, cap: Optional[float] = None,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """``flash_attention_ref`` in model layout: q (B, S, H, D), k/v
+    (B, S, Hk, D) -> (B, S, H, D), query head ``hk*G + g`` on kv head
+    ``hk``."""
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    qg = q.permute(0, 2, 1, 3).reshape(b, hk, h // hk, s, d)
+    out = flash_attention_ref(qg, k.permute(0, 2, 1, 3),
+                              v.permute(0, 2, 1, 3), causal=causal, cap=cap,
+                              window=window)
+    return out.reshape(b, h, s, d).permute(0, 2, 1, 3)

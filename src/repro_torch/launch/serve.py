@@ -1,10 +1,10 @@
 """Serving launcher: the continuous-batching engine for an arch the port
 serves, with seeded random weights.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --s-max 8192                # chatglm3-6b on a CUDA card (~26 GB)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
-      --s-max 8192                              # on a CUDA card
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
-      --smoke --device cpu                      # plain versions, any host
+      --smoke --device cpu        # plain versions, any host
 
 Counterpart of ``repro/launch/serve.py``: the same flags and requests
 (``numpy.random.RandomState(0)``: prompts of 4-23 tokens from
@@ -39,7 +39,7 @@ def make_requests(cfg: ArchConfig, n: int, max_new: int,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--arch", default="chatglm3-6b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=12)

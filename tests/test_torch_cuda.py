@@ -21,6 +21,10 @@ from repro_torch.kernels.fused_prefix.kernel import (fused_prefix_cuda,  # noqa:
 from repro_torch.kernels.fused_prefix.ref import fused_prefix_ref  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
+from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda  # noqa: E402
+from repro_torch.kernels.int8_matmul.ref import (int8_matmul_plain,  # noqa: E402
+                                                 quantize_colwise,
+                                                 quantize_rowwise)
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.semantic.signature import signature_layout  # noqa: E402
@@ -137,7 +141,11 @@ def test_fused_prefix_kernel(dev, case, dtype):
     (2, 64, 4, 2, 32, [5, 64], dict(window=100)),
     (2, 64, 4, 4, 32, [17, 3], dict(cap=20.0)),
     (3, 300, 8, 2, 64, [1, 9, 300], dict(window=8)),
-    (1, 512, 8, 1, 128, [333], dict(cap=20.0, window=64))])
+    (1, 512, 8, 1, 128, [333], dict(cap=20.0, window=64)),
+    # chatglm3-6b / glm4-9b: 32 query heads over 2 kv heads (G = 16)
+    (4, 512, 32, 2, 128, [7, 30, 300, 512], {}),
+    # phi3-mini-3.8b: 32 heads of 96
+    (2, 300, 32, 32, 96, [1, 299], {})])
 def test_decode_attention_kernel(dev, b, s, h, hk, d, lens, kw):
     """The kernel against its plain version; keys at or past kv_len are
     NaN in the cache and must never be read."""
@@ -191,7 +199,72 @@ def test_flash_attention_kernel_d256(dev, s, kw):
                                atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m"])
+@pytest.mark.parametrize("s,h,hk,d", [(300, 32, 2, 128), (257, 32, 32, 96),
+                                       (64, 8, 8, 96)])
+def test_flash_attention_kernel_dense_zoo(dev, s, h, hk, d):
+    """chatglm3 / glm4's group of 16 (4 positions per tile) and phi3-mini's
+    head dim 96 (three columns per lane)."""
+    gen = torch.Generator().manual_seed(7)
+    q = torch.randn(1, s, h, d, generator=gen)
+    k = torch.randn(1, s, hk, d, generator=gen)
+    v = torch.randn(1, s, hk, d, generator=gen)
+    got = flash_attention(q.to(dev), k.to(dev), v.to(dev)).cpu()
+    torch.testing.assert_close(got, flash_attention(q, k, v), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (128, 256, 128), (256, 512, 256), (64, 128, 512),   # reference sweep
+    (4, 4096, 256), (4200, 256, 96),                     # decode, prefill
+    (37, 129, 67), (3, 1000, 13), (1, 7, 1), (65, 4099, 70)])  # ragged
+def test_int8_matmul_kernel(dev, m, k, n):
+    """The kernel against its plain version: equal (exact int32 sums,
+    the same two fp32 multiplies), one launch."""
+    gen = torch.Generator().manual_seed(8)
+    x_q, sx = quantize_rowwise(torch.randn(m, k, generator=gen))
+    w_q, sw = quantize_colwise(torch.randn(k, n, generator=gen))
+    want = int8_matmul_plain(x_q, w_q, sx, sw)
+    reset_launch_counts()
+    got = int8_matmul_cuda(*(t.to(dev) for t in (x_q, w_q, sx, sw))).cpu()
+    assert launch_counts()["int8_matmul_f32"] == 1
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_int8_matmul_kernel_exact_at_full_codes(dev):
+    """Every code 127 over chatglm3-6b's K = 13696: the int32 sum is
+    exact past fp32's 2^24 and the plain version on the card agrees."""
+    x_q = torch.full((4, 13696), 127, dtype=torch.int8, device=dev)
+    w_q = torch.full((13696, 40), -127, dtype=torch.int8, device=dev)
+    sx, sw = torch.ones(4, 1, device=dev), torch.ones(1, 40, device=dev)
+    got = int8_matmul_cuda(x_q, w_q, sx, sw)
+    want = int8_matmul_plain(x_q, w_q, sx, sw)
+    assert torch.equal(got, want)
+    assert got[0, 0].item() == float(-13696 * 127 * 127)
+
+
+def test_int8_quantization_card_equals_cpu(dev):
+    """Codes, scales and dequantized weights on the card equal the CPU's
+    bit for bit (the scale is a true division by 127 on both)."""
+    from repro_torch.serving.quantize import (dequantize_params,
+                                              quantize_params_int8)
+
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(64, 1000, generator=gen) * 3.7
+    for fn in (quantize_rowwise, quantize_colwise):
+        for a, b in zip(fn(x.to(dev)), fn(x)):
+            assert torch.equal(a.cpu(), b)
+    tree = {"w": torch.randn(4, 300, 2, 64, generator=gen) * 45.0,
+            "norm": torch.randn(64, generator=gen)}
+    card, _ = quantize_params_int8({k: t.to(dev) for k, t in tree.items()})
+    cpu, _ = quantize_params_int8(tree)
+    assert torch.equal(card["w"]["q"].cpu(), cpu["w"]["q"])
+    assert torch.equal(card["w"]["scale"].cpu(), cpu["w"]["scale"])
+    assert torch.equal(dequantize_params(card)["w"].cpu(),
+                       dequantize_params(cpu)["w"])
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m", "chatglm3-6b",
+                                  "glm4-9b", "phi3-mini-3.8b"])
 def test_lm_serving_card_equals_cpu(dev, arch):
     """The smoke LMs through the engine on the card and on the CPU, same
     weights: the same tokens."""

@@ -96,12 +96,14 @@ def test_decode_attention_bf16(b, s, h, hk, d, nsplit):
 
 
 @pytest.mark.parametrize("case", ["kv_len_1", "window_longer_than_len",
-                                  "g1", "d64", "s_max_300", "gemma_shape"])
+                                  "g1", "d64", "s_max_300", "gemma_shape",
+                                  "chatglm3_heads", "phi3_heads"])
 def test_decode_attention_ragged(case):
     """Shapes the engine gives: a slot of one key, a window longer than the
     slot, no grouping, D = 64, a cache length that is not a multiple of the
-    Pallas kernel's tiles, and gemma2's heads (H/Hk 8/4, D 256, cap 50,
-    window 4096) over a short cache."""
+    Pallas kernel's tiles, gemma2's heads (H/Hk 8/4, D 256, cap 50,
+    window 4096) over a short cache, chatglm3 / glm4's (32/2, D 128: a
+    group of 16) and phi3-mini's (32/32, D 96)."""
     b, s, h, hk, d, kw, lens = {
         "kv_len_1": (2, 64, 4, 2, 32, {}, [1, 1]),
         "window_longer_than_len": (2, 64, 4, 2, 32, {"window": 100},
@@ -111,6 +113,8 @@ def test_decode_attention_ragged(case):
         "s_max_300": (2, 300, 4, 2, 32, {"window": 50}, [299, 300]),
         "gemma_shape": (2, 40, 8, 4, 256, {"cap": 50.0, "window": 4096},
                         [7, 30]),
+        "chatglm3_heads": (2, 40, 32, 2, 128, {}, [7, 40]),
+        "phi3_heads": (2, 40, 32, 32, 96, {}, [1, 23]),
     }[case]
     q, k, v = randn(3, (b, 1, h, d)), randn(4, (b, s, hk, d)), \
         randn(5, (b, s, hk, d))

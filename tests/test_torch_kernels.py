@@ -33,6 +33,8 @@ from repro_torch.kernels.fused_prefix.kernel import fused_prefix_cuda  # noqa: E
 from repro_torch.kernels.fused_prefix.ops import fused_prefix  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
+from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda  # noqa: E402
+from repro_torch.kernels.int8_matmul.ops import matmul_int8_dynamic  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import ssd  # noqa: E402
 
@@ -124,6 +126,23 @@ def test_flash_attention_ragged_model_layout(b, s, h, hk, mode):
                                    jnp.asarray(v), causal=True))
 
 
+@pytest.mark.parametrize("h,hk,d", [(32, 2, 128), (8, 8, 96)])
+def test_flash_attention_dense_zoo_heads(h, hk, d):
+    """chatglm3 / glm4's grouping (32 query heads over 2 kv heads, head
+    dim 128) and phi3-mini's head dim 96, at a ragged S: the port's op
+    against the reference's oracle."""
+    b, s = 1, 37
+    q, k, v = randn(15, (b, s, h, d)), randn(16, (b, s, hk, d)), \
+        randn(17, (b, s, hk, d))
+    port = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v)).numpy()
+    ref = jax_flash_ref(
+        jnp.asarray(q).transpose(0, 2, 1, 3).reshape(b, hk, h // hk, s, d),
+        jnp.asarray(k).transpose(0, 2, 1, 3),
+        jnp.asarray(v).transpose(0, 2, 1, 3), causal=True)
+    close(port, np.asarray(ref).reshape(b, h, s, d).transpose(0, 2, 1, 3))
+
+
 def test_flash_attention_model_layout_vs_pallas():
     b, s, h, hk, d = 2, 128, 8, 2, 32
     q, k, v = randn(0, (b, s, h, d)), randn(1, (b, s, hk, d)), \
@@ -203,17 +222,19 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     x = torch.from_numpy(randn(10, (1, 16, 2, 8)))
     ssd(x, torch.ones(1, 16, 2), -torch.ones(2), x[:, :, :1], x[:, :, :1],
         torch.ones(2), chunk=16)
+    matmul_int8_dynamic(q[0, :, 0], torch.ones(32, 8, dtype=torch.int8),
+                        torch.ones(1, 8))
     assert launch_counts() == before
     assert set(before) == {"frame_diff_u8", "fused_preprocess_u8",
                            "flash_attention_f32", "fused_prefix_launch",
                            "decode_attention_partials_f32",
                            "decode_attention_combine_f32", "ssd_cb_f32",
-                           "ssd_scan_f32"}
+                           "ssd_scan_f32", "int8_matmul_f32"}
 
 
 @pytest.mark.parametrize("call", ["frame_diff", "fused_preprocess", "flash",
                                   "fused_prefix", "decode_attention",
-                                  "ssd_scan"])
+                                  "ssd_scan", "int8_matmul"])
 def test_kernel_path_refuses_cpu_tensors(call):
     """The CUDA entry points raise on anything but CUDA tensors: there is no
     fallback from the kernel to the plain version."""
@@ -230,6 +251,10 @@ def test_kernel_path_refuses_cpu_tensors(call):
         elif call == "decode_attention":
             decode_attention_cuda(q[:, :1], k, k,
                                   torch.tensor([[28]], dtype=torch.int32))
+        elif call == "int8_matmul":
+            int8_matmul_cuda(torch.ones(4, 32, dtype=torch.int8),
+                             torch.ones(32, 8, dtype=torch.int8),
+                             torch.ones(4, 1), torch.ones(1, 8))
         elif call == "ssd_scan":
             x = torch.from_numpy(randn(10, (1, 2, 16, 8)))
             c = x[:, :1, :, :1].contiguous()

@@ -1,7 +1,8 @@
 """The port's LM serving slice on the CPU (plain versions) against the JAX
 package: configs, parameter specs and init, the bridge, layers, the LM's
 causal / prefill / decode logits, and the continuous-batching engine's
-tokens and stats for gemma2-smoke and mamba2-smoke.
+tokens and stats for gemma2-smoke, mamba2-smoke and the dense zoo's smoke
+configs (chatglm3, glm4, phi3-mini).
 
 Weights are the reference's ``materialize`` (PRNGKey 0) loaded through
 ``repro_torch.bridge``; token inputs are made with numpy.  Logit tolerance
@@ -41,7 +42,11 @@ from repro_torch.models.param import ParamSpec  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine, _bucket  # noqa: E402
 from repro_torch.serving.sampler import sample_logits  # noqa: E402
 
-ARCHS = ["gemma2-2b", "mamba2-130m"]
+#: gemma2 (windows, soft-caps), mamba2 (SSD), and the dense zoo: chatglm3
+#: and glm4 (partial rotary at 0.5, 4 query heads over 2 kv heads in the
+#: smoke configs, 32 over 2 at full width) and phi3-mini (full MHA)
+DENSE_ZOO = ["chatglm3-6b", "glm4-9b", "phi3-mini-3.8b"]
+ARCHS = ["gemma2-2b", "mamba2-130m"] + DENSE_ZOO
 TOL = 1e-4
 
 
@@ -91,7 +96,7 @@ def test_configs_match_reference(arch, which):
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "seamless-m4t-medium", "chatglm3-6b"])
+                                  "seamless-m4t-medium", "pixtral-12b"])
 def test_unported_arch_names_its_slice(arch):
     with pytest.raises(KeyError, match="waits for"):
         get_config(arch)
@@ -228,10 +233,12 @@ def _tokens(arch, b, s, seed=0):
         0, smoke_config(arch).vocab_size, (b, s))
 
 
-@pytest.mark.parametrize("arch,s", [("gemma2-2b", 40), ("mamba2-130m", 64)])
+@pytest.mark.parametrize("arch,s", [("gemma2-2b", 40), ("mamba2-130m", 64)]
+                         + [(a, 40) for a in DENSE_ZOO])
 def test_logits_causal_matches_reference(arch, s):
     """gemma2-smoke at 40 tokens, longer than its window of 16 (the local
-    layers mask it in prefill); mamba2-smoke over two chunks."""
+    layers mask it in prefill); mamba2-smoke over two chunks; the dense
+    zoo at 40 (chatglm3 and glm4 rotate half of each head)."""
     jlm, jp, lm = models(arch)
     toks = _tokens(arch, 2, s)
     ref, _ = jlm.logits_causal(jp, {"tokens": jnp.asarray(toks)},
@@ -240,7 +247,8 @@ def test_logits_causal_matches_reference(arch, s):
 
 
 @pytest.mark.parametrize("arch,s", [("gemma2-2b", 36), ("gemma2-2b", 12),
-                                    ("mamba2-130m", 32)])
+                                    ("mamba2-130m", 32)]
+                         + [(a, 21) for a in DENSE_ZOO])
 def test_prefill_and_decode_match_reference(arch, s):
     """Prefill (longer and shorter than gemma's window of 16) then four
     decode steps, logits against the JAX LM; the cache leaves agree too."""
