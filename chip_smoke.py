@@ -6,7 +6,10 @@
 Phases (any failure exits non-zero and prints no result line):
   1. set-up: the card's name and power limit, TF32 off for matmuls and
      convolutions, the hand-written kernels built from ``src/repro_torch/
-     kernels/csrc`` (one ``nvcc`` per source, in parallel);
+     kernels/csrc`` (one ``nvcc`` per source, in parallel), and the
+     tensor-core instructions in the built libraries counted with
+     ``cuobjdump --dump-sass`` (HMMA in flash_attention's, IMMA in
+     int8_matmul's; none fails);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the main path's shapes and at ragged ones, with its device
      time, its roofline bound and a yardstick: PyTorch's SDPA for
@@ -16,14 +19,20 @@ Phases (any failure exits non-zero and prints no result line):
      only here; the port never calls SDPA); decode_attention at gemma2's,
      chatglm3-6b's (a group of 16) and phi3-mini's (D 96) decode shapes
      and ragged ones, ssd_scan at mamba2's chunks and the reference
-     sweep's grouped shape, flash_attention at gemma2's, chatglm3-6b's and
-     phi3-mini's prefill of an 8192 bucket; the last two again at
+     sweep's grouped shape, flash_attention at every head dim with groups
+     of 1, 2, 16 and 64, ragged S, bidirectional, capped and windowed, and
+     at gemma2's, chatglm3-6b's and phi3-mini's prefill of an 8192 bucket
+     (bound at the 3xTF32 rate, the fp32 CUDA cores' beside it); the last
+     two again at
      chatglm3's and phi3's magnitudes (q, k, v as the reference's init
      makes them: scores in the hundreds), held to the plain version and
      to float64 beside it (card and CPU); int8_matmul (exact: equal to
-     its plain version) at the reference sweep's shapes, kernel_bench's
-     256x512x512, ragged ones and chatglm3-6b's projections at M = 4, with
-     ``torch._int_mm`` plus the two scale multiplies as yardstick;
+     its plain version) on its dp4a route (M below ``MMA_MIN_M``) and its
+     tensor-core route (the pre-pass transpose and the product), each call
+     held to its route by the launch counts, at the reference sweep's
+     shapes, kernel_bench's 256x512x512, ragged ones and chatglm3-6b's
+     projections at M = 4, with ``torch._int_mm`` plus the two scale
+     multiplies as yardstick, and both routes at w_in with M 4 and 64;
   3. Q8's naive plan: Source -> MLLM extract (full width: 4 layers,
      d_model 256, 8/4 heads, PATCH 16, seeded random weights) -> filter
      -> Sink over 512 TollBooth frames, micro-batch 16;
@@ -62,7 +71,8 @@ Phases (any failure exits non-zero and prints no result line):
      reference's int8 recipe on the same weights on the card:
      ``quantize_params_int8`` (ratio < 0.35), ``matmul_int8_dynamic`` on
      every quantized projection of layer 0 at M = 4 and M = 4200 (the
-     path ``chatglm3_int8``: the int8_matmul kernel, equal to its plain
+     path ``chatglm3_int8``: the int8_matmul kernel's dp4a route at M = 4
+     and its tensor-core route at the prefill's M, each equal to its plain
      version, within 5% of the fp32 product), one stacked leaf's codes,
      scales and dequantized weights equal to the CPU's,
      ``dequantize_params`` and the requests again on the dense weights it
@@ -82,6 +92,8 @@ import contextlib
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -100,17 +112,22 @@ N_FRAMES, MICRO_BATCH, STREAM_SEED = 512, 16, 11
 DETECTOR_SEED = 129
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_OPS_S = 67e12           # H100 SXM fp32 outside the tensor cores
+TF32_OPS_S = 495e12          # H100 SXM dense TF32 on the tensor cores
 INT8_OPS_S = 1979e12         # H100 SXM dense int8 on the tensor cores
+#: flash_attention runs each fp32 product as three TF32 products (3xTF32):
+#: its operations bound is at a third of the TF32 rate
+FLASH_OPS_S = TF32_OPS_S / 3
 # fused_prefix: its diff is exact and its colour counts are exact (the
 # distance is rounded as in the plain version); the preprocess divides
 # where PyTorch multiplies by a reciprocal, and patch means sum in another
 # order: a few ulps, well inside 1e-5
 # decode_attention: the reference sweep's fp32 tolerance; ssd_scan its SSD
-# sweep's (sums of up to 256 products in another order); int8_matmul none:
-# its int32 sums are exact and both versions round (acc * sx) * sw alike
+# sweep's (sums of up to 256 products in another order); int8_matmul none,
+# on either route: its int32 sums are exact and both versions round
+# (acc * sx) * sw alike
 TOL = {"frame_diff": 1e-6, "fused_preprocess": 1e-5, "flash_attention": 2e-5,
        "fused_prefix": 1e-5, "decode_attention": 2e-5, "ssd_scan": 1e-4,
-       "int8_matmul": 0.0}
+       "int8_matmul": 0.0, "int8_matmul_mma": 0.0}
 KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
     "frame_diff": ("frame_diff_u8",
                    "src/repro_torch/kernels/csrc/frame_diff.cu",
@@ -129,14 +146,22 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
                          "src/repro/kernels/decode_attention/kernel.py:69"),
     "ssd_scan": ("ssd_scan_f32", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:55"),
+    # int8_matmul's two routes, picked by M: dp4a below MMA_MIN_M, the
+    # tensor cores from it
     "int8_matmul": ("int8_matmul_f32",
                     "src/repro_torch/kernels/csrc/int8_matmul.cu",
                     "src/repro/kernels/int8_matmul/kernel.py:36"),
+    "int8_matmul_mma": ("int8_mma_f32",
+                        "src/repro_torch/kernels/csrc/int8_matmul.cu",
+                        "src/repro/kernels/int8_matmul/kernel.py:36"),
 }
 #: a kernel's other launches, each its own C entry point with its own
 #: count, made once with every launch of the kernel's entry above
 COMPANIONS = {"decode_attention": ("decode_attention_combine_f32",),
-              "ssd_scan": ("ssd_cb_f32",)}
+              "ssd_scan": ("ssd_cb_f32",),
+              "int8_matmul_mma": ("int8_transpose_kn",)}
+#: the tensor-core instruction each built library must hold (phase 1)
+SASS_MMA = {"flash_attention": "HMMA", "int8_matmul": "IMMA"}
 #: the paths driven end to end, by the name used in ``launches_by_path``
 PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
          "gemma2_serve", "mamba2_serve", "chatglm3_serve", "chatglm3_int8",
@@ -151,9 +176,10 @@ CHATGLM3_PROJ = {"wq": (4096, 4096), "wk": (4096, 256), "wv": (4096, 256),
                  "wo": (4096, 4096), "w_in": (4096, 13696),
                  "w_gate": (4096, 13696), "w_out": (13696, 4096)}
 #: card == CPU: the logits' tolerance.  fp32 on both, but cuBLAS and the
-#: CPU's BLAS sum d_model (up to 4096) products in other orders; the
-#: attention kernels sum each score in the plain version's order, since the
-#: dense zoo (no soft-cap) has scores in the hundreds
+#: CPU's BLAS sum d_model (up to 4096) products in other orders; the dense
+#: zoo (no soft-cap) has scores in the hundreds, so decode_attention sums
+#: each score in the plain version's order and flash_attention nearer
+#: float64 than the plain version (3xTF32 with staged sums)
 LM_TOL = 1e-3
 
 
@@ -237,20 +263,56 @@ def device_ms(fn, n: int = 40, reps: int = 5) -> float:
                        "card (does the function synchronize?)")
 
 
-TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound")
+TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound",
+               "bound_fp32_cuda_cores")
 
 
 def timing(t):
     """A timing dict as the kernels line writes it."""
-    return {"ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-            "library_ms": t["library_ms"]}
+    out = {"ms": t["ms"], "plain_ms": t["plain_ms"],
+           "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+           "library_ms": t["library_ms"]}
+    if "bound_fp32_cuda_cores" in t:
+        out["bound_fp32_cuda_cores_ms"] = t["bound_fp32_cuda_cores"][0]
+    return out
 
 
 def bound(nbytes: float, ops: float, ops_s: float = FP32_OPS_S):
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+def flash_bounds(nbytes: float, ops: float):
+    """flash_attention's bound at the tensor cores' 3xTF32 rate, and at the
+    fp32 CUDA cores' rate beside it."""
+    return dict(bound=bound(nbytes, ops, FLASH_OPS_S),
+                bound_fp32_cuda_cores=bound(nbytes, ops))
+
+
+def flash_line(label, t, library="SDPA"):
+    print(f"  flash_attention {label}: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, {library} {t['library_ms']:.4f} ms, "
+          f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}, 3xTF32 at "
+          f"{FLASH_OPS_S / 1e12:.0f} TFLOP/s; "
+          f"{t['bound_fp32_cuda_cores'][0]:.5f} ms at the fp32 CUDA cores' "
+          f"{FP32_OPS_S / 1e12:.0f})")
+
+
+def sass_mma_counts():
+    """Phase 1: each library of ``SASS_MMA`` holds its tensor-core
+    instruction (``cuobjdump --dump-sass``); a count of 0 fails."""
+    from repro_torch.kernels._build import library_path, nvcc
+
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(nvcc()), "cuobjdump")
+    for name, op in SASS_MMA.items():
+        sass = subprocess.run([exe, "--dump-sass", str(library_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        n = len(re.findall(rf"\b{op}\b", sass))
+        print(f"[1] {name}: {n} {op} instructions (cuobjdump --dump-sass)")
+        check(n > 0, f"{name}: no {op} instruction in its library")
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +339,8 @@ def compare(name, got, want, label):
 
 
 def kernel_checks(dev):
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (
+        HEAD_DIMS, flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     from repro_torch.kernels.frame_diff.kernel import frame_diff_cuda
     from repro_torch.kernels.frame_diff.ref import frame_diff_ref
@@ -340,6 +403,13 @@ def kernel_checks(dev):
               (4, 140, 8, 4, 32, dict(causal=True, window=35)),
               (2, 257, 8, 2, 64, dict(causal=True)),
               (2, 100, 16, 2, 128, dict(causal=True))]
+    # every head dim the kernel takes, groups of 1, 2, 16 and 64 (two
+    # positions per 128-row tile), ragged S, and each of bidirectional, cap
+    # and a window shorter than a key tile
+    cases += [(1, s, g * (1 if g == 64 else 2), 1 if g == 64 else 2, d, kw)
+              for d in HEAD_DIMS for g in (1, 2, 16, 64) for s in (1, 33, 257)
+              for kw in (dict(causal=False), dict(causal=True, cap=20.0),
+                         dict(causal=True, window=7))]
     for b, s, h, hk, d, kw in cases:
         q, k, v = qkv(b, s, h, hk, d)
         compare("flash_attention", flash_attention_cuda(q, k, v, **kw),
@@ -353,17 +423,15 @@ def kernel_checks(dev):
             ms=device_ms(lambda: flash_attention_cuda(q, k, v)),
             plain_ms=device_ms(lambda: flash_attention_plain(q, k, v)),
             library_ms=sdpa_ms(q, k, v),
-            bound=bound(4 * (2 * q.numel() + 2 * k.numel()),
-                        4 * 32 * pairs * 16 * 8))
+            **flash_bounds(4 * (2 * q.numel() + 2 * k.numel()),
+                           4 * 32 * pairs * 16 * 8))
         shapes[s] = t
-        print(f"  flash_attention B16 S{s} H8/4 D32: kernel {t['ms']:.4f} ms"
-              f", plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']}, "
-              f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]})")
+        flash_line(f"B16 S{s} H8/4 D32", t)
     rows["flash_attention"] = shapes[140]
     rows["fused_prefix"] = prefix_checks(compare, frames)
     lm_kernel_checks(compare, gen, dev, rows)
     magnitude_checks(gen, dev)
-    rows["int8_matmul"] = int8_checks(dev)
+    rows.update(int8_checks(dev))
     for name in ("frame_diff", "fused_preprocess"):
         t = rows[name]
         print(f"  {name} at the path's shape: kernel {t['ms']:.4f} ms, plain "
@@ -635,13 +703,11 @@ def lm_kernel_checks(compare, gen, dev, rows):
              plain_ms=device_ms(plain, n=1, reps=3),
              library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                  qh, kh, vh, attn_mask=mask, enable_gqa=True), n=2, reps=3),
-             bound=bound(4 * (2 * q.numel() + 2 * k.numel()),
-                         4 * 256 * pairs * 8))
+             **flash_bounds(4 * (2 * q.numel() + 2 * k.numel()),
+                            4 * 256 * pairs * 8))
     rows["flash_attention"]["gemma_prefill"] = t
-    print(f"  flash_attention gemma2 prefill B1 S8192 H8/4 D256 cap 50 window "
-          f"4096: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, SDPA "
-          f"without the cap {t['library_ms']:.3f} ms, bound "
-          f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    flash_line("gemma2 prefill B1 S8192 H8/4 D256 cap 50 window 4096", t,
+               "SDPA without the cap")
     del q, k, v, qh, kh, vh, mask
 
     # flash_attention at chatglm3-6b's (32/2 heads of 128: a group of 16,
@@ -664,13 +730,10 @@ def lm_kernel_checks(compare, gen, dev, rows):
                  library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                      qh, kh, vh, is_causal=True, enable_gqa=True), n=2,
                      reps=3),
-                 bound=bound(4 * (2 * q.numel() + 2 * k.numel()),
-                             4 * d * pairs * h))
+                 **flash_bounds(4 * (2 * q.numel() + 2 * k.numel()),
+                                4 * d * pairs * h))
         rows["flash_attention"][which] = t
-        print(f"  flash_attention {which} B1 S{s} H{h}/{hk} D{d} causal: "
-              f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, SDPA "
-              f"{t['library_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms "
-              f"({t['bound'][1]})")
+        flash_line(f"{which} B1 S{s} H{h}/{hk} D{d} causal", t)
         del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
 
@@ -769,15 +832,44 @@ def int8_yardstick(x_q, w_q, sx, sw):
     return (lambda: (torch._int_mm(x_q, w_q).float() * sx) * sw), padded
 
 
+def int8_route(m):
+    """The kernels-line name of the route ``int8_matmul_cuda`` takes at M
+    rows."""
+    from repro_torch.kernels.int8_matmul.kernel import MMA_MIN_M
+
+    return "int8_matmul_mma" if m >= MMA_MIN_M else "int8_matmul"
+
+
+def int8_call(x_q, w_q, sx, sw):
+    """``int8_matmul_cuda`` once, holding from the launch counts that the
+    shape took its route: one launch of the route's entry points (the
+    pre-pass with the tensor-core product) and of nothing else."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda
+
+    before = launch_counts()
+    out = int8_matmul_cuda(x_q, w_q, sx, sw)
+    route = int8_route(x_q.shape[0])
+    want = {KERNELS[route][0], *COMPANIONS.get(route, ())}
+    moved = {k for k, n in launch_counts().items() if n != before[k]}
+    check(moved == want and all(launch_counts()[k] == before[k] + 1
+                                for k in want),
+          f"int8_matmul at M {x_q.shape[0]}: launched {sorted(moved)}, not "
+          f"the route {sorted(want)}")
+    return out
+
+
 def int8_timing(label, x_q, w_q, sx, sw):
     """The kernel's, the plain version's and the yardstick's device time
     at one shape, with the bound: int8 operands and f32 scales read once,
-    f32 out written once; 2 M K N int8 operations."""
+    f32 out written once; 2 M K N int8 operations.  The kernel's time is
+    its route's, the tensor-core route's pre-pass included."""
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_plain
 
     m, k = x_q.shape
     n = w_q.shape[1]
+    int8_call(x_q, w_q, sx, sw)
     lib, padded = int8_yardstick(x_q, w_q, sx, sw)
     if lib is not None:
         same = torch.equal(lib()[:m], int8_matmul_plain(x_q, w_q, sx, sw))
@@ -790,7 +882,7 @@ def int8_timing(label, x_q, w_q, sx, sw):
              library_ms=None if lib is None else device_ms(lib),
              bound=bound(nbytes, 2 * m * k * n, INT8_OPS_S),
              library_rows_padded_to_32=padded)
-    print(f"  int8_matmul {label} M{m} K{k} N{n}: kernel {t['ms']:.4f} ms, "
+    print(f"  {int8_route(m)} {label} M{m} K{k} N{n}: kernel {t['ms']:.4f} ms, "
           f"plain {t['plain_ms']:.4f} ms, _int_mm + scales "
           + ("not timed (K or N not a multiple of 8)" if lib is None else
              f"{t['library_ms']:.4f} ms{' (M padded to 32)' if padded else ''}"
@@ -800,13 +892,18 @@ def int8_timing(label, x_q, w_q, sx, sw):
 
 
 def int8_checks(dev):
-    """int8_matmul against its plain version on the card (equal), at the
-    reference sweep's shapes, kernel_bench's 256x512x512, ragged ones (M 4,
-    M 4200, K and N off multiples of 16) and chatglm3-6b's projections at
-    a decode tick (M = 4); each of those but the ragged ones timed.  The
-    row of the kernels line is chatglm3-6b's w_in at M = 4, the largest
-    weight a decode tick reads."""
-    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda
+    """int8_matmul against its plain version on the card (equal), on both
+    routes, at the reference sweep's shapes, kernel_bench's 256x512x512,
+    ragged ones (M 4, 37, 63, 65, 200, 4200; K off multiples of 16 and 32,
+    N off multiples of 8) and chatglm3-6b's projections at a decode tick
+    (M = 4); each of those but the ragged ones timed, each call held to its
+    route by the launch counts.  Then both routes at w_in with M 4 and 64,
+    the measurement behind ``MMA_MIN_M``.  Returns the rows of the two
+    routes: the dp4a route's is chatglm3-6b's w_in at M = 4, the largest
+    weight a decode tick reads (the tensor-core route's, w_in at a
+    prefill's M, is added by phase 12)."""
+    from repro_torch.kernels.int8_matmul.kernel import (dp4a_product,
+                                                        mma_product)
     from repro_torch.kernels.int8_matmul.ref import (int8_matmul_plain,
                                                      quantize_colwise,
                                                      quantize_rowwise)
@@ -816,23 +913,45 @@ def int8_checks(dev):
              ("sweep", 64, 128, 512), ("kernel_bench", 256, 512, 512),
              ("ragged", 4, 1000, 13), ("ragged", 4200, 4099, 70),
              ("ragged", 37, 129, 67), ("ragged", 1, 7, 1),
-             ("ragged", 65, 4096, 4100)]
+             ("ragged", 65, 4096, 4100), ("ragged", 63, 4099, 257),
+             ("ragged", 200, 100, 13), ("ragged", 129, 33, 4097)]
     cases += [(f"chatglm3 {name}", 4, k, n)
               for name, (k, n) in CHATGLM3_PROJ.items()]
-    out = {}
+    out = {"int8_matmul": {}, "int8_matmul_mma": {}}
     for label, m, k, n in cases:
         x_q, sx = quantize_rowwise(torch.randn(m, k, generator=gen,
                                                device=dev))
         w_q, sw = quantize_colwise(torch.randn(k, n, generator=gen,
                                                device=dev))
-        compare("int8_matmul", int8_matmul_cuda(x_q, w_q, sx, sw),
+        compare(int8_route(m), int8_call(x_q, w_q, sx, sw),
                 int8_matmul_plain(x_q, w_q, sx, sw),
                 f"{label} M{m} K{k} N{n}")
         if label != "ragged":
-            out[f"{label} M{m} K{k} N{n}"] = int8_timing(label, x_q, w_q,
-                                                          sx, sw)
-    head = out.pop("chatglm3 w_in M4 K4096 N13696")
-    return {**head, **out}
+            out[int8_route(m)][f"{label} M{m} K{k} N{n}"] = int8_timing(
+                label, x_q, w_q, sx, sw)
+    # both routes at chatglm3's w_in where the decode tick and a short
+    # prefill put M, whatever MMA_MIN_M picks
+    k, n = CHATGLM3_PROJ["w_in"]
+    w_q, sw = quantize_colwise(torch.randn(k, n, generator=gen, device=dev))
+    routes = {}
+    for m in (4, 64):
+        x_q, sx = quantize_rowwise(torch.randn(m, k, generator=gen,
+                                               device=dev))
+        want = int8_matmul_plain(x_q, w_q, sx, sw)
+        routes[f"M{m}"] = {}
+        for name, fn in (("int8_matmul", dp4a_product),
+                         ("int8_matmul_mma", mma_product)):
+            compare(name, fn(x_q, w_q, sx, sw), want,
+                    f"route comparison w_in M{m}")
+            routes[f"M{m}"][name] = device_ms(
+                lambda: fn(x_q, w_q, sx, sw))
+        print(f"  int8_matmul routes at chatglm3 w_in M{m} K{k} N{n}: dp4a "
+              f"{routes[f'M{m}']['int8_matmul']:.4f} ms, tensor cores with "
+              f"the pre-pass {routes[f'M{m}']['int8_matmul_mma']:.4f} ms")
+    head = out["int8_matmul"].pop("chatglm3 w_in M4 K4096 N13696")
+    return {"int8_matmul": {**head, **out["int8_matmul"],
+                            "route_comparison_ms": routes},
+            "int8_matmul_mma": out["int8_matmul_mma"]}
 
 
 def sdpa_ms(q, k, v):
@@ -1414,16 +1533,21 @@ def chatglm3_int8(dev, rows):
             for m in (SERVE_SLOTS, long_m)}
     torch.cuda.synchronize()
     counts["chatglm3_int8"] = launch_counts()
-    check(counts["chatglm3_int8"]["int8_matmul_f32"] == len(outs),
-          f"chatglm3_int8: int8_matmul_f32 launched "
-          f"{counts['chatglm3_int8']['int8_matmul_f32']} times, not "
-          f"{len(outs)}")
+    # each projection once at each M: M 4 on the dp4a route, the prefill's
+    # M on the tensor cores (its pre-pass once with each product)
+    for m in (SERVE_SLOTS, long_m):
+        route = int8_route(m)
+        for sym in (KERNELS[route][0],) + COMPANIONS.get(route, ()):
+            n = sum(int8_route(m_) == route for _, m_ in outs)
+            check(counts["chatglm3_int8"][sym] == n,
+                  f"chatglm3_int8: {sym} launched "
+                  f"{counts['chatglm3_int8'][sym]} times, not {n}")
     rel_max = 0.0
     for (name, m), got in outs.items():
         w2, q2, sw = proj[name]
         x = xs[m, w2.shape[0]]
         x_q, sx = quantize_rowwise(x)
-        compare("int8_matmul", got, int8_matmul_plain(x_q, q2, sx, sw),
+        compare(int8_route(m), got, int8_matmul_plain(x_q, q2, sx, sw),
                 f"chatglm3 layer 0 {name} M{m}")
         exact = x @ w2
         rel = ((got - exact).abs().max() / exact.abs().max()).item()
@@ -1436,9 +1560,9 @@ def chatglm3_int8(dev, rows):
           "product's largest magnitude (bound 0.05)")
     w2, q2, sw = proj["w_in"]
     x_q, sx = quantize_rowwise(xs[long_m, w2.shape[0]])
-    rows["int8_matmul"][f"chatglm3 w_in M{long_m} K{w2.shape[0]} "
-                        f"N{w2.shape[1]}"] = \
-        int8_timing("chatglm3 w_in prefill", x_q, q2, sx, sw)
+    rows["int8_matmul_mma"] = {
+        **int8_timing("chatglm3 w_in prefill", x_q, q2, sx, sw),
+        **rows["int8_matmul_mma"]}
     del outs, xs, proj, params, x_q, w2, q2, sw
 
     t0 = time.perf_counter()
@@ -1506,6 +1630,7 @@ def main() -> int:
             for line in str(r["log"]).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"    {name}: {line.strip()}")
+        sass_mma_counts()
 
         print("[2] kernels vs their plain PyTorch versions on the card")
         rows = kernel_checks(dev)
@@ -1597,7 +1722,7 @@ def main() -> int:
                 c: sum(counts[p][c] for p in PATHS)
                 for c in COMPANIONS[name]}} if name in COMPANIONS else {}),
             "max_abs_err": ERRS[name], **timing(t),
-            **{k: timing(v) if isinstance(v, dict) else v
+            **{k: timing(v) if isinstance(v, dict) and "ms" in v else v
                for k, v in t.items() if k not in TIMING_KEYS}})
     physical = opt_report.phases[-1]
     print(json.dumps({"q8": {

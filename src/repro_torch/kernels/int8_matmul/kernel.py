@@ -9,8 +9,16 @@ import torch
 from repro_torch.kernels._build import CudaKernel, require_cuda
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
+#: the dp4a route (small M)
 KERNEL = CudaKernel("int8_matmul", "int8_matmul_f32",
                     [_P, _P, _P, _P, _P, _I, _I, _I])
+#: the tensor-core route (large M): w's K-major transpose, then the product
+TRANSPOSE = CudaKernel("int8_matmul", "int8_transpose_kn",
+                       [_P, _P, _I, _I, _I])
+MMA = CudaKernel("int8_matmul", "int8_mma_f32",
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _I])
+#: M from which the tensor-core route runs
+MMA_MIN_M = 64
 #: the int32 accumulator holds K products of at most 127² without overflow
 MAX_K = (2 ** 31 - 1) // (127 * 127)
 
@@ -20,7 +28,8 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
                      ) -> torch.Tensor:
     """x_q (M, K) int8, w_q (K, N) int8, sx (M, 1) f32, sw (1, N) f32, on
     CUDA -> (M, N) f32, ``(float(acc) * sx) * sw``.  Any M, N and K up to
-    ``MAX_K``."""
+    ``MAX_K``.  M below ``MMA_MIN_M`` takes the dp4a route, M at or above
+    it the tensor-core route; both are exact."""
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise ValueError("int8_matmul: the CUDA kernel takes int8 operands "
                          f"(got {x_q.dtype}, {w_q.dtype})")
@@ -42,10 +51,32 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
         raise ValueError(f"int8_matmul: K {k} overflows the int32 "
                          f"accumulator (at most {MAX_K})")
     dev = require_cuda("int8_matmul", x_q, w_q, sx, sw)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m and n and k:
-        KERNEL.launch(dev, x_q.data_ptr(), w_q.data_ptr(), sx.data_ptr(),
-                      sw.data_ptr(), out.data_ptr(), m, n, k)
-    elif m and n:
-        out.zero_()
+        route = mma_product if m >= MMA_MIN_M else dp4a_product
+        return route(x_q, w_q, sx, sw)
+    return torch.zeros((m, n), dtype=torch.float32, device=dev)
+
+
+def dp4a_product(x_q, w_q, sx, sw) -> torch.Tensor:
+    """The dp4a route, whatever M, on operands of the types and shapes
+    ``int8_matmul_cuda`` checks (M, N, K >= 1)."""
+    dev = require_cuda("int8_matmul", x_q, w_q, sx, sw)
+    (m, k), n = x_q.shape, w_q.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    KERNEL.launch(dev, x_q.data_ptr(), w_q.data_ptr(), sx.data_ptr(),
+                  sw.data_ptr(), out.data_ptr(), m, n, k)
+    return out
+
+
+def mma_product(x_q, w_q, sx, sw) -> torch.Tensor:
+    """The tensor-core route, whatever M, on such operands: w's transpose
+    (N, Kp), Kp = K rounded up to 16, into scratch, then the product."""
+    dev = require_cuda("int8_matmul", x_q, w_q, sx, sw)
+    (m, k), n = x_q.shape, w_q.shape[1]
+    kp = -(-k // 16) * 16
+    wt = torch.empty((n, kp), dtype=torch.int8, device=dev)
+    TRANSPOSE.launch(dev, w_q.data_ptr(), wt.data_ptr(), k, n, kp)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    MMA.launch(dev, x_q.data_ptr(), wt.data_ptr(), sx.data_ptr(),
+               sw.data_ptr(), out.data_ptr(), m, n, k, kp)
     return out
