@@ -263,18 +263,14 @@ def device_ms(fn, n: int = 40, reps: int = 5) -> float:
                        "card (does the function synchronize?)")
 
 
-TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound",
-               "bound_fp32_cuda_cores")
+TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound")
 
 
 def timing(t):
     """A timing dict as the kernels line writes it."""
-    out = {"ms": t["ms"], "plain_ms": t["plain_ms"],
-           "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-           "library_ms": t["library_ms"]}
-    if "bound_fp32_cuda_cores" in t:
-        out["bound_fp32_cuda_cores_ms"] = t["bound_fp32_cuda_cores"][0]
-    return out
+    return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"]}
 
 
 def bound(nbytes: float, ops: float, ops_s: float = FP32_OPS_S):
@@ -283,20 +279,15 @@ def bound(nbytes: float, ops: float, ops_s: float = FP32_OPS_S):
             else "operations")
 
 
-def flash_bounds(nbytes: float, ops: float):
-    """flash_attention's bound at the tensor cores' 3xTF32 rate, and at the
-    fp32 CUDA cores' rate beside it."""
-    return dict(bound=bound(nbytes, ops, FLASH_OPS_S),
-                bound_fp32_cuda_cores=bound(nbytes, ops))
-
-
-def flash_line(label, t, library="SDPA"):
+def flash_line(label, t, nbytes, ops, library="SDPA"):
+    """flash_attention's times at one shape, its bound (``t["bound"]``, at
+    the tensor cores' 3xTF32 rate) and the fp32 CUDA cores' bound beside
+    it (printed only)."""
     print(f"  flash_attention {label}: kernel {t['ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms, {library} {t['library_ms']:.4f} ms, "
           f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}, 3xTF32 at "
-          f"{FLASH_OPS_S / 1e12:.0f} TFLOP/s; "
-          f"{t['bound_fp32_cuda_cores'][0]:.5f} ms at the fp32 CUDA cores' "
-          f"{FP32_OPS_S / 1e12:.0f})")
+          f"{FLASH_OPS_S / 1e12:.0f} TFLOP/s; {bound(nbytes, ops)[0]:.5f} "
+          f"ms at the fp32 CUDA cores' {FP32_OPS_S / 1e12:.0f})")
 
 
 def sass_mma_counts():
@@ -418,15 +409,15 @@ def kernel_checks(dev):
     shapes = {}
     for s in (140, 76, 28):
         q, k, v = qkv(16, s, 8, 4, 32)
-        pairs = s * (s + 1) // 2
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+        ops = 4 * 32 * s * (s + 1) // 2 * 16 * 8
         t = dict(
             ms=device_ms(lambda: flash_attention_cuda(q, k, v)),
             plain_ms=device_ms(lambda: flash_attention_plain(q, k, v)),
             library_ms=sdpa_ms(q, k, v),
-            **flash_bounds(4 * (2 * q.numel() + 2 * k.numel()),
-                           4 * 32 * pairs * 16 * 8))
+            bound=bound(nbytes, ops, FLASH_OPS_S))
         shapes[s] = t
-        flash_line(f"B16 S{s} H8/4 D32", t)
+        flash_line(f"B16 S{s} H8/4 D32", t, nbytes, ops)
     rows["flash_attention"] = shapes[140]
     rows["fused_prefix"] = prefix_checks(compare, frames)
     lm_kernel_checks(compare, gen, dev, rows)
@@ -698,16 +689,16 @@ def lm_kernel_checks(compare, gen, dev, rows):
     pos = torch.arange(s, device=dev)
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    nbytes, ops = 4 * (2 * q.numel() + 2 * k.numel()), 4 * 256 * pairs * 8
     t = dict(ms=device_ms(lambda: flash_attention_cuda(q, k, v, **kw), n=2,
                           reps=3),
              plain_ms=device_ms(plain, n=1, reps=3),
              library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                  qh, kh, vh, attn_mask=mask, enable_gqa=True), n=2, reps=3),
-             **flash_bounds(4 * (2 * q.numel() + 2 * k.numel()),
-                            4 * 256 * pairs * 8))
+             bound=bound(nbytes, ops, FLASH_OPS_S))
     rows["flash_attention"]["gemma_prefill"] = t
     flash_line("gemma2 prefill B1 S8192 H8/4 D256 cap 50 window 4096", t,
-               "SDPA without the cap")
+               nbytes, ops, "SDPA without the cap")
     del q, k, v, qh, kh, vh, mask
 
     # flash_attention at chatglm3-6b's (32/2 heads of 128: a group of 16,
@@ -722,7 +713,8 @@ def lm_kernel_checks(compare, gen, dev, rows):
 
         compare("flash_attention", flash_attention_cuda(q, k, v), plain(),
                 f"B1 S{s} H{h}/{hk} D{d} causal")
-        pairs = s * (s + 1) // 2
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+        ops = 4 * d * s * (s + 1) // 2 * h
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         t = dict(ms=device_ms(lambda: flash_attention_cuda(q, k, v), n=2,
                               reps=3),
@@ -730,10 +722,9 @@ def lm_kernel_checks(compare, gen, dev, rows):
                  library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                      qh, kh, vh, is_causal=True, enable_gqa=True), n=2,
                      reps=3),
-                 **flash_bounds(4 * (2 * q.numel() + 2 * k.numel()),
-                                4 * d * pairs * h))
+                 bound=bound(nbytes, ops, FLASH_OPS_S))
         rows["flash_attention"][which] = t
-        flash_line(f"{which} B1 S{s} H{h}/{hk} D{d} causal", t)
+        flash_line(f"{which} B1 S{s} H{h}/{hk} D{d} causal", t, nbytes, ops)
         del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
 
@@ -832,12 +823,12 @@ def int8_yardstick(x_q, w_q, sx, sw):
     return (lambda: (torch._int_mm(x_q, w_q).float() * sx) * sw), padded
 
 
-def int8_route(m):
-    """The kernels-line name of the route ``int8_matmul_cuda`` takes at M
-    rows."""
-    from repro_torch.kernels.int8_matmul.kernel import MMA_MIN_M
+def int8_route(m, k, n):
+    """The kernels-line name of the route ``int8_matmul_cuda`` takes for
+    an (M, K) x (K, N) product."""
+    from repro_torch.kernels.int8_matmul.kernel import use_tensor_cores
 
-    return "int8_matmul_mma" if m >= MMA_MIN_M else "int8_matmul"
+    return "int8_matmul_mma" if use_tensor_cores(m, k, n) else "int8_matmul"
 
 
 def int8_call(x_q, w_q, sx, sw):
@@ -849,7 +840,7 @@ def int8_call(x_q, w_q, sx, sw):
 
     before = launch_counts()
     out = int8_matmul_cuda(x_q, w_q, sx, sw)
-    route = int8_route(x_q.shape[0])
+    route = int8_route(x_q.shape[0], *w_q.shape)
     want = {KERNELS[route][0], *COMPANIONS.get(route, ())}
     moved = {k for k, n in launch_counts().items() if n != before[k]}
     check(moved == want and all(launch_counts()[k] == before[k] + 1
@@ -882,8 +873,8 @@ def int8_timing(label, x_q, w_q, sx, sw):
              library_ms=None if lib is None else device_ms(lib),
              bound=bound(nbytes, 2 * m * k * n, INT8_OPS_S),
              library_rows_padded_to_32=padded)
-    print(f"  {int8_route(m)} {label} M{m} K{k} N{n}: kernel {t['ms']:.4f} ms, "
-          f"plain {t['plain_ms']:.4f} ms, _int_mm + scales "
+    print(f"  {int8_route(m, k, n)} {label} M{m} K{k} N{n}: kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, _int_mm + scales "
           + ("not timed (K or N not a multiple of 8)" if lib is None else
              f"{t['library_ms']:.4f} ms{' (M padded to 32)' if padded else ''}"
              f" (equal to the plain version: {same})")
@@ -902,8 +893,6 @@ def int8_checks(dev):
     routes: the dp4a route's is chatglm3-6b's w_in at M = 4, the largest
     weight a decode tick reads (the tensor-core route's, w_in at a
     prefill's M, is added by phase 12)."""
-    from repro_torch.kernels.int8_matmul.kernel import (dp4a_product,
-                                                        mma_product)
     from repro_torch.kernels.int8_matmul.ref import (int8_matmul_plain,
                                                      quantize_colwise,
                                                      quantize_rowwise)
@@ -923,35 +912,61 @@ def int8_checks(dev):
                                                device=dev))
         w_q, sw = quantize_colwise(torch.randn(k, n, generator=gen,
                                                device=dev))
-        compare(int8_route(m), int8_call(x_q, w_q, sx, sw),
+        route = int8_route(m, k, n)
+        compare(route, int8_call(x_q, w_q, sx, sw),
                 int8_matmul_plain(x_q, w_q, sx, sw),
                 f"{label} M{m} K{k} N{n}")
         if label != "ragged":
-            out[int8_route(m)][f"{label} M{m} K{k} N{n}"] = int8_timing(
+            out[route][f"{label} M{m} K{k} N{n}"] = int8_timing(
                 label, x_q, w_q, sx, sw)
-    # both routes at chatglm3's w_in where the decode tick and a short
-    # prefill put M, whatever MMA_MIN_M picks
-    k, n = CHATGLM3_PROJ["w_in"]
-    w_q, sw = quantize_colwise(torch.randn(k, n, generator=gen, device=dev))
-    routes = {}
-    for m in (4, 64):
-        x_q, sx = quantize_rowwise(torch.randn(m, k, generator=gen,
-                                               device=dev))
-        want = int8_matmul_plain(x_q, w_q, sx, sw)
-        routes[f"M{m}"] = {}
-        for name, fn in (("int8_matmul", dp4a_product),
-                         ("int8_matmul_mma", mma_product)):
-            compare(name, fn(x_q, w_q, sx, sw), want,
-                    f"route comparison w_in M{m}")
-            routes[f"M{m}"][name] = device_ms(
-                lambda: fn(x_q, w_q, sx, sw))
-        print(f"  int8_matmul routes at chatglm3 w_in M{m} K{k} N{n}: dp4a "
-              f"{routes[f'M{m}']['int8_matmul']:.4f} ms, tensor cores with "
-              f"the pre-pass {routes[f'M{m}']['int8_matmul_mma']:.4f} ms")
+    routes = int8_route_table(gen, dev)
     head = out["int8_matmul"].pop("chatglm3 w_in M4 K4096 N13696")
     return {"int8_matmul": {**head, **out["int8_matmul"],
                             "route_comparison_ms": routes},
             "int8_matmul_mma": out["int8_matmul_mma"]}
+
+
+#: both int8 routes timed at chatglm3-6b's projections at a decode tick's
+#: and short prefills' M, and at the sweep's shapes with their own M and
+#: with M 4: the measurement behind ``use_tensor_cores``
+ROUTE_SHAPES = ([(name, m, k, n) for m in (4, 16, 64, 256)
+                 for name, (k, n) in CHATGLM3_PROJ.items()]
+                + [(label, mm, k, n) for label, m, k, n in (
+                    ("sweep", 128, 256, 128), ("sweep", 256, 512, 256),
+                    ("sweep", 64, 128, 512), ("kernel_bench", 256, 512, 512))
+                   for mm in (4, m)])
+
+
+def int8_route_table(gen, dev):
+    """Both routes, forced, at every shape of ``ROUTE_SHAPES``: each equal
+    to the plain version, each timed (the tensor-core route with its
+    pre-pass).  Prints the faster route beside the one
+    ``use_tensor_cores`` picks; returns {shape: {route: ms}}."""
+    from repro_torch.kernels.int8_matmul.kernel import (dp4a_product,
+                                                        mma_product)
+    from repro_torch.kernels.int8_matmul.ref import (int8_matmul_plain,
+                                                     quantize_colwise,
+                                                     quantize_rowwise)
+
+    table = {}
+    for label, m, k, n in ROUTE_SHAPES:
+        x_q, sx = quantize_rowwise(torch.randn(m, k, generator=gen,
+                                               device=dev))
+        w_q, sw = quantize_colwise(torch.randn(k, n, generator=gen,
+                                               device=dev))
+        want = int8_matmul_plain(x_q, w_q, sx, sw)
+        key = f"{label} M{m} K{k} N{n}"
+        ms = {}
+        for name, fn in (("int8_matmul", dp4a_product),
+                         ("int8_matmul_mma", mma_product)):
+            compare(name, fn(x_q, w_q, sx, sw), want, f"route {key}")
+            ms[name] = device_ms(lambda: fn(x_q, w_q, sx, sw))
+        table[key] = ms
+        print(f"  int8_matmul routes at {key}: dp4a {ms['int8_matmul']:.4f}"
+              f" ms, tensor cores with the pre-pass "
+              f"{ms['int8_matmul_mma']:.4f} ms; faster "
+              f"{min(ms, key=ms.get)}, picked {int8_route(m, k, n)}")
+    return table
 
 
 def sdpa_ms(q, k, v):
@@ -1533,12 +1548,12 @@ def chatglm3_int8(dev, rows):
             for m in (SERVE_SLOTS, long_m)}
     torch.cuda.synchronize()
     counts["chatglm3_int8"] = launch_counts()
-    # each projection once at each M: M 4 on the dp4a route, the prefill's
-    # M on the tensor cores (its pre-pass once with each product)
-    for m in (SERVE_SLOTS, long_m):
-        route = int8_route(m)
+    # each projection once at each M, on the route its shape takes (the
+    # tensor-core route's pre-pass once with each of its products)
+    taken = [int8_route(m, *proj[name][1].shape) for name, m in outs]
+    for route in ("int8_matmul", "int8_matmul_mma"):
+        n = taken.count(route)
         for sym in (KERNELS[route][0],) + COMPANIONS.get(route, ()):
-            n = sum(int8_route(m_) == route for _, m_ in outs)
             check(counts["chatglm3_int8"][sym] == n,
                   f"chatglm3_int8: {sym} launched "
                   f"{counts['chatglm3_int8'][sym]} times, not {n}")
@@ -1547,7 +1562,8 @@ def chatglm3_int8(dev, rows):
         w2, q2, sw = proj[name]
         x = xs[m, w2.shape[0]]
         x_q, sx = quantize_rowwise(x)
-        compare(int8_route(m), got, int8_matmul_plain(x_q, q2, sx, sw),
+        compare(int8_route(m, *q2.shape), got,
+                int8_matmul_plain(x_q, q2, sx, sw),
                 f"chatglm3 layer 0 {name} M{m}")
         exact = x @ w2
         rel = ((got - exact).abs().max() / exact.abs().max()).item()
