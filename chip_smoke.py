@@ -27,12 +27,11 @@ Phases (any failure exits non-zero and prints no result line):
      chatglm3's and phi3's magnitudes (q, k, v as the reference's init
      makes them: scores in the hundreds), held to the plain version and
      to float64 beside it (card and CPU); int8_matmul (exact: equal to
-     its plain version) on its dp4a route (M below ``MMA_MIN_M``) and its
-     tensor-core route (the pre-pass transpose and the product), each call
-     held to its route by the launch counts, at the reference sweep's
-     shapes, kernel_bench's 256x512x512, ragged ones and chatglm3-6b's
-     projections at M = 4, with ``torch._int_mm`` plus the two scale
-     multiplies as yardstick, and both routes at w_in with M 4 and 64;
+     its plain version; each call one launch of its pre-pass transpose and
+     one of its tensor-core product, by the launch counts) at the
+     reference sweep's shapes, kernel_bench's 256x512x512, ragged ones and
+     chatglm3-6b's projections at M = 4, with ``torch._int_mm`` plus the
+     two scale multiplies as yardstick;
   3. Q8's naive plan: Source -> MLLM extract (full width: 4 layers,
      d_model 256, 8/4 heads, PATCH 16, seeded random weights) -> filter
      -> Sink over 512 TollBooth frames, micro-batch 16;
@@ -71,10 +70,9 @@ Phases (any failure exits non-zero and prints no result line):
      reference's int8 recipe on the same weights on the card:
      ``quantize_params_int8`` (ratio < 0.35), ``matmul_int8_dynamic`` on
      every quantized projection of layer 0 at M = 4 and M = 4200 (the
-     path ``chatglm3_int8``: the int8_matmul kernel's dp4a route at M = 4
-     and its tensor-core route at the prefill's M, each equal to its plain
-     version, within 5% of the fp32 product), one stacked leaf's codes,
-     scales and dequantized weights equal to the CPU's,
+     path ``chatglm3_int8``: the int8_matmul kernel, each product equal
+     to its plain version, within 5% of the fp32 product), one stacked
+     leaf's codes, scales and dequantized weights equal to the CPU's,
      ``dequantize_params`` and the requests again on the dense weights it
      rebuilds (the path ``chatglm3_dequant_serve``, as the reference
      serves), with the top-1 agreement of the logits against the fp32 run
@@ -122,12 +120,11 @@ FLASH_OPS_S = TF32_OPS_S / 3
 # where PyTorch multiplies by a reciprocal, and patch means sum in another
 # order: a few ulps, well inside 1e-5
 # decode_attention: the reference sweep's fp32 tolerance; ssd_scan its SSD
-# sweep's (sums of up to 256 products in another order); int8_matmul none,
-# on either route: its int32 sums are exact and both versions round
-# (acc * sx) * sw alike
+# sweep's (sums of up to 256 products in another order); int8_matmul none:
+# its int32 sums are exact and both versions round (acc * sx) * sw alike
 TOL = {"frame_diff": 1e-6, "fused_preprocess": 1e-5, "flash_attention": 2e-5,
        "fused_prefix": 1e-5, "decode_attention": 2e-5, "ssd_scan": 1e-4,
-       "int8_matmul": 0.0, "int8_matmul_mma": 0.0}
+       "int8_matmul": 0.0}
 KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
     "frame_diff": ("frame_diff_u8",
                    "src/repro_torch/kernels/csrc/frame_diff.cu",
@@ -146,20 +143,15 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
                          "src/repro/kernels/decode_attention/kernel.py:69"),
     "ssd_scan": ("ssd_scan_f32", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:55"),
-    # int8_matmul's two routes, picked by M: dp4a below MMA_MIN_M, the
-    # tensor cores from it
-    "int8_matmul": ("int8_matmul_f32",
+    "int8_matmul": ("int8_mma_f32",
                     "src/repro_torch/kernels/csrc/int8_matmul.cu",
                     "src/repro/kernels/int8_matmul/kernel.py:36"),
-    "int8_matmul_mma": ("int8_mma_f32",
-                        "src/repro_torch/kernels/csrc/int8_matmul.cu",
-                        "src/repro/kernels/int8_matmul/kernel.py:36"),
 }
 #: a kernel's other launches, each its own C entry point with its own
 #: count, made once with every launch of the kernel's entry above
 COMPANIONS = {"decode_attention": ("decode_attention_combine_f32",),
               "ssd_scan": ("ssd_cb_f32",),
-              "int8_matmul_mma": ("int8_transpose_kn",)}
+              "int8_matmul": ("int8_transpose_kn",)}
 #: the tensor-core instruction each built library must hold (phase 1)
 SASS_MMA = {"flash_attention": "HMMA", "int8_matmul": "IMMA"}
 #: the paths driven end to end, by the name used in ``launches_by_path``
@@ -823,38 +815,28 @@ def int8_yardstick(x_q, w_q, sx, sw):
     return (lambda: (torch._int_mm(x_q, w_q).float() * sx) * sw), padded
 
 
-def int8_route(m, k, n):
-    """The kernels-line name of the route ``int8_matmul_cuda`` takes for
-    an (M, K) x (K, N) product."""
-    from repro_torch.kernels.int8_matmul.kernel import use_tensor_cores
-
-    return "int8_matmul_mma" if use_tensor_cores(m, k, n) else "int8_matmul"
-
-
 def int8_call(x_q, w_q, sx, sw):
-    """``int8_matmul_cuda`` once, holding from the launch counts that the
-    shape took its route: one launch of the route's entry points (the
-    pre-pass with the tensor-core product) and of nothing else."""
+    """``int8_matmul_cuda`` once, holding from the launch counts that it
+    launched its pre-pass and its product once each and nothing else."""
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda
 
     before = launch_counts()
     out = int8_matmul_cuda(x_q, w_q, sx, sw)
-    route = int8_route(x_q.shape[0], *w_q.shape)
-    want = {KERNELS[route][0], *COMPANIONS.get(route, ())}
+    want = {KERNELS["int8_matmul"][0], *COMPANIONS["int8_matmul"]}
     moved = {k for k, n in launch_counts().items() if n != before[k]}
     check(moved == want and all(launch_counts()[k] == before[k] + 1
                                 for k in want),
           f"int8_matmul at M {x_q.shape[0]}: launched {sorted(moved)}, not "
-          f"the route {sorted(want)}")
+          f"{sorted(want)} once each")
     return out
 
 
 def int8_timing(label, x_q, w_q, sx, sw):
     """The kernel's, the plain version's and the yardstick's device time
     at one shape, with the bound: int8 operands and f32 scales read once,
-    f32 out written once; 2 M K N int8 operations.  The kernel's time is
-    its route's, the tensor-core route's pre-pass included."""
+    f32 out written once; 2 M K N int8 operations.  The kernel's time
+    includes its pre-pass."""
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_plain
 
@@ -873,7 +855,7 @@ def int8_timing(label, x_q, w_q, sx, sw):
              library_ms=None if lib is None else device_ms(lib),
              bound=bound(nbytes, 2 * m * k * n, INT8_OPS_S),
              library_rows_padded_to_32=padded)
-    print(f"  {int8_route(m, k, n)} {label} M{m} K{k} N{n}: kernel "
+    print(f"  int8_matmul {label} M{m} K{k} N{n}: kernel "
           f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, _int_mm + scales "
           + ("not timed (K or N not a multiple of 8)" if lib is None else
              f"{t['library_ms']:.4f} ms{' (M padded to 32)' if padded else ''}"
@@ -883,16 +865,14 @@ def int8_timing(label, x_q, w_q, sx, sw):
 
 
 def int8_checks(dev):
-    """int8_matmul against its plain version on the card (equal), on both
-    routes, at the reference sweep's shapes, kernel_bench's 256x512x512,
-    ragged ones (M 4, 37, 63, 65, 200, 4200; K off multiples of 16 and 32,
-    N off multiples of 8) and chatglm3-6b's projections at a decode tick
-    (M = 4); each of those but the ragged ones timed, each call held to its
-    route by the launch counts.  Then both routes at w_in with M 4 and 64,
-    the measurement behind ``MMA_MIN_M``.  Returns the rows of the two
-    routes: the dp4a route's is chatglm3-6b's w_in at M = 4, the largest
-    weight a decode tick reads (the tensor-core route's, w_in at a
-    prefill's M, is added by phase 12)."""
+    """int8_matmul against its plain version on the card (equal) at the
+    reference sweep's shapes, kernel_bench's 256x512x512, ragged ones (M
+    1 to 4200; K off multiples of 16 and 32, N off multiples of 8) and
+    chatglm3-6b's projections at a decode tick (M = 4); each of those but
+    the ragged ones timed, each call's launches counted.  Returns the
+    kernel's row: chatglm3-6b's w_in at M = 4, the largest weight a decode
+    tick reads, with the other timed shapes under it (phase 12 adds w_in
+    at a prefill's M)."""
     from repro_torch.kernels.int8_matmul.ref import (int8_matmul_plain,
                                                      quantize_colwise,
                                                      quantize_rowwise)
@@ -906,67 +886,20 @@ def int8_checks(dev):
              ("ragged", 200, 100, 13), ("ragged", 129, 33, 4097)]
     cases += [(f"chatglm3 {name}", 4, k, n)
               for name, (k, n) in CHATGLM3_PROJ.items()]
-    out = {"int8_matmul": {}, "int8_matmul_mma": {}}
+    out = {}
     for label, m, k, n in cases:
         x_q, sx = quantize_rowwise(torch.randn(m, k, generator=gen,
                                                device=dev))
         w_q, sw = quantize_colwise(torch.randn(k, n, generator=gen,
                                                device=dev))
-        route = int8_route(m, k, n)
-        compare(route, int8_call(x_q, w_q, sx, sw),
+        compare("int8_matmul", int8_call(x_q, w_q, sx, sw),
                 int8_matmul_plain(x_q, w_q, sx, sw),
                 f"{label} M{m} K{k} N{n}")
         if label != "ragged":
-            out[route][f"{label} M{m} K{k} N{n}"] = int8_timing(
-                label, x_q, w_q, sx, sw)
-    routes = int8_route_table(gen, dev)
-    head = out["int8_matmul"].pop("chatglm3 w_in M4 K4096 N13696")
-    return {"int8_matmul": {**head, **out["int8_matmul"],
-                            "route_comparison_ms": routes},
-            "int8_matmul_mma": out["int8_matmul_mma"]}
-
-
-#: both int8 routes timed at chatglm3-6b's projections at a decode tick's
-#: and short prefills' M, and at the sweep's shapes with their own M and
-#: with M 4: the measurement behind ``use_tensor_cores``
-ROUTE_SHAPES = ([(name, m, k, n) for m in (4, 16, 64, 256)
-                 for name, (k, n) in CHATGLM3_PROJ.items()]
-                + [(label, mm, k, n) for label, m, k, n in (
-                    ("sweep", 128, 256, 128), ("sweep", 256, 512, 256),
-                    ("sweep", 64, 128, 512), ("kernel_bench", 256, 512, 512))
-                   for mm in (4, m)])
-
-
-def int8_route_table(gen, dev):
-    """Both routes, forced, at every shape of ``ROUTE_SHAPES``: each equal
-    to the plain version, each timed (the tensor-core route with its
-    pre-pass).  Prints the faster route beside the one
-    ``use_tensor_cores`` picks; returns {shape: {route: ms}}."""
-    from repro_torch.kernels.int8_matmul.kernel import (dp4a_product,
-                                                        mma_product)
-    from repro_torch.kernels.int8_matmul.ref import (int8_matmul_plain,
-                                                     quantize_colwise,
-                                                     quantize_rowwise)
-
-    table = {}
-    for label, m, k, n in ROUTE_SHAPES:
-        x_q, sx = quantize_rowwise(torch.randn(m, k, generator=gen,
-                                               device=dev))
-        w_q, sw = quantize_colwise(torch.randn(k, n, generator=gen,
-                                               device=dev))
-        want = int8_matmul_plain(x_q, w_q, sx, sw)
-        key = f"{label} M{m} K{k} N{n}"
-        ms = {}
-        for name, fn in (("int8_matmul", dp4a_product),
-                         ("int8_matmul_mma", mma_product)):
-            compare(name, fn(x_q, w_q, sx, sw), want, f"route {key}")
-            ms[name] = device_ms(lambda: fn(x_q, w_q, sx, sw))
-        table[key] = ms
-        print(f"  int8_matmul routes at {key}: dp4a {ms['int8_matmul']:.4f}"
-              f" ms, tensor cores with the pre-pass "
-              f"{ms['int8_matmul_mma']:.4f} ms; faster "
-              f"{min(ms, key=ms.get)}, picked {int8_route(m, k, n)}")
-    return table
+            out[f"{label} M{m} K{k} N{n}"] = int8_timing(label, x_q, w_q,
+                                                          sx, sw)
+    head = out.pop("chatglm3 w_in M4 K4096 N13696")
+    return {"int8_matmul": {**head, **out}}
 
 
 def sdpa_ms(q, k, v):
@@ -1548,22 +1481,17 @@ def chatglm3_int8(dev, rows):
             for m in (SERVE_SLOTS, long_m)}
     torch.cuda.synchronize()
     counts["chatglm3_int8"] = launch_counts()
-    # each projection once at each M, on the route its shape takes (the
-    # tensor-core route's pre-pass once with each of its products)
-    taken = [int8_route(m, *proj[name][1].shape) for name, m in outs]
-    for route in ("int8_matmul", "int8_matmul_mma"):
-        n = taken.count(route)
-        for sym in (KERNELS[route][0],) + COMPANIONS.get(route, ()):
-            check(counts["chatglm3_int8"][sym] == n,
-                  f"chatglm3_int8: {sym} launched "
-                  f"{counts['chatglm3_int8'][sym]} times, not {n}")
+    # each projection once at each M: a pre-pass and a product each
+    for sym in (KERNELS["int8_matmul"][0],) + COMPANIONS["int8_matmul"]:
+        check(counts["chatglm3_int8"][sym] == len(outs),
+              f"chatglm3_int8: {sym} launched "
+              f"{counts['chatglm3_int8'][sym]} times, not {len(outs)}")
     rel_max = 0.0
     for (name, m), got in outs.items():
         w2, q2, sw = proj[name]
         x = xs[m, w2.shape[0]]
         x_q, sx = quantize_rowwise(x)
-        compare(int8_route(m, *q2.shape), got,
-                int8_matmul_plain(x_q, q2, sx, sw),
+        compare("int8_matmul", got, int8_matmul_plain(x_q, q2, sx, sw),
                 f"chatglm3 layer 0 {name} M{m}")
         exact = x @ w2
         rel = ((got - exact).abs().max() / exact.abs().max()).item()
@@ -1571,14 +1499,14 @@ def chatglm3_int8(dev, rows):
         check(rel < 0.05, f"chatglm3 {name} M{m}: {rel:.4f} of the fp32 "
               "product, above 0.05")
     print(f"  chatglm3 layer 0, 7 projections x M {SERVE_SLOTS} and "
-          f"{long_m} through matmul_int8_dynamic: {len(outs)} launches, "
+          f"{long_m} through matmul_int8_dynamic: {len(outs)} products, "
           f"equal to the plain version, at most {rel_max:.4f} of the fp32 "
           "product's largest magnitude (bound 0.05)")
     w2, q2, sw = proj["w_in"]
     x_q, sx = quantize_rowwise(xs[long_m, w2.shape[0]])
-    rows["int8_matmul_mma"] = {
-        **int8_timing("chatglm3 w_in prefill", x_q, q2, sx, sw),
-        **rows["int8_matmul_mma"]}
+    rows["int8_matmul"][f"chatglm3 w_in prefill M{long_m} K{w2.shape[0]} "
+                        f"N{w2.shape[1]}"] = int8_timing(
+        "chatglm3 w_in prefill", x_q, q2, sx, sw)
     del outs, xs, proj, params, x_q, w2, q2, sw
 
     t0 = time.perf_counter()

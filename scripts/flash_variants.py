@@ -1,6 +1,7 @@
 """Time variants of the flash_attention kernel against each other on one card.
 
     python scripts/flash_variants.py [variants.json]     # on a CUDA host
+    python scripts/flash_variants.py scripts/flash_three_terms.json
 
 A variant is the source ``src/repro_torch/kernels/csrc/flash_attention.cu``
 with text substitutions, ``{"name": [[old, new], ...], ...}`` (default: the
@@ -14,6 +15,8 @@ float64 at chatglm3-6b's and phi3-mini's magnitudes (a causal prefill of
 shapes ``chip_smoke.py`` times (an 8192 bucket: phi3-mini, chatglm3-6b,
 gemma2-2b's windowed D 256) and the stream MLLM's, in turns (every
 variant, then every variant in reverse order; the lower time printed).
+``scripts/flash_three_terms.json`` holds the source as it is and P.V in
+three terms (hi*hi, mid*hi, hi*mid) instead of six.
 """
 from __future__ import annotations
 

@@ -19,47 +19,32 @@
 // M = 4 reads 56 MB: 16.8 us.  At a prefill (M = 4200) operations:
 // 2*M*K*N = 471 G for w_in, 0.24 ms at the tensor cores' dense int8 peak.
 //
-// Two routes, three C entry points, each with its own launch count; the
-// wrapper picks the route by M alone.
+// Two C entry points, each with its own launch count, run once each per
+// product: int8_transpose_kn then int8_mma_f32.  The int8 tensor cores
+// (mma.sync.m16n8k32.s8.s8.s32) sum in int32 exactly.  They want both
+// operands K-major: the pre-pass writes w's transpose wt (N, Kp), Kp = K
+// rounded up to 16 bytes with zeros (w_in: 56 MB read and written once,
+// about 0.035 ms at 3.35 TB/s, counted in the product's time), into
+// scratch the wrapper allocates.  The product runs one block of 8 warps per
+// 128 x 128 output tile, each warp a 64 x 32 sub-tile of 4 x 4 mma tiles
+// (64 int32 accumulators a thread).  K advances 64 bytes a stage through a
+// 4-stage cp.async ring (16-byte copies, zero-filled past M, N and K), so
+// three stages load while one is multiplied; shared rows are padded to 80
+// bytes, which makes the ldmatrix fragment loads free of bank conflicts.
+// An x whose rows are not 16-byte aligned (K % 16 != 0) is staged with byte
+// loads.  The epilogue rounds (float(acc) * sx) * sw with __fmul_rn.
 //
-// int8_matmul_f32, small M (a decode tick; simple and right first, split-K
-// is later work): one block of 256 threads per 64 x 64 output tile walks K
-// in panels of 64.  Each panel is staged in shared memory packed four k at
-// a time into one 32-bit word, for a row of x and for a column of w (w's
-// 4 x 4 byte blocks are transposed with __byte_perm on the way), so the
-// inner loop is __dp4a: four int8 products added to an int32 in one
-// instruction.  Each thread owns 4 x 4 outputs (rows ty + 16i, columns
-// tx + 16j).  The next panel's global loads are issued before the current
-// panel's arithmetic, into registers.  Ragged edges are masked in the
-// loads (zeros past M, N or K add nothing) and in the stores; 32-bit loads
-// are used where the rows are 4-byte aligned, single bytes elsewhere.
-// dp4a runs on the CUDA cores: at a prefill's M it reached 90.6 TOP/s, 22x
-// the bound above.
-//
-// int8_transpose_kn then int8_mma_f32, large M (a prefill): the int8
-// tensor cores (mma.sync.m16n8k32.s8.s8.s32) sum in int32 exactly, so the
-// route is as exact as dp4a.  They want both operands K-major: the
-// pre-pass writes w's transpose wt (N, Kp), Kp = K rounded up to 16 bytes
-// with zeros (w_in: 56 MB read and written once, about 0.035 ms at 3.35
-// TB/s, counted in the route's time), into scratch the wrapper allocates.
-// The product runs one block of 8 warps per 128 x 128 output tile, each
-// warp a 64 x 32 sub-tile of 4 x 4 mma tiles (64 int32 accumulators a
-// thread).  K advances 64 bytes a stage through a 4-stage cp.async ring
-// (16-byte copies, zero-filled past M, N and K), so three stages load
-// while one is multiplied; shared rows are padded to 80 bytes, which
-// makes the ldmatrix fragment loads free of bank conflicts.  An x whose
-// rows are not 16-byte aligned (K % 16 != 0) is staged with byte loads.
-// The epilogue rounds (float(acc) * sx) * sw as the other route does.
+// One route for every M: pre-pass included, it beat __dp4a on the CUDA
+// cores at every shape the port's paths give the kernel (chatglm3-6b's
+// seven projections, M 4 to 4200; PERF.md).  At a decode tick's M most of
+// each 128-row tile is zeros, and the weight's bytes, read twice
+// (pre-pass and product), set the time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 64;   // output tile, K panel (bytes)
-constexpr int KW = BK / 4;                 // packed words per panel row
-constexpr int PAD = 4;                     // shared row padding (words)
 constexpr int kThreads = 256;
-constexpr int kAWords = BM * KW / kThreads;  // x words per thread (4)
 
 // Four consecutive bytes of a row starting at p: element j of the word is
 // p[j], masked to `valid` bytes.
@@ -72,117 +57,6 @@ __device__ __forceinline__ uint32_t load4(const int8_t* p, int valid,
     r |= (uint32_t)(uint8_t)p[j] << (8 * j);
   return r;
 }
-
-struct Panel {
-  uint32_t a[kAWords];  // packed x words
-  uint32_t b[4];        // packed w words: columns 4*nq + j, k 4*kw..+3
-};
-
-__device__ __forceinline__ void load_panel(
-    Panel& pn, const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-    int M, int N, int K, int m0, int n0, int k0, bool vec_x, bool vec_w) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < kAWords; ++r) {
-    const int e = tid + r * kThreads;
-    const int row = e / KW, kw = e % KW;
-    const int m = m0 + row, k = k0 + 4 * kw;
-    pn.a[r] = m < M ? load4(x + (size_t)m * K + k, K - k, vec_x) : 0u;
-  }
-  // one 4 (k) x 4 (n) byte block per thread, transposed to 4 words
-  const int kw = tid / (BN / 4), nq = tid % (BN / 4);
-  const int n = n0 + 4 * nq;
-  uint32_t rows[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int k = k0 + 4 * kw + t;
-    rows[t] = k < K ? load4(w + (size_t)k * N + n, N - n, vec_w) : 0u;
-  }
-  const uint32_t lo01 = __byte_perm(rows[0], rows[1], 0x5140);
-  const uint32_t hi01 = __byte_perm(rows[0], rows[1], 0x7362);
-  const uint32_t lo23 = __byte_perm(rows[2], rows[3], 0x5140);
-  const uint32_t hi23 = __byte_perm(rows[2], rows[3], 0x7362);
-  pn.b[0] = __byte_perm(lo01, lo23, 0x5410);
-  pn.b[1] = __byte_perm(lo01, lo23, 0x7632);
-  pn.b[2] = __byte_perm(hi01, hi23, 0x5410);
-  pn.b[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
-__device__ __forceinline__ void store_panel(const Panel& pn,
-                                            uint32_t (*a_s)[BM + PAD],
-                                            uint32_t (*b_s)[BN + PAD]) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < kAWords; ++r) {
-    const int e = tid + r * kThreads;
-    a_s[e % KW][e / KW] = pn.a[r];
-  }
-  const int kw = tid / (BN / 4), nq = tid % (BN / 4);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) b_s[kw][4 * nq + j] = pn.b[j];
-}
-
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ sx,
-                   const float* __restrict__ sw, float* __restrict__ out,
-                   int M, int N, int K, bool vec_x, bool vec_w) {
-  __shared__ uint32_t a_s[KW][BM + PAD];
-  __shared__ uint32_t b_s[KW][BN + PAD];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  Panel pn;
-  load_panel(pn, x, w, M, N, K, m0, n0, 0, vec_x, vec_w);
-  store_panel(pn, a_s, b_s);
-  __syncthreads();
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool more = k0 + BK < K;
-    if (more) load_panel(pn, x, w, M, N, K, m0, n0, k0 + BK, vec_x, vec_w);
-#pragma unroll
-    for (int kk = 0; kk < KW; ++kk) {
-      int a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = (int)a_s[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = (int)b_s[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (more) {
-      store_panel(pn, a_s, b_s);
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    const float s_row = sx[m];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N)
-        out[(size_t)m * N + n] =
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j]), s_row), sw[n]);
-    }
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// tensor-core route
-// ---------------------------------------------------------------------------
 
 constexpr int TM = 128, TN = 128, TK = 64;  // output tile; K bytes a stage
 constexpr int kStages = 4;
@@ -372,24 +246,7 @@ int launch_mma(const int8_t* x, const int8_t* wt, const float* sx,
 
 }  // namespace
 
-// The dp4a route.  x (M, K) int8, w (K, N) int8, sx (M) f32, sw (N) f32,
-// out (M, N) f32, all contiguous.  Returns cudaGetLastError() after the
-// launch.
-extern "C" int int8_matmul_f32(const void* x, const void* w, const void* sx,
-                               const void* sw, void* out, int M, int N, int K,
-                               void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || (M + BM - 1) / BM > 65535)
-    return (int)cudaErrorInvalidValue;
-  const bool vec_x = K % 4 == 0 && ((uintptr_t)x & 3u) == 0;
-  const bool vec_w = N % 4 == 0 && ((uintptr_t)w & 3u) == 0;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8_matmul_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int8_t*)w, (const float*)sx, (const float*)sw,
-      (float*)out, M, N, K, vec_x, vec_w);
-  return (int)cudaGetLastError();
-}
-
-// The tensor-core route's pre-pass: w (K, N) int8 contiguous -> wt (N, Kp)
+// The pre-pass: w (K, N) int8 contiguous -> wt (N, Kp)
 // int8, Kp a multiple of 16 and at least K, zeros at k >= K.
 extern "C" int int8_transpose_kn(const void* w, void* wt, int K, int N, int Kp,
                                  void* stream) {
@@ -403,7 +260,7 @@ extern "C" int int8_transpose_kn(const void* w, void* wt, int K, int N, int Kp,
   return (int)cudaGetLastError();
 }
 
-// The tensor-core route.  x (M, K) int8 contiguous, wt (N, Kp) from
+// The product.  x (M, K) int8 contiguous, wt (N, Kp) from
 // int8_transpose_kn, sx (M) f32, sw (N) f32, out (M, N) f32.
 extern "C" int int8_mma_f32(const void* x, const void* wt, const void* sx,
                             const void* sw, void* out, int M, int N, int K,

@@ -9,31 +9,22 @@ import torch
 from repro_torch.kernels._build import CudaKernel, require_cuda
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
-#: the dp4a route (small M)
-KERNEL = CudaKernel("int8_matmul", "int8_matmul_f32",
-                    [_P, _P, _P, _P, _P, _I, _I, _I])
-#: the tensor-core route (large M): w's K-major transpose, then the product
+#: w's K-major transpose into scratch, then the tensor-core product
 TRANSPOSE = CudaKernel("int8_matmul", "int8_transpose_kn",
                        [_P, _P, _I, _I, _I])
-MMA = CudaKernel("int8_matmul", "int8_mma_f32",
-                 [_P, _P, _P, _P, _P, _I, _I, _I, _I])
-#: M from which the tensor-core route runs
-MMA_MIN_M = 64
+KERNEL = CudaKernel("int8_matmul", "int8_mma_f32",
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _I])
 #: the int32 accumulator holds K products of at most 127² without overflow
 MAX_K = (2 ** 31 - 1) // (127 * 127)
 
 
-def use_tensor_cores(m: int, k: int, n: int) -> bool:
-    """The route ``int8_matmul_cuda`` takes for an (M, K) x (K, N) product:
-    the tensor cores (True) or dp4a."""
-    return m >= MMA_MIN_M
-
-
-def _operands(x_q, w_q, sx, sw, out_dtype=torch.float32):
-    """Check the operands every entry point takes: int8 x_q (M, K) and
-    w_q (K, N), f32 sx (M, 1) and sw (1, N), K up to ``MAX_K``, on CUDA.
-    Returns (device, M, K, N); ``require_cuda`` checks device and
-    layout."""
+def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
+                     sw: torch.Tensor, out_dtype=torch.float32
+                     ) -> torch.Tensor:
+    """x_q (M, K) int8, w_q (K, N) int8, sx (M, 1) f32, sw (1, N) f32, on
+    CUDA -> (M, N) f32, ``(float(acc) * sx) * sw``.  Any M, N and K up to
+    ``MAX_K``: w's transpose (N, Kp), Kp = K rounded up to 16, into
+    scratch, then the product on the int8 tensor cores (exact)."""
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise ValueError("int8_matmul: the CUDA kernel takes int8 operands "
                          f"(got {x_q.dtype}, {w_q.dtype})")
@@ -54,47 +45,14 @@ def _operands(x_q, w_q, sx, sw, out_dtype=torch.float32):
     if k > MAX_K:
         raise ValueError(f"int8_matmul: K {k} overflows the int32 "
                          f"accumulator (at most {MAX_K})")
-    return require_cuda("int8_matmul", x_q, w_q, sx, sw), m, k, n
-
-
-def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
-                     sw: torch.Tensor, out_dtype=torch.float32
-                     ) -> torch.Tensor:
-    """x_q (M, K) int8, w_q (K, N) int8, sx (M, 1) f32, sw (1, N) f32, on
-    CUDA -> (M, N) f32, ``(float(acc) * sx) * sw``.  Any M, N and K up to
-    ``MAX_K``.  ``use_tensor_cores`` picks the route by shape; both are
-    exact."""
-    _operands(x_q, w_q, sx, sw, out_dtype)
-    route = (mma_product if use_tensor_cores(x_q.shape[0], *w_q.shape)
-             else dp4a_product)
-    return route(x_q, w_q, sx, sw)
-
-
-def dp4a_product(x_q, w_q, sx, sw) -> torch.Tensor:
-    """The dp4a route, whatever the shape, on operands ``int8_matmul_cuda``
-    takes."""
-    dev, m, k, n = _operands(x_q, w_q, sx, sw)
+    dev = require_cuda("int8_matmul", x_q, w_q, sx, sw)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    if not k:
-        return out.zero_()
-    if m and n:
-        KERNEL.launch(dev, x_q.data_ptr(), w_q.data_ptr(), sx.data_ptr(),
-                      sw.data_ptr(), out.data_ptr(), m, n, k)
-    return out
-
-
-def mma_product(x_q, w_q, sx, sw) -> torch.Tensor:
-    """The tensor-core route, whatever the shape, on such operands: w's
-    transpose (N, Kp), Kp = K rounded up to 16, into scratch, then the
-    product."""
-    dev, m, k, n = _operands(x_q, w_q, sx, sw)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    if not k:
-        return out.zero_()
-    if m and n:
+    if m and n and k:
         kp = -(-k // 16) * 16
         wt = torch.empty((n, kp), dtype=torch.int8, device=dev)
         TRANSPOSE.launch(dev, w_q.data_ptr(), wt.data_ptr(), k, n, kp)
-        MMA.launch(dev, x_q.data_ptr(), wt.data_ptr(), sx.data_ptr(),
-                   sw.data_ptr(), out.data_ptr(), m, n, k, kp)
+        KERNEL.launch(dev, x_q.data_ptr(), wt.data_ptr(), sx.data_ptr(),
+                      sw.data_ptr(), out.data_ptr(), m, n, k, kp)
+    elif m and n:
+        out.zero_()
     return out

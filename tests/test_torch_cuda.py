@@ -21,8 +21,7 @@ from repro_torch.kernels.fused_prefix.kernel import (fused_prefix_cuda,  # noqa:
 from repro_torch.kernels.fused_prefix.ref import fused_prefix_ref  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
-from repro_torch.kernels.int8_matmul.kernel import (MMA_MIN_M,  # noqa: E402
-                                                    int8_matmul_cuda)
+from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda  # noqa: E402
 from repro_torch.kernels.int8_matmul.ref import (int8_matmul_plain,  # noqa: E402
                                                  quantize_colwise,
                                                  quantize_rowwise)
@@ -241,38 +240,35 @@ def test_flash_attention_kernel_tensor_core_cases(dev, s, h, hk, d, kw):
     (128, 256, 128), (256, 512, 256), (64, 128, 512),   # reference sweep
     (4, 4096, 256), (4200, 256, 96),                     # decode, prefill
     (37, 129, 67), (3, 1000, 13), (1, 7, 1), (65, 4099, 70),  # ragged
-    # both routes off every tile: K off multiples of 32 and 16, N of 8,
-    # M of the tensor-core route's 128 rows
+    # off every tile: K off multiples of 32 and 16, N of 8, M of the
+    # product's 128 rows
     (200, 100, 13), (129, 33, 257), (64, 1, 1), (300, 4096, 1000),
     (63, 512, 129)])
 def test_int8_matmul_kernel(dev, m, k, n):
     """The kernel against its plain version: equal (exact int32 sums,
-    the same two fp32 multiplies), one launch of the route M picks."""
+    the same two fp32 multiplies), one launch of the pre-pass and one of
+    the product."""
     gen = torch.Generator().manual_seed(8)
     x_q, sx = quantize_rowwise(torch.randn(m, k, generator=gen))
     w_q, sw = quantize_colwise(torch.randn(k, n, generator=gen))
     want = int8_matmul_plain(x_q, w_q, sx, sw)
     reset_launch_counts()
     got = int8_matmul_cuda(*(t.to(dev) for t in (x_q, w_q, sx, sw))).cpu()
-    assert launch_counts() == _int8_route_counts(m)
+    assert launch_counts() == _int8_counts()
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
-def _int8_route_counts(m):
-    """Every kernel's launch count after one int8 product of M rows: the
-    dp4a route below ``MMA_MIN_M``, the transpose and the tensor-core
-    product from it, nothing else."""
+def _int8_counts():
+    """Every kernel's launch count after one int8 product: the transpose
+    and the tensor-core product once each, nothing else."""
     counts = {name: 0 for name in launch_counts()}
-    if m >= MMA_MIN_M:
-        counts.update(int8_transpose_kn=1, int8_mma_f32=1)
-    else:
-        counts["int8_matmul_f32"] = 1
+    counts.update(int8_transpose_kn=1, int8_mma_f32=1)
     return counts
 
 
 def test_int8_matmul_mma_route_exact_at_full_codes(dev):
     """Codes of +-127 over chatglm3-6b's K = 13696 at a prefill's M = 4200
-    through the tensor-core route, one row and one column of one sign: the
+    on the tensor cores, one row and one column of one sign: the
     int32 sums reach -13696 * 127^2 and equal the plain version."""
     gen = torch.Generator(device=dev).manual_seed(12)
     m, k, n = 4200, 13696, 136
@@ -284,7 +280,7 @@ def test_int8_matmul_mma_route_exact_at_full_codes(dev):
     sx, sw = torch.ones(m, 1, device=dev), torch.ones(1, n, device=dev)
     reset_launch_counts()
     got = int8_matmul_cuda(x_q, w_q, sx, sw)
-    assert launch_counts() == _int8_route_counts(m)
+    assert launch_counts() == _int8_counts()
     assert torch.equal(got, int8_matmul_plain(x_q, w_q, sx, sw))
     assert got[0, 0].item() == float(-13696 * 127 * 127)
 

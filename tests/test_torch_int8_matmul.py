@@ -192,7 +192,7 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     int8_matmul(x_q, w_q, sx, sw)
     matmul_int8_dynamic(t(randn(6, (4, 64))), w_q, sw)
     assert launch_counts() == before
-    assert before["int8_matmul_f32"] == 0
+    assert before["int8_transpose_kn"] == before["int8_mma_f32"] == 0
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -200,11 +200,18 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     (dict(sw=torch.float64), "float32"),
     (dict(out_dtype=torch.bfloat16), "writes float32"),
     (dict(shape=(5, 1)), "sx"),
+    (dict(w_rank=3), "must be matrices"),
+    (dict(k=MAX_K + 1), "overflows the int32 accumulator"),
     (dict(), "CUDA")])
 def test_kernel_wrapper_refuses(bad, match):
     """Other types, shapes or a CPU tensor raise: there is no fallback from
     the kernel to the plain version."""
     _, _, x_q, sx, w_q, sw = quantized(4, 64, 32)
+    if "k" in bad:
+        x_q = torch.ones(4, bad["k"], dtype=torch.int8)
+        w_q = torch.ones(bad["k"], 32, dtype=torch.int8)
+    if "w_rank" in bad:
+        w_q = w_q[None]
     if "x_q" in bad:
         x_q = x_q.to(bad["x_q"])
     if "sw" in bad:

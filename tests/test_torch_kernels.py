@@ -33,10 +33,7 @@ from repro_torch.kernels.fused_prefix.kernel import fused_prefix_cuda  # noqa: E
 from repro_torch.kernels.fused_prefix.ops import fused_prefix  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
-from repro_torch.kernels.int8_matmul.kernel import (MMA_MIN_M,  # noqa: E402
-                                                    dp4a_product,
-                                                    int8_matmul_cuda,
-                                                    mma_product)
+from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda  # noqa: E402
 from repro_torch.kernels.int8_matmul.ops import matmul_int8_dynamic  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import ssd  # noqa: E402
@@ -232,14 +229,14 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
                            "flash_attention_f32", "fused_prefix_launch",
                            "decode_attention_partials_f32",
                            "decode_attention_combine_f32", "ssd_cb_f32",
-                           "ssd_scan_f32", "int8_matmul_f32",
-                           "int8_transpose_kn", "int8_mma_f32"}
+                           "ssd_scan_f32", "int8_transpose_kn",
+                           "int8_mma_f32"}
 
 
 @pytest.mark.parametrize("call", ["frame_diff", "fused_preprocess", "flash",
                                   "fused_prefix", "decode_attention",
-                                  "ssd_scan", "int8_matmul", "int8_matmul_mma",
-                                  "int8_dp4a_product", "int8_mma_product"])
+                                  "ssd_scan", "int8_matmul",
+                                  "int8_matmul_mma"])
 def test_kernel_path_refuses_cpu_tensors(call):
     """The CUDA entry points raise on anything but CUDA tensors: there is no
     fallback from the kernel to the plain version."""
@@ -257,14 +254,10 @@ def test_kernel_path_refuses_cpu_tensors(call):
             decode_attention_cuda(q[:, :1], k, k,
                                   torch.tensor([[28]], dtype=torch.int32))
         elif call.startswith("int8"):
-            m = MMA_MIN_M if call == "int8_matmul_mma" else 4
-            args = (torch.ones(m, 32, dtype=torch.int8),
-                    torch.ones(32, 8, dtype=torch.int8), torch.ones(m, 1),
-                    torch.ones(1, 8))
-            {"int8_matmul": int8_matmul_cuda,
-             "int8_matmul_mma": int8_matmul_cuda,
-             "int8_dp4a_product": dp4a_product,
-             "int8_mma_product": mma_product}[call](*args)
+            m = 4 if call == "int8_matmul" else 64   # a decode tick, a prefill
+            int8_matmul_cuda(torch.ones(m, 32, dtype=torch.int8),
+                             torch.ones(32, 8, dtype=torch.int8),
+                             torch.ones(m, 1), torch.ones(1, 8))
         elif call == "ssd_scan":
             x = torch.from_numpy(randn(10, (1, 2, 16, 8)))
             c = x[:, :1, :, :1].contiguous()
