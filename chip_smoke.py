@@ -8,8 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
      convolutions, the hand-written kernels built from ``src/repro_torch/
      kernels/csrc`` (one ``nvcc`` per source, in parallel), and the
      tensor-core instructions in the built libraries counted with
-     ``cuobjdump --dump-sass`` (HMMA in flash_attention's, IMMA in
-     int8_matmul's; none fails);
+     ``cuobjdump --dump-sass`` (HMMA in flash_attention's,
+     decode_attention's and ssd_scan's, IMMA in int8_matmul's; none
+     fails);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the main path's shapes and at ragged ones, with its device
      time, its roofline bound and a yardstick: PyTorch's SDPA for
@@ -17,16 +18,19 @@ Phases (any failure exits non-zero and prints no result line):
      without the cap), the unfused chain (frame_diff + fused_preprocess
      kernels, colour and signature in PyTorch) for fused_prefix (timed
      only here; the port never calls SDPA); decode_attention at gemma2's,
-     chatglm3-6b's (a group of 16) and phi3-mini's (D 96) decode shapes
-     and ragged ones, ssd_scan at mamba2's chunks and the reference
-     sweep's grouped shape, flash_attention at every head dim with groups
-     of 1, 2, 16 and 64, ragged S, bidirectional, capped and windowed, and
+     chatglm3-6b's (a group of 16) and phi3-mini's (D 96) decode shapes,
+     timed at the served paths' two ticks (the long request's slot beside
+     three short ones, and four short slots), and ragged ones, ssd_scan at mamba2's chunks (a 512-token prefill, a
+     13-token one) and the reference sweep's grouped shapes,
+     flash_attention at every head dim with groups of 1, 2, 16 and 64,
+     ragged S, bidirectional, capped and windowed, and
      at gemma2's, chatglm3-6b's and phi3-mini's prefill of an 8192 bucket
      (bound at the 3xTF32 rate, the fp32 CUDA cores' beside it); the last
      two again at
      chatglm3's and phi3's magnitudes (q, k, v as the reference's init
      makes them: scores in the hundreds), held to the plain version and
-     to float64 beside it (card and CPU); int8_matmul (exact: equal to
+     to float64 beside it (card and CPU), and ssd_scan at mamba2's two
+     chunk shapes held to float64 the same way; int8_matmul (exact: equal to
      its plain version; each call one launch of its pre-pass transpose and
      one of its tensor-core product, by the launch counts) at the
      reference sweep's shapes, kernel_bench's 256x512x512, ragged ones and
@@ -64,7 +68,9 @@ Phases (any failure exits non-zero and prints no result line):
      phi3-mini-3.8b at full width and depth 2, the same weights on both
      devices, three requests: equal tokens, prefill and decode logits
      within 1e-3; the same steps on the card with the attention kernels'
-     plain versions printed beside them;
+     plain versions printed beside them, and for the dense zoo each
+     layer's decode attention at the first decode step against float64
+     (the kernel, the card's plain version, the CPU's; printed);
  12. chatglm3-6b at full width (28 layers, seeded random weights) through
      the same engine and requests (the long prompt 4200 tokens), then the
      reference's int8 recipe on the same weights on the card:
@@ -138,7 +144,7 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
     "fused_prefix": ("fused_prefix_launch",
                      "src/repro_torch/kernels/csrc/fused_prefix.cu",
                      "src/repro/kernels/fused_prefix/kernel.py:114"),
-    "decode_attention": ("decode_attention_partials_f32",
+    "decode_attention": ("decode_attention_f32",
                          "src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:69"),
     "ssd_scan": ("ssd_scan_f32", "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -149,11 +155,10 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
 }
 #: a kernel's other launches, each its own C entry point with its own
 #: count, made once with every launch of the kernel's entry above
-COMPANIONS = {"decode_attention": ("decode_attention_combine_f32",),
-              "ssd_scan": ("ssd_cb_f32",),
-              "int8_matmul": ("int8_transpose_kn",)}
+COMPANIONS = {"int8_matmul": ("int8_transpose_kn",)}
 #: the tensor-core instruction each built library must hold (phase 1)
-SASS_MMA = {"flash_attention": "HMMA", "int8_matmul": "IMMA"}
+SASS_MMA = {"flash_attention": "HMMA", "decode_attention": "HMMA",
+            "ssd_scan": "HMMA", "int8_matmul": "IMMA"}
 #: the paths driven end to end, by the name used in ``launches_by_path``
 PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
          "gemma2_serve", "mamba2_serve", "chatglm3_serve", "chatglm3_int8",
@@ -162,6 +167,17 @@ PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
 #: one; s_max and slots as a deployment of gemma2-2b on one card would
 SERVE_SLOTS, SERVE_S_MAX, SERVE_NEW = 4, 8192, 12
 LONG_PROMPT = {"gemma2-2b": 4200, "mamba2-130m": 512, "chatglm3-6b": 4200}
+#: decode_attention's two shape classes (phase 2), the ticks the served
+#: paths give: the long request's slot (4200 prompt tokens and up to 12
+#: new) beside three short ones, and four short slots (the launcher's
+#: prompts of 4-23 tokens plus up to 12 new)
+LONG_LENS, SHORT_LENS = [7, 23, 30, 4206], [6, 14, 23, 35]
+#: a step's shape class on the served paths: a decode step is long when a
+#: slot holds more keys than one split takes (``MIN_KEYS_PER_SPLIT``), a
+#: mamba prefill when it fills a whole chunk of 256
+SSD_CHUNK = 256
+#: the kernels whose launches the serving phases class by step
+CLASSED = ("decode_attention", "ssd_scan")
 #: chatglm3-6b's quantized projections as (K, N) matrices, the operands of
 #: matmul_int8_dynamic (wq/wk/wv (d, H, Dh) and wo (H, Dh, d) reshaped)
 CHATGLM3_PROJ = {"wq": (4096, 4096), "wk": (4096, 256), "wv": (4096, 256),
@@ -169,10 +185,12 @@ CHATGLM3_PROJ = {"wq": (4096, 4096), "wk": (4096, 256), "wv": (4096, 256),
                  "w_gate": (4096, 13696), "w_out": (13696, 4096)}
 #: card == CPU: the logits' tolerance.  fp32 on both, but cuBLAS and the
 #: CPU's BLAS sum d_model (up to 4096) products in other orders; the dense
-#: zoo (no soft-cap) has scores in the hundreds, so decode_attention sums
-#: each score in the plain version's order and flash_attention nearer
-#: float64 than the plain version (3xTF32 with staged sums)
+#: zoo (no soft-cap) has scores in the hundreds, so both attention kernels
+#: sum nearer float64 than the plain version (3xTF32 with staged sums)
 LM_TOL = 1e-3
+#: the dense zoo's LMs (no soft-cap, no window): phase 11 reads their
+#: decode attention against float64
+DENSE_ZOO = ("chatglm3-6b", "glm4-9b", "phi3-mini-3.8b")
 
 
 #: the dense zoo's attention at its own magnitudes (phase 2): q, k and v
@@ -556,8 +574,8 @@ def lm_kernel_checks(compare, gen, dev, rows):
     rows["flash_attention"]["gemma_prefill"]."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda, decode_combine, decode_partials)
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_plain
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
@@ -574,16 +592,28 @@ def lm_kernel_checks(compare, gen, dev, rows):
     # decode_attention: (B, S, H, Hk, D, kv_len, kw); the decode shapes of
     # gemma2-2b (local and global layers), chatglm3-6b / glm4-9b (32 query
     # heads over 2 kv heads of 128) and phi3-mini-3.8b (32 heads of 96), 4
-    # slots of an 8192-row cache, timed
-    lens = [7, 30, 4100, 4250]
-    gemma = (4, 8192, 8, 4, 256, lens)
+    # slots of an 8192-row cache, timed at the served ticks' two classes:
+    # one long slot beside three short ones (LONG_LENS), and four short
+    # slots (SHORT_LENS)
+    lens, short = LONG_LENS, SHORT_LENS   # the two classes, timed
+    gemma = (4, 8192, 8, 4, 256)
     timed_shapes = {(4, 8192, 8, 4, 256): "gemma2",
                     (4, 8192, 32, 2, 128): "chatglm3_decode",
                     (4, 8192, 32, 32, 96): "phi3_decode"}
-    cases = [gemma + (dict(cap=50.0, window=4096),),
-             gemma + (dict(cap=50.0),),
+    cases = [gemma + (lens, dict(cap=50.0, window=4096)),
+             gemma + (lens, dict(cap=50.0)),
              (4, 8192, 32, 2, 128, lens, {}),
              (4, 8192, 32, 32, 96, lens, {}),
+             gemma + (short, dict(cap=50.0, window=4096)),
+             (4, 8192, 32, 2, 128, short, {}),
+             (4, 8192, 32, 32, 96, short, {}),
+             (4, 8192, 32, 2, 128, [1, 1, 1, 1], {}),
+             gemma + ([7, 30, 4100, 4250], dict(cap=50.0, window=4096)),
+             (4, 8192, 32, 2, 128, [7, 30, 4100, 4250], {}),  # two long
+             (4, 8192, 8, 4, 256, [40, 300, 1000, 2000],
+              dict(cap=50.0, window=4096)),          # window > every slot
+             (4, 8192, 32, 2, 128, [6, 129, 2049, 8192], {}),  # glm4-9b
+             (2, 1000, 8, 8, 16, [999, 161], dict(window=517)),
              (2, 64, 4, 2, 32, [1, 1], {}),                # kv_len = 1
              (2, 64, 4, 2, 32, [5, 64], dict(window=100)),  # window > len
              (2, 64, 4, 4, 32, [17, 3], dict(cap=20.0)),    # G = 1
@@ -598,12 +628,15 @@ def lm_kernel_checks(compare, gen, dev, rows):
                 decode_attention_plain(q, k, v, kv_len, **kw),
                 f"B{b} S{s} H{h}/{hk} D{d} len {lens} {kw}")
         which = timed_shapes.get((b, s, h, hk, d))
-        if which is None:
+        if which is None or lens not in (LONG_LENS, SHORT_LENS):
             continue
+        if which == "gemma2":
+            which = "local" if kw.get("window") else "global"
+        if lens == SHORT_LENS:
+            which = which.replace("_decode", "") + "_short"
         n_live = sum(live(lens, kw.get("window")))
         nbytes = 4 * (2 * q.numel() + 2 * hk * d * n_live + b)
         ops = 4 * d * (h // hk) * hk * n_live
-        parts = decode_partials(q, k, v, kv_len, **kw)
         # PyTorch's SDPA on the same GQA problem with the same visible keys
         # as a boolean mask, without the soft-cap (SDPA cannot take one)
         kpos = torch.arange(s, device=dev)[None, :]
@@ -613,33 +646,26 @@ def lm_kernel_checks(compare, gen, dev, rows):
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         t = dict(
             ms=device_ms(lambda: decode_attention_cuda(q, k, v, kv_len, **kw)),
-            partials_ms=device_ms(lambda: decode_partials(q, k, v, kv_len,
-                                                          **kw)),
-            combine_ms=device_ms(lambda: decode_combine(*parts, h)),
             plain_ms=device_ms(lambda: decode_attention_plain(q, k, v, kv_len,
                                                               **kw), n=8),
             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask[:, None, None, :],
                 enable_gqa=True)),
             bound=bound(nbytes, ops), live_keys=n_live, bytes=nbytes)
-        if which == "gemma2":
-            which = "local" if kw.get("window") else "global"
         timed[which] = t
         print(f"  decode_attention {which} decode B4 S8192 H{h}/{hk} D{d} "
-              f"{kw} ({n_live} live keys x {hk} kv heads): kernel "
-              f"{t['ms']:.4f} ms "
-              f"(partials {t['partials_ms']:.4f}, combine "
-              f"{t['combine_ms']:.4f}), plain {t['plain_ms']:.4f} ms, SDPA "
+              f"len {lens} {kw} ({n_live} live keys x {hk} kv heads): kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
               f"without the cap {t['library_ms']:.4f} ms, bound "
               f"{t['bound'][0]:.5f} ms ({t['bound'][1]}, {nbytes} B)")
-    rows["decode_attention"] = {**timed["local"], "global": timed["global"],
-                                "chatglm3_decode": timed["chatglm3_decode"],
-                                "phi3_decode": timed["phi3_decode"]}
+    rows["decode_attention"] = {**timed.pop("local"), **timed}
 
     # ssd_scan: (BC, H, G, Q, P, N)
     ssd_rows = {}
     for bc, h, g, q, p, n in [(2, 24, 1, 256, 64, 128), (1, 24, 1, 13, 64, 128),
-                              (4, 8, 4, 64, 16, 8), (2, 4, 2, 32, 16, 8)]:
+                              (4, 8, 4, 64, 16, 8), (2, 4, 2, 32, 16, 8),
+                              (1, 24, 2, 13, 64, 128), (2, 8, 2, 200, 128, 256),
+                              (1, 6, 3, 77, 24, 13)]:
         x = randn(bc, h, q, p)
         bm, cm = 0.3 * randn(bc, g, q, n), 0.3 * randn(bc, g, q, n)
         dt = F.softplus(randn(bc, h, 1, q))
@@ -650,7 +676,7 @@ def lm_kernel_checks(compare, gen, dev, rows):
         for name, a_, b_ in zip(("y_diag", "s_local"), got, want):
             compare("ssd_scan", a_, b_,
                     f"BC{bc} H{h} G{g} Q{q} P{p} N{n} {name}")
-        if h != 24:
+        if (h, g) != (24, 1):
             continue
         # C.B once per (chunk, group); per head its pairs' P-wide sums and
         # the local state
@@ -735,14 +761,36 @@ def attention64(q, k, v, mask):
     return out.reshape(b, sq, h, d)
 
 
+def ssd64(x, bm, cm, cs, dt):
+    """The within-chunk SSD terms in float64 from the same inputs (kernel
+    layout), the values both fp32 versions are measured against: y_diag
+    (BC, H, Q, P) and s_local (BC, H, N, P)."""
+    x, bm, cm, cs, dt = (t.double() for t in (x, bm, cm, cs, dt))
+    rep = x.shape[1] // bm.shape[1]
+    bh, ch = (torch.repeat_interleave(t, rep, dim=1) for t in (bm, cm))
+    c, d = cs[:, :, 0], dt[:, :, 0]
+    q = x.shape[2]
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    seg = (c[..., :, None] - c[..., None, :]).masked_fill(~causal,
+                                                          float("-inf"))
+    w = torch.einsum("bhin,bhjn->bhij", ch, bh) * torch.exp(seg) \
+        * d[..., None, :]
+    y = torch.einsum("bhij,bhjp->bhip", w, x)
+    s = torch.einsum("bhqn,bhq,bhqp->bhnp", bh,
+                     torch.exp(c[..., -1:] - c) * d, x)
+    return y, s
+
+
 def magnitude_checks(gen, dev):
     """decode_attention and flash_attention at chatglm3-6b's (a group of
     16) and phi3-mini's (D 96) shapes with q, k, v at the magnitudes the
     model gives them (``MAG_SHAPES``): the decode shape of phase 2 (4 slots
-    of 8192, lengths 7/30/4100/4250) and a causal prefill of 2048.  The
-    kernel is held to its plain version within ``MAG_TOL`` of the largest
-    magnitude, and to float64 within ``MAG_WITNESS`` times the farther of
-    the plain version on the card and on the CPU."""
+    of 8192, lengths 7/30/4100/4250) and a causal prefill of 2048; and
+    ssd_scan at mamba2-130m's prefill of two chunks and of 13 tokens, with
+    phase 2's inputs.  The attention kernels are held to their plain
+    version within ``MAG_TOL`` of the largest magnitude; every kernel to
+    float64 within ``MAG_WITNESS`` times the farther of the plain version
+    on the card and on the CPU."""
     from repro_torch.kernels.decode_attention.kernel import \
         decode_attention_cuda
     from repro_torch.kernels.decode_attention.ref import \
@@ -796,6 +844,37 @@ def magnitude_checks(gen, dev):
                   f"{far['cpu']} (CPU)")
             del card, got, want, cpu, exact
         torch.cuda.empty_cache()
+
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    for bc, q in ((2, 256), (1, 13)):
+        x = torch.randn(bc, 24, q, 64, generator=gen)
+        bm, cm = (0.3 * torch.randn(bc, 1, q, 128, generator=gen)
+                  for _ in range(2))
+        dt = torch.nn.functional.softplus(torch.randn(bc, 24, 1, q,
+                                                      generator=gen))
+        a = -torch.exp(0.2 * torch.randn(24, generator=gen))
+        cs = torch.cumsum(dt * a[None, :, None, None], dim=-1).contiguous()
+        args = (x, bm, cm, cs, dt)
+        card = [t.to(dev) for t in args]
+        outs = {"kernel": ssd_scan_cuda(*card), "plain": ssd_scan_ref(*card),
+                "cpu": ssd_scan_ref(*args)}
+        for i, term in enumerate(("y_diag", "s_local")):
+            exact = ssd64(*card)[i].cpu()
+            top = exact.abs().max().item()
+            far = {n: (o[i].cpu().double() - exact).abs().max().item() / top
+                   for n, o in outs.items()}
+            label = f"ssd_scan mamba2 BC{bc} H24 Q{q} P64 N128 {term}"
+            print(f"  magnitudes {label}: vs float64 (of the largest |out| "
+                  f"{top:.2f}): kernel {far['kernel']:.3e}, plain on the "
+                  f"card {far['plain']:.3e}, plain on the CPU "
+                  f"{far['cpu']:.3e}")
+            check(torch.isfinite(outs["kernel"][i]).all()
+                  and far["kernel"] <= MAG_WITNESS * max(far["plain"],
+                                                         far["cpu"]),
+                  f"magnitudes {label}: the kernel is {far['kernel']} from "
+                  f"float64, the plain versions {far['plain']} (card) and "
+                  f"{far['cpu']} (CPU)")
 
 
 def int8_yardstick(x_q, w_q, sx, sw):
@@ -1149,6 +1228,8 @@ def timed_engine(lm, **kw):
     (with its padded length) and each batched decode step (with its count
     of active slots), each ending in ``torch.cuda.synchronize()`` (the
     engine waits for the sampled tokens at the end of both anyway)."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        MIN_KEYS_PER_SPLIT
     from repro_torch.serving.engine import ServingEngine
 
     class Timed(ServingEngine):
@@ -1163,6 +1244,9 @@ def timed_engine(lm, **kw):
 
         def _decode_step(self, tokens, active):
             torch.cuda.synchronize()
+            # decode attends over every slot's lens + 1 keys
+            self.decode_long.append(
+                int(self.lens.max()) + 1 > MIN_KEYS_PER_SPLIT)
             t0 = time.perf_counter()
             out = super()._decode_step(tokens, active)
             torch.cuda.synchronize()
@@ -1173,6 +1257,7 @@ def timed_engine(lm, **kw):
 
     eng = Timed(lm, **kw)
     eng.prefill_ms, eng.decode_ms, eng.decode_active = [], [], []
+    eng.decode_long = []
     return eng
 
 
@@ -1286,6 +1371,23 @@ def serve_phase(name, arch, dev, per_prefill=(), per_decode=(), lm=None):
                 check(counts[sym] == want,
                       f"{name}: {sym} launched {counts[sym]} times, not "
                       f"{want} ({cfg.n_layers} layers x {n} {per})")
+    # launches by step class, derived: the engine's steps of each class
+    # (a mamba prefill of whole 256-token chunks, a decode step with a slot
+    # past one split: long; the others short), classed on the host, times
+    # the launches a step makes (one a layer, counted and checked above)
+    n_long = {"prefills": sum(n >= SSD_CHUNK for n, _ in eng.prefill_ms),
+              "steps": sum(eng.decode_long)}
+    res["launches_by_step_class"] = {
+        k: {"long": cfg.n_layers * n_long[per],
+            "short": cfg.n_layers * (n - n_long[per])}
+        for kernels, per, n in ((per_prefill, "prefills", n_prefill),
+                                (per_decode, "steps", res["decode_steps"]))
+        for k in kernels if k in CLASSED}
+    if res["launches_by_step_class"]:
+        print(f"  {name} launches by step class (long / short; {cfg.n_layers}"
+              " a step, times the steps of each class): "
+              + ", ".join(f"{k} {c['long']} / {c['short']}" for k, c in
+                          res["launches_by_step_class"].items()))
     return res, counts, lm, eng, done
 
 
@@ -1330,6 +1432,46 @@ def plain_attention():
         attention.flash_attention, attention.decode_attention = kernels
 
 
+def decode_vs_float64(arch, run):
+    """``run`` (the card's prefill and decode steps) with decode_attention's
+    inputs captured: each layer's attention at the first decode step is
+    computed again by the kernel, the card's plain version and the CPU's,
+    and their distances from float64 are printed (not gated)."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_plain
+    from repro_torch.models import attention
+
+    seen, kernel = [], attention.decode_attention
+
+    def capture(q, k, v, kv_len, **kw):
+        seen.append((q.clone(), k.clone(), v.clone(), kv_len.clone(), kw))
+        return kernel(q, k, v, kv_len, **kw)
+
+    attention.decode_attention = capture
+    try:
+        run()
+    finally:
+        attention.decode_attention = kernel
+    for layer, (q, k, v, kv_len, kw) in enumerate(seen[:2]):
+        mask = torch.arange(k.shape[1], device=q.device)[None, None, :] \
+            < kv_len[:, :, None]
+        exact = attention64(q, k, v, mask).cpu()
+        top = exact.abs().max().item()
+        outs = {"kernel": decode_attention_cuda(q, k, v, kv_len, **kw),
+                "plain": decode_attention_plain(q, k, v, kv_len, **kw),
+                "cpu": decode_attention_plain(q.cpu(), k.cpu(), v.cpu(),
+                                              kv_len.cpu(), **kw)}
+        far = {n: (o.cpu().double() - exact).abs().max().item() / top
+               for n, o in outs.items()}
+        print(f"  {arch} depth 2, layer {layer}'s decode attention at the "
+              f"first decode step ({int(kv_len.max())} keys) vs float64 (of "
+              f"the largest |out| {top:.2f}; printed, not gated): kernel "
+              f"{far['kernel']:.3e}, plain on the card {far['plain']:.3e}, "
+              f"plain on the CPU {far['cpu']:.3e}")
+
+
 def lm_card_vs_cpu(dev):
     """The served LMs at full width and depth 2 (one gemma2 period, two
     layers of the others), the same weights on the card and the CPU: three
@@ -1367,6 +1509,8 @@ def lm_card_vs_cpu(dev):
             return [x.cpu() for x in out]
 
         want, got = steps(cpu), steps(card)
+        if arch in DENSE_ZOO:
+            decode_vs_float64(arch, lambda: steps(card))
         errs = []
         for a, b in zip(got, want):
             check(torch.isfinite(a).all() and a.shape == b.shape,
@@ -1662,6 +1806,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
+            **({"launches_by_step_class": {c: sum(
+                r["launches_by_step_class"][name][c]
+                for r in serving.values()
+                if name in r.get("launches_by_step_class", {}))
+                for c in ("long", "short")}} if name in CLASSED else {}),
             **({"companion_launches": {
                 c: sum(counts[p][c] for p in PATHS)
                 for c in COMPANIONS[name]}} if name in COMPANIONS else {}),

@@ -16,8 +16,8 @@ Every Pallas kernel of the JAX package has its counterpart here:
   fused_prefix     — a plan's whole pixel prefix (diff grid, colour
                      fractions, crop/preprocess, signature) in one pass
   decode_attention — one query token per sequence against its KV cache
-                     (split-KV partials + logsumexp combine; the served
-                     LMs' decode step)
+                     (splits of the live keys merged by logsumexp in
+                     one launch; the served LMs' decode step)
   ssd_scan         — Mamba2's within-chunk SSD terms (the served SSMs'
                      prefill)
   int8_matmul      — int8 x int8 product with int32 accumulation and row /

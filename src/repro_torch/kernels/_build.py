@@ -94,6 +94,13 @@ def build(names: Optional[Sequence[str]] = None,
     return report
 
 
+def load_library(source: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<source>.cu``, built first if stale."""
+    if _stale(source):
+        build([source])
+    return ctypes.CDLL(str(library_path(source)))
+
+
 class CudaKernel:
     """One C entry point of one ``csrc/<source>.cu``, with a launch count.
 
@@ -111,10 +118,7 @@ class CudaKernel:
     def _bind(self):
         with _LOCK:
             if self._fn is None:
-                if _stale(self.source):
-                    build([self.source])
-                lib = ctypes.CDLL(str(library_path(self.source)))
-                fn = getattr(lib, self.symbol)
+                fn = getattr(load_library(self.source), self.symbol)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
                 self._fn = fn
@@ -131,7 +135,15 @@ class CudaKernel:
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
-    """The kernels take contiguous tensors on one CUDA device."""
+    """The kernels take contiguous tensors on one CUDA device, and no input
+    that autograd would differentiate: a kernel writes a fresh tensor
+    through ``ctypes``, so its output would be cut from the graph without
+    a word.  Callers run under ``torch.no_grad()`` or
+    ``torch.inference_mode()``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: an input requires grad and the CUDA "
+                         "kernel has no backward; call it under "
+                         "torch.no_grad() or torch.inference_mode()")
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:

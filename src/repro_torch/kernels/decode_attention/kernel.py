@@ -1,37 +1,115 @@
 """Binding of ``csrc/decode_attention.cu`` (see the source for the design
-note): the split-KV partials kernel and the logsumexp combine kernel."""
+note): one launch that splits each sequence's live keys, read on the card,
+and merges the splits in the block that finishes last."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.common.utils import ceil_div
-from repro_torch.kernels._build import CudaKernel, require_cuda
+from repro_torch.kernels._build import CudaKernel, load_library, require_cuda
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-PARTIALS = CudaKernel("decode_attention", "decode_attention_partials_f32",
-                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _F, _I])
-COMBINE = CudaKernel("decode_attention", "decode_attention_combine_f32",
-                     [_P, _P, _P, _P, _I, _I, _I, _I, _I])
+KERNEL = CudaKernel("decode_attention", "decode_attention_f32",
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _F, _I])
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
-GROUPS = (1, 2, 4, 8, 16)
-#: the widest head a group of 16 query heads is built for (registers)
-MAX_D_G16 = 128
-#: splits per (sequence, kv head): enough blocks for a long sequence to
-#: cover the card's 132 SMs with a handful of kv heads
-MAX_SPLITS = 32
-KEYS_PER_SPLIT = 128
+#: query heads per kv head at most: the tensor cores' 16 rows
+MAX_GROUP = 16
+#: the kernel's constants (``kTile``, ``kMinKeys``, ``kMaxSplits``): keys
+#: per tile (a split is a whole number of tiles), the fewest live keys a
+#: split takes, a sequence's splits at most (the merge's shared memory)
+TILE, MIN_KEYS_PER_SPLIT, MAX_SPLITS = 32, 128, 64
+
+#: per (device, head dim, route): the card's SMs and the blocks one holds
+_OCCUPANCY: Dict[Tuple[int, int, int], Tuple[int, int]] = {}
+#: per (device, stream): the merge counters, one per (sequence, kv head),
+#: zero between launches (the last block of each pair resets its own)
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def num_splits(s_max: int) -> int:
-    """Splits of the live range: one per 128 cache rows, at most 32."""
-    return max(1, min(MAX_SPLITS, ceil_div(s_max, KEYS_PER_SPLIT)))
+def grid_waves(per_sm: int) -> int:
+    """The budget in waves of the blocks the card holds at once: two where
+    an SM holds two blocks or more (phi3-mini's D 96: a long slot in 12
+    splits of 352 keys, not 4 of 1056, beats the second wave it costs),
+    one where it holds one (gemma2-2b's D 256, the group of 16: a second
+    wave costs more than the shorter splits save)."""
+    return 2 if per_sm >= 2 else 1
 
 
-def _check(q, k, v, kv_len, cap, window):
+def split_blocks(b: int, hk: int, s: int, window: Optional[int],
+                 sms: int, per_sm: int) -> int:
+    """The blocks of one kv head that the ``b`` sequences share by their
+    live keys (the kernel's grid holds at least one a sequence):
+    ``grid_waves`` times the blocks the card holds at once (``sms`` x
+    ``per_sm``) over the ``hk`` kv heads, and no more than ``b`` sequences
+    as long as the cache (or the window) can use."""
+    live_max = min(s, window) if window else s
+    per_seq = min(MAX_SPLITS, ceil_div(live_max, MIN_KEYS_PER_SPLIT))
+    budget = grid_waves(per_sm) * sms * per_sm // hk
+    return max(1, min(budget, b * per_seq))
+
+
+def split_plan(lives: Sequence[int], nb: int) -> List[Tuple[int, int]]:
+    """(splits, keys per split) of each sequence, from the sequences' live
+    keys ``lives``, as the kernel computes it from kv_len on the card:
+    every sequence takes one of the ``nb`` blocks and the others are shared
+    in proportion to the live keys (rounded down), at most one split per
+    ``MIN_KEYS_PER_SPLIT`` keys (and ``MAX_SPLITS``), equal splits rounded
+    up to whole tiles.  A sequence with no live key is one empty split."""
+    total, extra = sum(lives), nb - len(lives)
+    out = []
+    for live in lives:
+        n = 1 + (extra * live // total if extra > 0 and total else 0)
+        n = max(1, min(n, MAX_SPLITS, ceil_div(live, MIN_KEYS_PER_SPLIT)))
+        chunk = max(TILE, ceil_div(ceil_div(live, n), TILE) * TILE)
+        out.append((max(1, ceil_div(live, chunk)), chunk))
+    return out
+
+
+def _occupancy(dev: torch.device, d: int, g: int) -> Tuple[int, int]:
+    """The card's SMs and the blocks of the kernel's instance for (d, g)
+    one SM holds at once (``decode_attention_occupancy``; shared memory
+    sets it: one block at D 256 or with the group of 16 at D 128, two at
+    phi3-mini's D 96)."""
+    key = (dev.index, d, g if g <= 2 else 0)
+    if key not in _OCCUPANCY:
+        KERNEL._bind()
+        fn = load_library(KERNEL.source).decode_attention_occupancy
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = fn(d, g, ctypes.byref(blocks))
+        if rc != 0 or blocks.value < 1:
+            raise RuntimeError(f"decode_attention_occupancy: CUDA error {rc}"
+                               f" ({blocks.value} blocks an SM)")
+        _OCCUPANCY[key] = (torch.cuda.get_device_properties(
+            dev).multi_processor_count, blocks.value)
+    return _OCCUPANCY[key]
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = c
+    return c
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_len: torch.Tensor, *,
+                          cap: Optional[float] = None,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Model layout on CUDA, fp32: q (B, 1, H, D), k/v (B, S, Hk, D),
+    kv_len (B, 1) int32 -> (B, 1, H, D).  Any S; D in ``HEAD_DIMS``;
+    H/Hk up to ``MAX_GROUP``.  kv_len is read on the card (no host sync)
+    and must be at least 1, as it is in a decode step (a sequence with no
+    visible key gets zeros here; the plain version averages V)."""
     dev = require_cuda("decode_attention", q, k, v, kv_len)
     if not (q.dtype == k.dtype == v.dtype == torch.float32):
         raise ValueError("decode_attention: the CUDA kernel takes float32 "
@@ -45,60 +123,24 @@ def _check(q, k, v, kv_len, cap, window):
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, kv_len "
                          f"{tuple(kv_len.shape)}")
-    if d not in HEAD_DIMS or h % hk or h // hk not in GROUPS \
-            or (h // hk == 16 and d > MAX_D_G16):
+    if d not in HEAD_DIMS or h % hk or h // hk > MAX_GROUP:
         raise ValueError(f"decode_attention: head_dim {d} (takes "
                          f"{HEAD_DIMS}), {h} q heads over {hk} kv heads "
-                         f"(groups {GROUPS}; 16 up to head_dim "
-                         f"{MAX_D_G16})")
+                         f"(at most {MAX_GROUP} a kv head)")
     if cap is not None and cap <= 0:
         raise ValueError("decode_attention: cap must be positive")
     if window is not None and window <= 0:
         raise ValueError("decode_attention: window must be positive")
-    return dev, b, s, h, hk, d
-
-
-def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    kv_len: torch.Tensor, *, cap: Optional[float] = None,
-                    window: Optional[int] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The first launch alone: per-split partials acc (B, Hk, ns, G, D),
-    m and l (B, Hk, ns, G), ``ns = num_splits(S)``."""
-    dev, b, s, h, hk, d = _check(q, k, v, kv_len, cap, window)
-    ns = num_splits(s)
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
     g = h // hk
-    acc = torch.empty((b, hk, ns, g, d), dtype=torch.float32, device=dev)
-    m = torch.empty((b, hk, ns, g), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    PARTIALS.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    kv_len.data_ptr(), acc.data_ptr(), m.data_ptr(),
-                    l.data_ptr(), b, s, h, hk, d, ns,
-                    0.0 if cap is None else float(cap),
-                    0 if window is None else int(window))
-    return acc, m, l
-
-
-def decode_combine(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
-                   h: int) -> torch.Tensor:
-    """The second launch: the partials merged by logsumexp ->
-    (B, 1, H, D)."""
-    dev = require_cuda("decode_attention", acc, m, l)
-    b, hk, ns, g, d = acc.shape
-    out = torch.empty((b, 1, h, d), dtype=torch.float32, device=dev)
-    COMBINE.launch(dev, acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-                   out.data_ptr(), b, h, hk, d, ns)
+    nb = split_blocks(b, hk, s, window, *_occupancy(dev, d, g))
+    ws = torch.empty(hk * max(nb, b) * (g * d + 2 * g), dtype=torch.float32,
+                     device=dev)
+    KERNEL.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                  _counters(dev, b * hk).data_ptr(), b, s, h, hk, d, nb,
+                  0.0 if cap is None else float(cap),
+                  0 if window is None else int(window))
     return out
-
-
-def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          kv_len: torch.Tensor, *,
-                          cap: Optional[float] = None,
-                          window: Optional[int] = None) -> torch.Tensor:
-    """Model layout on CUDA, fp32: q (B, 1, H, D), k/v (B, S, Hk, D),
-    kv_len (B, 1) int32 -> (B, 1, H, D).  Any S; D in ``HEAD_DIMS``;
-    H/Hk in ``GROUPS``.  kv_len is read on the card (no host sync) and must
-    be at least 1, as it is in a decode step (a sequence with no visible
-    key gets zeros here; the plain version averages V).  A group of 16
-    takes D up to ``MAX_D_G16``."""
-    acc, m, l = decode_partials(q, k, v, kv_len, cap=cap, window=window)
-    return decode_combine(acc, m, l, q.shape[2])

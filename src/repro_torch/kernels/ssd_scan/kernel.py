@@ -1,7 +1,5 @@
 """Binding of ``csrc/ssd_scan.cu`` (see the source for the design note):
-two entry points, each one launch with its own count — C·Bᵀ per (chunk,
-group) into a scratch the wrapper allocates, then the within-chunk terms
-per (chunk, head)."""
+one launch writes both within-chunk terms, C·Bᵀ formed inside it."""
 from __future__ import annotations
 
 import ctypes
@@ -12,7 +10,6 @@ import torch
 from repro_torch.kernels._build import CudaKernel, require_cuda
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
-CB = CudaKernel("ssd_scan", "ssd_cb_f32", [_P, _P, _P, _I, _I, _I, _I])
 KERNEL = CudaKernel("ssd_scan", "ssd_scan_f32",
                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
 MAX_Q, MAX_P, MAX_N = 256, 128, 256
@@ -41,11 +38,8 @@ def ssd_scan_cuda(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
                          f" N {n} (≤ {MAX_N}), {h} heads over {g} groups")
     y = torch.empty((bc, h, q, p), dtype=torch.float32, device=dev)
     s = torch.empty((bc, h, n, p), dtype=torch.float32, device=dev)
-    cb = torch.empty((bc, g, q, q), dtype=torch.float32, device=dev)
     if bc:
-        CB.launch(dev, bmat.data_ptr(), cmat.data_ptr(), cb.data_ptr(), bc,
-                  g, q, n)
-        KERNEL.launch(dev, x.data_ptr(), bmat.data_ptr(), cb.data_ptr(),
+        KERNEL.launch(dev, x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
                       cs.data_ptr(), dt.data_ptr(), y.data_ptr(),
                       s.data_ptr(), bc, h, g, q, p, n)
     return y, s

@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.frame_diff.kernel import frame_diff_cuda  # noqa: E402
 from repro_torch.kernels.frame_diff.ref import frame_diff_ref  # noqa: E402
@@ -145,10 +146,33 @@ def test_fused_prefix_kernel(dev, case, dtype):
     # chatglm3-6b / glm4-9b: 32 query heads over 2 kv heads (G = 16)
     (4, 512, 32, 2, 128, [7, 30, 300, 512], {}),
     # phi3-mini-3.8b: 32 heads of 96
-    (2, 300, 32, 32, 96, [1, 299], {})])
+    (2, 300, 32, 32, 96, [1, 299], {}),
+    # a decode tick's short slots in an 8192-row cache: one split each, at
+    # G 2 (gemma2-2b), 16 (chatglm3-6b) and 1 (phi3-mini)
+    (4, 8192, 8, 4, 256, [4, 17, 23, 35], dict(cap=50.0, window=4096)),
+    (4, 8192, 32, 2, 128, [5, 12, 30, 35], {}),
+    (4, 8192, 32, 32, 96, [4, 9, 21, 33], {}),
+    # the served paths' long tick: the long request's slot beside three
+    # short ones, at G 2, 16 and 1
+    (4, 8192, 8, 4, 256, [7, 23, 30, 4206], dict(cap=50.0, window=4096)),
+    (4, 8192, 32, 2, 128, [7, 23, 30, 4206], {}),
+    (4, 8192, 32, 32, 96, [7, 23, 30, 4206], {}),
+    # more sequences than a kv head's budget of blocks
+    (40, 700, 32, 32, 64, [1 + (37 * i) % 700 for i in range(40)], {}),
+    # every slot at one key
+    (4, 8192, 32, 2, 128, [1, 1, 1, 1], {}),
+    # a window longer than every slot's live range
+    (4, 8192, 8, 4, 256, [40, 300, 1000, 2000], dict(cap=50.0, window=4096)),
+    # glm4-9b's decode shape (32/2 heads of 128), slots of many splits
+    (4, 8192, 32, 2, 128, [6, 129, 2049, 8192], {}),
+    # splits that end mid-tile, a window that starts mid-split
+    (2, 1000, 8, 8, 16, [999, 161], dict(window=517)),
+    # a group of 16 at head dim 256, a group of 3
+    (1, 300, 32, 2, 256, [300], dict(cap=50.0)),
+    (2, 100, 6, 2, 64, [100, 37], {})])
 def test_decode_attention_kernel(dev, b, s, h, hk, d, lens, kw):
     """The kernel against its plain version; keys at or past kv_len are
-    NaN in the cache and must never be read."""
+    NaN in the cache and must never be read.  One launch a call."""
     gen = torch.Generator().manual_seed(4)
     q = torch.randn(b, 1, h, d, generator=gen)
     k = torch.randn(b, s, hk, d, generator=gen)
@@ -161,15 +185,29 @@ def test_decode_attention_kernel(dev, b, s, h, hk, d, lens, kw):
     reset_launch_counts()
     got = decode_attention_cuda(q.to(dev), k.to(dev), v.to(dev),
                                 kv_len.to(dev), **kw).cpu()
-    counts = launch_counts()
-    assert counts["decode_attention_partials_f32"] == 1
-    assert counts["decode_attention_combine_f32"] == 1
+    assert launch_counts() == _counts(decode_attention_f32=1)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_decode_attention_kernel_repeats(dev):
+    """The merge counters are left at zero: the same call three times on
+    one stream gives the same bits."""
+    gen = torch.Generator().manual_seed(14)
+    q = torch.randn(4, 1, 32, 128, generator=gen).to(dev)
+    k, v = (torch.randn(4, 4096, 2, 128, generator=gen).to(dev)
+            for _ in range(2))
+    kv_len = torch.tensor([[4096], [3000], [7], [1500]], dtype=torch.int32,
+                          device=dev)
+    outs = [decode_attention_cuda(q, k, v, kv_len) for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 @pytest.mark.parametrize("bc,h,g,q,p,n", [
     (2, 24, 1, 256, 64, 128), (1, 24, 1, 13, 64, 128),   # mamba2-130m
-    (4, 8, 4, 64, 16, 8), (2, 4, 2, 32, 16, 8)])          # reference sweep
+    (4, 8, 4, 64, 16, 8), (2, 4, 2, 32, 16, 8),          # reference sweep
+    (1, 24, 2, 13, 64, 128),          # a short prompt's chunk, G 2
+    (2, 8, 2, 200, 128, 256),         # P 128, N 256, an odd row-tile count
+    (1, 6, 3, 77, 24, 13)])           # N off 4: 4-byte copies
 def test_ssd_scan_kernel(dev, bc, h, g, q, p, n):
     gen = torch.Generator().manual_seed(5)
     x = torch.randn(bc, h, q, p, generator=gen)
@@ -181,10 +219,49 @@ def test_ssd_scan_kernel(dev, bc, h, g, q, p, n):
     want = ssd_scan_ref(x, bm, cm, cs, dt)
     reset_launch_counts()
     got = ssd_scan_cuda(*(t.to(dev).contiguous() for t in (x, bm, cm, cs, dt)))
-    counts = launch_counts()
-    assert counts["ssd_cb_f32"] == 1 and counts["ssd_scan_f32"] == 1
+    assert launch_counts() == _counts(ssd_scan_f32=1)
     for a_, b_ in zip(got, want):
         torch.testing.assert_close(a_.cpu(), b_, atol=1e-4, rtol=1e-4)
+
+
+def _counts(**launched):
+    """Every kernel's launch count: ``launched`` and 0 for the others."""
+    counts = {name: 0 for name in launch_counts()}
+    counts.update(launched)
+    return counts
+
+
+@pytest.mark.parametrize("call", ["decode_attention", "ssd_scan",
+                                  "flash_attention"])
+def test_kernels_refuse_inputs_that_require_grad(dev, call):
+    """A kernel has no backward: an input that requires grad, with grad
+    mode on, raises before the launch; under no_grad the same call runs."""
+    gen = torch.Generator().manual_seed(15)
+    if call == "ssd_scan":
+        x = torch.randn(1, 2, 16, 8, generator=gen)
+        bm = torch.randn(1, 1, 16, 8, generator=gen)
+        cs = torch.cumsum(-torch.rand(1, 2, 1, 16, generator=gen), dim=-1)
+        args = [x, bm, bm.clone(), cs, torch.rand(1, 2, 1, 16,
+                                                  generator=gen)]
+        fn = ssd_scan_cuda
+    else:
+        q = torch.randn(1, 1 if call == "decode_attention" else 9, 4, 32,
+                        generator=gen)
+        k = torch.randn(1, 9, 2, 32, generator=gen)
+        args = [q, k, k.clone()]
+        fn = flash_attention_cuda
+        if call == "decode_attention":
+            args.append(torch.tensor([[9]], dtype=torch.int32))
+            fn = decode_attention_cuda
+    args = [t.to(dev) for t in args]
+    args[0].requires_grad_(True)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="requires grad"):
+        fn(*args)
+    assert not any(launch_counts().values())
+    with torch.no_grad():
+        fn(*args)
+    assert sum(launch_counts().values()) == 1
 
 
 @pytest.mark.parametrize("s,kw", [(300, dict(cap=50.0)),
@@ -261,9 +338,7 @@ def test_int8_matmul_kernel(dev, m, k, n):
 def _int8_counts():
     """Every kernel's launch count after one int8 product: the transpose
     and the tensor-core product once each, nothing else."""
-    counts = {name: 0 for name in launch_counts()}
-    counts.update(int8_transpose_kn=1, int8_mma_f32=1)
-    return counts
+    return _counts(int8_transpose_kn=1, int8_mma_f32=1)
 
 
 def test_int8_matmul_mma_route_exact_at_full_codes(dev):

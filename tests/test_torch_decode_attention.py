@@ -20,7 +20,9 @@ from repro.kernels.decode_attention.ref import decode_attention_ref as jax_decod
 from repro.models import attention as jax_attn  # noqa: E402
 
 from repro_torch.common.config import AttentionConfig  # noqa: E402
-from repro_torch.kernels.decode_attention.kernel import num_splits  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
+    MAX_SPLITS, MIN_KEYS_PER_SPLIT, TILE, grid_waves, split_blocks,
+    split_plan)
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
@@ -197,6 +199,47 @@ def test_attend_decode_matches_reference(local):
 
 
 def test_num_splits_cover_the_cache():
-    assert num_splits(1) == 1 and num_splits(128) == 1
-    assert num_splits(300) == 3
-    assert num_splits(8192) == 32 and num_splits(1 << 20) == 32
+    """The kernel's split rule (mirrored by ``split_plan``): a kv head's
+    budget of blocks is shared over the sequences by their live keys, not
+    by the cache's size.  Each sequence's splits cover its live range
+    exactly in whole 32-key tiles, at most one per MIN_KEYS_PER_SPLIT keys;
+    the splits fit the budget (or one a sequence where the budget is
+    smaller); a decode tick's short slots are one split each.  The budget
+    is the blocks the card holds at once over the kv heads, in one wave or
+    in two where an SM holds two blocks or more."""
+    for nb in (1, 3, 8, 17, 33, 66, 200):
+        for lives in ([0], [1, 4, 35, 127], [7, 23, 30, 4206],
+                      [7, 30, 4100, 4250], [128, 129, 300, 4096],
+                      [8192] * 4, [1 << 20, 5], list(range(0, 600, 37))):
+            plan = split_plan(lives, nb)
+            for live, (n, chunk) in zip(lives, plan):
+                assert chunk % TILE == 0 and 1 <= n <= MAX_SPLITS
+                assert chunk * (n - 1) < max(live, 1) <= chunk * n
+                assert n <= max(1, -(-live // MIN_KEYS_PER_SPLIT))
+            assert sum(n for n, _ in plan) <= max(nb, len(lives))
+    assert [n for n, _ in split_plan([6, 14, 23, 35], 66)] == [1] * 4
+    # chatglm3-6b and gemma2-2b (one block an SM of 132: one wave) and
+    # phi3-mini (two an SM: two waves) at 4 slots of 8192
+    assert split_blocks(4, 2, 8192, None, 132, 1) == 66
+    assert split_blocks(4, 4, 8192, None, 132, 1) == 33
+    assert split_blocks(4, 4, 8192, 4096, 132, 1) == 33
+    assert split_blocks(4, 32, 8192, None, 132, 2) == 16
+    assert [grid_waves(n) for n in (1, 2, 3)] == [1, 2, 2]
+    # the served tick, one long slot beside three short ones: the long slot
+    # takes the budget (chatglm3 up to one split per 128 keys), and the
+    # blocks fit the budget's waves of the card
+    for hk, per_sm, lives, long_plan in (
+            (2, 1, [7, 23, 30, 4206], (33, 128)),
+            (4, 1, [7, 23, 30, 4206], (27, 160)),
+            (4, 1, [7, 23, 30, 4096], (26, 160)),    # gemma2's window
+            (32, 2, [7, 23, 30, 4206], (12, 352)),
+            (2, 1, [7, 30, 4100, 4250], (27, 160)),
+            (4, 1, [7, 30, 4100, 4250], (15, 288))):
+        plan = split_plan(lives, split_blocks(4, hk, 8192, None, 132, per_sm))
+        assert plan[-1] == long_plan and plan[0] == (1, TILE)
+        blocks = hk * sum(n for n, _ in plan)
+        assert blocks <= grid_waves(per_sm) * 132 * per_sm
+    # never more than the cache can hold live
+    assert split_blocks(1, 1, 300, None, 132, 1) == 3
+    assert split_blocks(1, 1, 64, None, 132, 1) == 1
+    assert split_blocks(1, 1, 1 << 20, None, 132, 1) == MAX_SPLITS

@@ -22,6 +22,7 @@ from repro.kernels.fused_preprocess.ref import fused_preprocess_ref as jax_prep_
 from repro.models.attention import full_attention  # noqa: E402
 
 from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.kernels._build import require_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
@@ -227,10 +228,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert launch_counts() == before
     assert set(before) == {"frame_diff_u8", "fused_preprocess_u8",
                            "flash_attention_f32", "fused_prefix_launch",
-                           "decode_attention_partials_f32",
-                           "decode_attention_combine_f32", "ssd_cb_f32",
-                           "ssd_scan_f32", "int8_transpose_kn",
-                           "int8_mma_f32"}
+                           "decode_attention_f32", "ssd_scan_f32",
+                           "int8_transpose_kn", "int8_mma_f32"}
 
 
 @pytest.mark.parametrize("call", ["frame_diff", "fused_preprocess", "flash",
@@ -265,3 +264,23 @@ def test_kernel_path_refuses_cpu_tensors(call):
                           c.transpose(2, 3))
         else:
             flash_attention_cuda(q, k, k)
+
+
+@pytest.mark.parametrize("name", ["frame_diff", "fused_preprocess",
+                                  "flash_attention", "fused_prefix",
+                                  "decode_attention", "ssd_scan",
+                                  "int8_matmul"])
+def test_require_cuda_refuses_inputs_that_require_grad(name):
+    """A kernel has no backward: with grad mode on, an input that requires
+    grad is refused before anything else is checked, naming the kernel.
+    Under no_grad the grad check passes and the device check speaks (these
+    tensors lie on the CPU)."""
+    x = torch.ones(4, 4, requires_grad=True)
+    y = torch.ones(4, 4)
+    with pytest.raises(ValueError, match=f"{name}: an input requires grad"):
+        require_cuda(name, y, x)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="one CUDA device"):
+            require_cuda(name, y, x)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        require_cuda(name, y, x.detach())
