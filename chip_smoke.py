@@ -17,7 +17,11 @@ Phases (any failure exits non-zero and prints no result line):
      attention (prefill and decode; it cannot soft-cap, so it runs
      without the cap), the unfused chain (frame_diff + fused_preprocess
      kernels, colour and signature in PyTorch) for fused_prefix (timed
-     only here; the port never calls SDPA); decode_attention at gemma2's,
+     only here; the port never calls SDPA); the pixel kernels beside the
+     launch floor (an empty kernel, ``csrc/launch_floor.cu``, on each
+     one's grid), fused_prefix's cluster occupancy, its stage cut, its
+     frames of 127 and 30 rows, B 1 and B 40, and its d and x equal bit for
+     bit to frame_diff's and fused_preprocess's; decode_attention at gemma2's,
      chatglm3-6b's (a group of 16) and phi3-mini's (D 96) decode shapes,
      timed at the served paths' two ticks (the long request's slot beside
      three short ones, and four short slots), and ragged ones, ssd_scan at mamba2's chunks (a 512-token prefill, a
@@ -93,6 +97,7 @@ run.  The last lines are the card's ``nvidia-smi`` name/power line, one
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -273,6 +278,24 @@ def device_ms(fn, n: int = 40, reps: int = 5) -> float:
                        "card (does the function synchronize?)")
 
 
+def floor_ms(blocks: int, threads: int, cluster: int = 1) -> float:
+    """The launch floor: ``device_ms`` of an empty kernel
+    (``csrc/launch_floor.cu``) on a grid of ``blocks`` blocks of
+    ``threads`` threads, in clusters of ``cluster`` blocks."""
+    from repro_torch.kernels._build import load_library
+
+    fn = load_library("launch_floor").empty_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        rc = fn(blocks, threads, cluster,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"empty_launch: CUDA error {rc}")
+
+    return device_ms(launch)
+
+
 TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound")
 
 
@@ -360,6 +383,8 @@ def kernel_checks(dev):
     for shape, regions in [((16, 3, 128, 256), (4, 8)),
                            ((16, 3, 128, 256), (4, 4)),
                            ((16, 3, 128, 256), (1, 1)),
+                           ((1, 3, 128, 256), (4, 8)),
+                           ((64, 3, 128, 256), (4, 8)),
                            ((3, 3, 30, 50), (3, 5))]:
         a, b = frames(shape), frames(shape)
         compare("frame_diff", frame_diff_cuda(a, b, regions=regions),
@@ -370,7 +395,9 @@ def kernel_checks(dev):
     rows["frame_diff"] = dict(
         ms=device_ms(lambda: frame_diff_cuda(a, b, regions=(4, 8))),
         plain_ms=device_ms(lambda: frame_diff_ref(a, b, regions=(4, 8))),
-        library_ms=None, bound=bound(nbytes, 3 * a.numel()))
+        library_ms=None, bound=bound(nbytes, 3 * a.numel()),
+        # 512 regions, a warp each, four warps a block
+        launch_floor_ms=floor_ms(128, 128))
 
     # fused_preprocess: the reduced plan's crop, then odd offsets
     for crop, f, grey in [((64, 0, 64, 256), 2, False),
@@ -389,7 +416,9 @@ def kernel_checks(dev):
     rows["fused_preprocess"] = dict(
         ms=device_ms(lambda: fused_preprocess_cuda(x, **path)),
         plain_ms=device_ms(lambda: fused_preprocess_ref(x, **path)),
-        library_ms=None, bound=bound(n_in + 4 * n_out, n_in + 2 * n_out))
+        library_ms=None, bound=bound(n_in + 4 * n_out, n_in + 2 * n_out),
+        # a thread an output, 256 a block
+        launch_floor_ms=floor_ms(n_out // 256, 256))
 
     # flash attention in model layout: the MLLM's S (full frame 140, crop
     # 76, crop/2 28) and ragged S, G = 2 (big) and 1 (small)
@@ -437,7 +466,8 @@ def kernel_checks(dev):
         t = rows[name]
         print(f"  {name} at the path's shape: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
-              f"({t['bound'][1]})")
+              f"({t['bound'][1]}), launch floor {t['launch_floor_ms']:.4f} "
+              f"ms (an empty kernel on its grid)")
     return rows
 
 
@@ -445,7 +475,9 @@ RED, BLUE = (190., 40., 40.), (40., 40., 190.)
 #: the main path's prefix: Skip's diff, the preprocess, colour on its result
 PATH_SPEC = (("diff", (4, 8)), ("preprocess", (64, 0, 64, 256), 2, False),
              ("color", RED, None))
-PREFIX_CASES = [   # (label, spec, batch, dtype)
+GREY_SPEC = (("diff", (4, 8)), ("preprocess", (64, 0, 64, 256), 2, True),
+             ("color", BLUE, None))
+PREFIX_CASES = [   # (label, spec, batch, dtype[, frame shape])
     # the four specs of the reference's sweep (tests/test_kernels.py)
     ("sweep diff+color+pre", (("diff", (4, 8)), ("color", RED, None),
                               ("preprocess", (64, 0, 64, 256), 2, False)),
@@ -462,9 +494,7 @@ PREFIX_CASES = [   # (label, spec, batch, dtype)
     ("path B16 float32", PATH_SPEC, 16, torch.float32),
     ("roi colour", (("preprocess", (0, 0, 128, 256), 2, False),
                     ("color", RED, (5, 9, 30, 50))), 4, torch.uint8),
-    ("grey preprocess", (("diff", (4, 8)),
-                         ("preprocess", (64, 0, 64, 256), 2, True),
-                         ("color", BLUE, None)), 4, torch.uint8),
+    ("grey preprocess", GREY_SPEC, 4, torch.uint8),
     ("odd crop", (("diff", (2, 2)), ("crop", (3, 5, 90, 150)),
                   ("preprocess", (1, 0, 87, 147), 3, True),
                   ("color", BLUE, None), ("crop", (2, 4, 20, 30))),
@@ -472,6 +502,16 @@ PREFIX_CASES = [   # (label, spec, batch, dtype)
     ("two preprocess", (("preprocess", (0, 0, 128, 256), 2, False),
                         ("preprocess", (0, 0, 64, 128), 2, False)),
      4, torch.float32),
+    # one frame; more clusters than run at once; bands of a cluster that
+    # do not divide the rows (127 and 30 rows over 8 blocks)
+    ("path B1", PATH_SPEC, 1, torch.uint8),
+    ("path B40", PATH_SPEC, 40, torch.uint8),
+    ("127 rows", (("diff", (1, 8)), ("preprocess", (63, 0, 64, 256), 2,
+                                      False), ("color", RED, None)),
+     4, torch.uint8, (3, 127, 256)),
+    ("30x50 float32", (("diff", (3, 5)), ("color", BLUE, (5, 9, 20, 30)),
+                       ("preprocess", (0, 0, 30, 50), 2, True)),
+     4, torch.float32, (3, 30, 50)),
 ]
 
 
@@ -489,7 +529,11 @@ def prefix_checks(compare, frames):
     the projection, which is PyTorch work after it), the plain version's,
     the unfused chain's and the bound, and the projection's own time."""
     from repro_torch.kernels.frame_diff.kernel import frame_diff_cuda
-    from repro_torch.kernels.fused_prefix.kernel import (fused_prefix_cuda,
+    from repro_torch.kernels.fused_prefix.kernel import (BLOCKS,
+                                                         cluster_occupancy,
+                                                         cluster_plan,
+                                                         compile_spec,
+                                                         fused_prefix_cuda,
                                                          prefix_kernel)
     from repro_torch.kernels.fused_prefix.ref import (color_frac,
                                                       fused_prefix_ref,
@@ -499,9 +543,10 @@ def prefix_checks(compare, frames):
         fused_preprocess_cuda
 
     names = ("d", "fracs", "x", "feats", "emb")
-    for label, spec, b, dtype in PREFIX_CASES:
-        f, p = (frames((b, 3, 128, 256)).to(dtype) for _ in range(2))
-        spec, proj = with_signature(spec, (3, 128, 256))
+    for label, spec, b, dtype, *shape in PREFIX_CASES:
+        shape = tuple(shape[0]) if shape else (3, 128, 256)
+        f, p = (frames((b,) + shape).to(dtype) for _ in range(2))
+        spec, proj = with_signature(spec, shape)
         proj = proj.cuda()
         prev = p if spec[0][0] == "diff" else None
         got = fused_prefix_cuda(f, prev, proj, spec=spec)
@@ -518,9 +563,31 @@ def prefix_checks(compare, frames):
                 compare("fused_prefix", x, y, f"{label} {name}"
                         + (f"[{i}]" if name == "fracs" else ""))
     f, p = frames((16, 3, 128, 256)), frames((16, 3, 128, 256))
+    # the unfused kernels' outputs, bit for bit: phase 8's records rest on it
+    for label, pspec in (("path", PATH_SPEC), ("grey", GREY_SPEC)):
+        d, _, x, _ = prefix_kernel(f, p, spec=pspec)
+        crop, factor, grey = pspec[1][1:]
+        xp = fused_preprocess_cuda(f, crop=crop, factor=factor, grey=grey)
+        same = (torch.equal(d, frame_diff_cuda(f, p, regions=pspec[0][1]))
+                and torch.equal(x, xp.expand(-1, 3, -1, -1) if grey else xp))
+        print(f"  fused_prefix {label} spec B16: d == frame_diff, x == "
+              f"fused_preprocess (torch.equal): {same}")
+        check(same, f"fused_prefix {label}: d or x differs from the "
+              "unfused kernels'")
     spec, proj = with_signature(PATH_SPEC, (3, 128, 256))
     proj = proj.cuda()
     gy, gx = spec[-1][1]
+    clusters = {}
+    for dtype in (torch.uint8, torch.float32):
+        plan = cluster_plan(compile_spec(spec, (3, 128, 256))[0],
+                            (3, 128, 256), dtype.itemsize)
+        clusters[dtype] = cluster_occupancy(spec, (3, 128, 256), dtype,
+                                            f.device)
+        print(f"  fused_prefix B16 path spec {str(dtype)[6:]}: "
+              f"{16 * BLOCKS} blocks of 512 threads in clusters of {BLOCKS}, "
+              f"{plan['smem']} B of shared memory a block; "
+              f"cudaOccupancyMaxActiveClusters {clusters[dtype]}")
+        check(clusters[dtype] >= 1, "fused_prefix: no cluster fits the card")
 
     def plain():        # the plain version of the kernel's work
         signature_feats(fused_prefix_ref(f, p, spec=spec[:-1])[2], gy, gx)
@@ -547,12 +614,15 @@ def prefix_checks(compare, frames):
         # PyTorch's broadcast-multiply-and-sum after the kernel
         projection_ms=device_ms(lambda: project_rowwise(feats, proj)),
         projection_bound=bound(4 * (feats.numel() + proj.numel()
-                                    + 16 * emb_d), 2 * 16 * sig_d * emb_d))
+                                    + 16 * emb_d), 2 * 16 * sig_d * emb_d),
+        launch_floor_ms=floor_ms(16 * BLOCKS, 512, BLOCKS),
+        max_active_clusters=clusters[torch.uint8])
     print(f"  fused_prefix B16 path spec: kernel {t['ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms, unfused chain "
           f"{t['unfused_chain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
-          f"({t['bound'][1]}, {nbytes} B); projection after it "
-          f"{t['projection_ms']:.4f} ms, bound "
+          f"({t['bound'][1]}, {nbytes} B), launch floor "
+          f"{t['launch_floor_ms']:.4f} ms (an empty kernel on its cluster "
+          f"grid); projection after it {t['projection_ms']:.4f} ms, bound "
           f"{t['projection_bound'][0]:.5f} ms")
     # where the kernel's time goes: the path's spec cut after each stage
     # (the diff alone also copies the raw frame to x)

@@ -10,64 +10,67 @@
 // regions 4x8) that is 3.1 MB, about 0.94 us at 3.35 TB/s, so the launch
 // itself costs more than the traffic.
 //
-// Design: one block per (frame, region).  The block walks the C*rh*rw byte
-// pairs with 16-byte loads where the region rows are 16-byte aligned
-// (__vsadu4 sums four absolute byte differences in one instruction) and
-// byte loads otherwise.  Partial sums are 32-bit integers, so the sum is
-// exact; a warp-shuffle tree and one shared-memory step reduce them, and a
-// single division turns the sum into the mean.
+// Design: the kernel is latency-bound, so a region takes as few dependent
+// steps as it can.  One warp sums a region (wpr warps where a region holds
+// more than a warp's batch, wpr in 1, 2, 4); each lane issues the loads of
+// all its 16-byte pairs (up to kBatch) before it adds any, then one shuffle
+// tree gives the region's sum: at the Skip shape a region is 192 pairs, six
+// a lane, one batch, and no shared memory or __syncthreads.  A block of four
+// warps holds 4 / wpr regions, so the Skip shape's 512 regions are 128
+// blocks, one for nearly every SM.  Rows that are not 16-byte aligned take
+// byte loads.  The arithmetic (lane sums, exact 32-bit integer sums, one
+// division for the mean) is diff.cuh's, which fused_prefix.cu shares.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (scripts/pixel_compare.py,
+// recorded in PERF.md): 0.0035 ms at the Skip shape, against 0.0040 for
+// the earlier design (a block of 256 threads a region) and 0.0019 for an
+// empty kernel on the same grid.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "diff.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBatch = 8;  // pairs a lane keeps in flight
 
-__device__ __forceinline__ unsigned warp_sum(unsigned v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 frame_diff_kernel(const uint8_t* __restrict__ cur,
                   const uint8_t* __restrict__ prev, float* __restrict__ out,
-                  int C, int H, int W, int RY, int RX, int vec) {
-  const int rx = blockIdx.x % RX;
-  const int ry = (blockIdx.x / RX) % RY;
-  const int b = blockIdx.x / (RX * RY);
+                  int nreg, int C, int H, int W, int RY, int RX, int wpr) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (kWarps / wpr) + warp / wpr;  // (b, ry, rx)
+  const int part = warp % wpr;
   const int rh = H / RY, rw = W / RX;
-  const size_t frame = (size_t)b * C * H * W;
-  const int y0 = ry * rh, x0 = rx * rw;
   unsigned acc = 0;
-  if (vec) {
-    const int vw = rw / 16;  // 16-byte words per region row
-    const int n = C * rh * vw;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int xv = i % vw, t = i / vw, y = t % rh, c = t / rh;
-      const size_t off = frame + ((size_t)c * H + y0 + y) * W + x0 + xv * 16;
-      const uint4 a = __ldg(reinterpret_cast<const uint4*>(cur + off));
-      const uint4 p = __ldg(reinterpret_cast<const uint4*>(prev + off));
-      acc += __vsadu4(a.x, p.x) + __vsadu4(a.y, p.y) + __vsadu4(a.z, p.z) +
-             __vsadu4(a.w, p.w);
-    }
-  } else {
-    const int n = C * rh * rw;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int x = i % rw, t = i / rw, y = t % rh, c = t / rh;
-      const size_t off = frame + ((size_t)c * H + y0 + y) * W + x0 + x;
-      acc += (unsigned)abs((int)cur[off] - (int)prev[off]);
-    }
+  if (r < nreg) {  // uniform over the warp
+    const int rx = r % RX, ry = (r / RX) % RY, b = r / (RX * RY);
+    const size_t frame = (size_t)b * C * H * W;
+    const size_t base = frame + (size_t)ry * rh * W + (size_t)rx * rw;
+    const int first = part * 32 + lane, stride = 32 * wpr;
+    const diffk::Region reg{cur + base, prev + base, C, rh,
+                            kVec ? rw / 16 : rw, (size_t)H * W, (size_t)W};
+    if constexpr (kVec)
+      acc = diffk::lane_sum<true, uint4, unsigned, kBatch>(reg, first, stride);
+    else
+      acc = diffk::lane_sum<true, uint8_t, unsigned, kBatch>(reg, first,
+                                                             stride);
   }
-  __shared__ unsigned partial[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  acc = warp_sum(acc);
-  if (lane == 0) partial[warp] = acc;
+  acc = diffk::warp_sum(acc);
+  if (wpr == 1) {
+    if (r < nreg && lane == 0) out[r] = diffk::region_mean(acc, C, rh, rw);
+    return;
+  }
+  __shared__ unsigned parts[kWarps];
+  if (lane == 0) parts[warp] = acc;
   __syncthreads();
-  if (warp == 0) {
-    unsigned v = lane < kThreads / 32 ? partial[lane] : 0u;
-    v = warp_sum(v);
-    if (lane == 0)
-      out[blockIdx.x] = (float)((double)v / (255.0 * (double)C * rh * rw));
+  if (r < nreg && part == 0 && lane == 0) {
+    unsigned tot = 0;
+    for (int k = 0; k < wpr; ++k) tot += parts[warp + k];
+    out[r] = diffk::region_mean(tot, C, rh, rw);
   }
 }
 
@@ -77,15 +80,28 @@ frame_diff_kernel(const uint8_t* __restrict__ cur,
 extern "C" int frame_diff_u8(const void* cur, const void* prev, void* out,
                              int B, int C, int H, int W, int RY, int RX,
                              void* stream) {
-  if (B <= 0 || RY <= 0 || RX <= 0 || H % RY || W % RX)
+  if (B <= 0 || C <= 0 || RY <= 0 || RX <= 0 || H % RY || W % RX)
     return (int)cudaErrorInvalidValue;
   const int rh = H / RY, rw = W / RX;
   if ((double)C * rh * rw * 255.0 > 4294967295.0)
     return (int)cudaErrorInvalidValue;  // the 32-bit sum would overflow
-  const int vec = (rw % 16 == 0) && (W % 16 == 0) &&
-                  ((uintptr_t)cur % 16 == 0) && ((uintptr_t)prev % 16 == 0);
-  frame_diff_kernel<<<B * RY * RX, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)cur, (const uint8_t*)prev, (float*)out, C, H, W, RY, RX,
-      vec);
+  const bool vec = (rw % 16 == 0) && (W % 16 == 0) &&
+                   ((uintptr_t)cur % 16 == 0) && ((uintptr_t)prev % 16 == 0);
+  // warps a region: the fewest (1, 2, 4) that keep a lane to one batch
+  const long long items = (long long)C * rh * (vec ? rw / 16 : rw);
+  int wpr = 1;
+  while (wpr < kWarps && items > 32LL * wpr * kBatch) wpr *= 2;
+  const long long nreg = (long long)B * RY * RX;
+  const long long blocks = (nreg + kWarps / wpr - 1) / (kWarps / wpr);
+  if (nreg > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec)
+    frame_diff_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(
+        (const uint8_t*)cur, (const uint8_t*)prev, (float*)out, (int)nreg, C,
+        H, W, RY, RX, wpr);
+  else
+    frame_diff_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(
+        (const uint8_t*)cur, (const uint8_t*)prev, (float*)out, (int)nreg, C,
+        H, W, RY, RX, wpr);
   return (int)cudaGetLastError();
 }

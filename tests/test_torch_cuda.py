@@ -18,7 +18,8 @@ from repro_torch.kernels.frame_diff.ref import frame_diff_ref  # noqa: E402
 from repro_torch.kernels.fused_preprocess.kernel import fused_preprocess_cuda  # noqa: E402
 from repro_torch.kernels.fused_preprocess.ref import fused_preprocess_ref  # noqa: E402
 from repro_torch.kernels.fused_prefix.kernel import (fused_prefix_cuda,  # noqa: E402
-                                                     out_frame_shape)
+                                                     out_frame_shape,
+                                                     prefix_kernel)
 from repro_torch.kernels.fused_prefix.ref import fused_prefix_ref  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
@@ -46,11 +47,14 @@ def _frames(gen, shape):
 
 @pytest.mark.parametrize("shape,regions", [
     ((16, 3, 128, 256), (4, 8)), ((2, 3, 128, 256), (1, 1)),
-    ((3, 3, 30, 50), (3, 5))])
+    ((3, 3, 30, 50), (3, 5)), ((1, 3, 128, 256), (4, 8)),
+    ((64, 3, 128, 256), (4, 8)), ((16, 3, 128, 256), (1, 1))])
 def test_frame_diff_kernel(dev, shape, regions):
     g = torch.Generator().manual_seed(0)
     a, b = _frames(g, shape), _frames(g, shape)
+    reset_launch_counts()
     got = frame_diff_cuda(a.to(dev), b.to(dev), regions=regions).cpu()
+    assert launch_counts()["frame_diff_u8"] == 1
     torch.testing.assert_close(got, frame_diff_ref(a, b, regions=regions),
                                atol=1e-6, rtol=1e-6)
 
@@ -104,16 +108,35 @@ PREFIX_CASES = {
 }
 
 
+#: frames whose rows do not divide by the cluster's 8 blocks, one frame,
+#: and more clusters than the card runs at once: (shape, batch, spec)
+RAGGED_CASES = {
+    "rows_127": ((3, 127, 256), 4, (("diff", (1, 8)),
+                                    ("preprocess", (63, 0, 64, 256), 2, False),
+                                    ("color", RED, None))),
+    "frame_30x50": ((3, 30, 50), 4, (("diff", (3, 5)),
+                                     ("color", BLUE, (5, 9, 20, 30)),
+                                     ("preprocess", (0, 0, 30, 50), 2, True))),
+    "frame_30x50_chain": ((3, 30, 50), 4, (
+        ("crop", (1, 2, 27, 45)), ("preprocess", (0, 0, 27, 45), 3, False),
+        ("preprocess", (0, 0, 9, 15), 3, False))),
+    "path_b1": ((3, 128, 256), 1, PREFIX_CASES["path"]),
+    "path_b40": ((3, 128, 256), 40, PREFIX_CASES["path"]),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
-@pytest.mark.parametrize("case", sorted(PREFIX_CASES))
+@pytest.mark.parametrize("case", sorted(PREFIX_CASES) + sorted(RAGGED_CASES))
 def test_fused_prefix_kernel(dev, case, dtype):
-    spec = PREFIX_CASES[case]
-    b = 16 if case == "path" else 4
+    if case in RAGGED_CASES:
+        shape, b, spec = RAGGED_CASES[case]
+    else:
+        shape, b, spec = (3, 128, 256), 16 if case == "path" else 4, \
+            PREFIX_CASES[case]
     g = torch.Generator().manual_seed(3)
-    f = _frames(g, (b, 3, 128, 256)).to(dtype)
-    p = _frames(g, (b, 3, 128, 256)).to(dtype)
-    gy, gx, _, proj = signature_layout(out_frame_shape(spec,
-                                                       (3, 128, 256)))
+    f = _frames(g, (b,) + shape).to(dtype)
+    p = _frames(g, (b,) + shape).to(dtype)
+    gy, gx, _, proj = signature_layout(out_frame_shape(spec, shape))
     spec = spec + (("signature", (gy, gx)),)
     proj = torch.from_numpy(proj)
     has_diff = spec[0][0] == "diff"
@@ -132,6 +155,29 @@ def test_fused_prefix_kernel(dev, case, dtype):
             assert x.dtype == y.dtype and x.shape == y.shape, name
             torch.testing.assert_close(x.float().cpu(), y.float().cpu(),
                                        atol=1e-5, rtol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("case", ["path", "grey"])
+def test_fused_prefix_equals_the_unfused_kernels(dev, case):
+    """fused_prefix's d and x are the unfused kernels' bit for bit (Skip's
+    keep decisions and the extract's frames in a fused plan and its
+    unfused twin rest on it); each call one launch of its entry point."""
+    spec = PREFIX_CASES["path"] if case == "path" else \
+        (("diff", (4, 8)), ("preprocess", (64, 0, 64, 256), 2, True),
+         ("color", BLUE, None))
+    g = torch.Generator().manual_seed(4)
+    f, p = (_frames(g, (16, 3, 128, 256)).to(dev) for _ in range(2))
+    crop, factor, grey = spec[1][1:]
+    reset_launch_counts()
+    d, _, x, _ = prefix_kernel(f, p, spec=spec)
+    want_d = frame_diff_cuda(f, p, regions=spec[0][1])
+    want_x = fused_preprocess_cuda(f, crop=crop, factor=factor, grey=grey)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fused_prefix_launch"] == counts["frame_diff_u8"] == \
+        counts["fused_preprocess_u8"] == 1
+    assert torch.equal(d, want_d)
+    assert torch.equal(x, want_x.expand(-1, 3, -1, -1) if grey else want_x)
 
 
 @pytest.mark.parametrize("b,s,h,hk,d,lens,kw", [

@@ -5,9 +5,11 @@ JAX fused prefix runs its Pallas kernel in interpret mode and its plain
 reference.  Float results agree within 1e-5 (the reference's own kernel
 sweep tolerance), masks and counts exactly.  Inside the port, the fused
 op equals the unfused chain bit for bit on the CPU (its own contract),
-and the CUDA kernel's host-side stage descriptor is rehearsed here by
-replaying it with the plain stage functions.
+and the CUDA kernel's host-side plan (the stage descriptor, and its
+layout over a thread-block cluster's banded shared memory) is rehearsed
+here by replaying it with the plain stage functions.
 """
+import contextlib
 import copy
 
 import numpy as np
@@ -401,24 +403,191 @@ def _replay(stages, frames, prevs):
         feats
 
 
-@pytest.mark.parametrize("spec", SPECS + [
-    (("crop", (16, 32, 96, 192)), ("preprocess", (0, 0, 96, 192), 2, False),
-     ("color", (190., 40., 40.), (8, 8, 32, 64)),
-     ("preprocess", (0, 0, 48, 96), 2, True), ("crop", (4, 8, 16, 32))),
-    (("diff", (4, 8)), ("color", (190., 40., 40.), (10, 20, 30, 40))),
-    (("preprocess", (0, 0, 128, 256), 2, False),
-     ("preprocess", (0, 0, 64, 128), 2, False),
-     ("preprocess", (0, 0, 32, 64), 2, False))])
-def test_kernel_descriptor_replays_the_plain_version(spec):
-    f, p = _inputs(9)
-    spec, _ = _with_sig(spec)
-    stages, scratch = pk.compile_spec(spec, (3, 128, 256))
-    assert len(stages) <= pk.MAX_STAGES
-    assert scratch == 0 or any(s.get("dst") in (pk.SCRATCH0, pk.SCRATCH1)
-                               for s in stages)
-    ft, pt = torch.from_numpy(f), torch.from_numpy(p)
-    d, fracs, x, feats = _replay(stages, ft, pt)
-    want = fused_prefix_ref(ft, pt, None, spec=spec[:-1])
+class _Cluster:
+    """A cluster's shared memory as ``cluster_plan`` lays it out: for each
+    held buffer, one flat array a block (B frames at once), a mask of the
+    elements written, and the layout (h, w, band) they were written in.
+    Every read checks that it falls inside the buffer the plan gives it."""
+
+    def __init__(self, plan, b, in_dtype):
+        self.plan, self.k = plan, plan["blocks"]
+        self.data, self.written, self.layout = {}, {}, {}
+        for buf, nbytes in plan["bytes"].items():
+            dt = in_dtype if buf in (pk.INPUT, pk.PREV) else torch.float32
+            n = nbytes // torch.empty((), dtype=dt).element_size()
+            self.data[buf] = torch.zeros((b, self.k, n), dtype=dt)
+            self.written[buf] = torch.zeros((self.k, n), dtype=torch.bool)
+
+    def _index(self, c, h, w, band, y0=0, x0=0, hh=None, ww=None):
+        """Block and flat index of every element (c, y0 + y, x0 + x) of a
+        (c, h, w) buffer in bands of ``band`` rows."""
+        hh, ww = hh or h, ww or w
+        cc, yy, xx = torch.meshgrid(torch.arange(c), y0 + torch.arange(hh),
+                                    x0 + torch.arange(ww), indexing="ij")
+        q = yy // band
+        return q, (cc * band + yy - q * band) * w + xx
+
+    def write(self, buf, frames, band):
+        c, h, w = frames.shape[1:]
+        q, i = self._index(c, h, w, band)
+        assert band * self.k >= h and int(q.max()) < self.k
+        assert int(i.max()) < self.data[buf].shape[2], "band beyond buffer"
+        self.data[buf][:, q.flatten(), i.flatten()] = \
+            frames.reshape(frames.shape[0], -1).to(self.data[buf].dtype)
+        self.written[buf][q.flatten(), i.flatten()] = True
+        self.layout[buf] = (h, w, band)
+
+    def read(self, buf, h, w, band, y0, x0, hh, ww, c=3):
+        assert buf in self.data, f"buffer {buf} not held"
+        assert self.layout[buf] == (h, w, band), "read in another layout"
+        q, i = self._index(c, h, w, band, y0, x0, hh, ww)
+        assert int(q.max()) < self.k and int(i.max()) < \
+            self.data[buf].shape[2], "read outside the buffer"
+        assert bool(self.written[buf][q, i].all()), "read before written"
+        return self.data[buf][:, q, i]
+
+    def window(self, s):
+        return self.read(s["src"], s["src_h"], s["src_w"], s["src_band"],
+                         s["y0"], s["x0"], s["h"], s["w"])
+
+
+def _window(s):
+    return tuple(s[f] for f in ("src", "src_h", "src_w", "y0", "x0", "h",
+                                "w"))
+
+
+def _disjoint(plan):
+    spans = [(plan["off"][buf], n) for buf, n in plan["bytes"].items()]
+    spans += [(plan[name], n) for name, n in plan["area_bytes"].items()]
+    spans.sort()
+    assert all(a + n <= b for (a, n), (b, _) in zip(spans, spans[1:]))
+    assert spans[-1][0] + spans[-1][1] <= plan["smem"] <= pk.SMEM_BUDGET
+    assert all(plan["off"][buf] % pk.ALIGN == 0 for buf in plan["bytes"])
+
+
+def _replay_cluster(plan, frames, prevs):
+    """Walk the cluster plan as the CUDA kernel does: each block loads its
+    band of the frames, each stage reads through the bands (checking
+    ownership, layout and the cluster.sync() flags), each block takes the
+    items its band owns, and each stage is computed with the plain stage
+    functions.  Returns ``(d, fracs, x, feats)``."""
+    b, c, h, w = frames.shape
+    k = plan["blocks"]
+    cl = _Cluster(plan, b, frames.dtype)
+    band = pk.band_rows(h, k)
+    cl.write(pk.INPUT, frames, band)
+    if pk.PREV in plan["bytes"]:
+        cl.write(pk.PREV, prevs, band)
+    dirty, read = {pk.INPUT, pk.PREV}, set()
+    d, fracs, feats, x = None, {}, None, None
+    windows = {}        # colour idx -> its window, while unwritten
+
+    def covers(ranges, n):      # the blocks' items partition [0, n)
+        lo = 0
+        for a, z in ranges:
+            assert a == lo or a == z
+            lo = max(lo, z)
+        assert lo == n
+
+    for s in plan["stages"]:
+        reads = {pk.INPUT, pk.PREV} if s["kind"] == pk.DIFF else {s["src"]}
+        writes = {s["dst"]} if s["kind"] == pk.PREPROCESS else set()
+        if s["sync"]:
+            dirty, read = set(), set()
+        assert not reads & dirty, "a band read before a cluster.sync()"
+        assert not writes & (dirty | read), "a band rewritten before a sync"
+        dirty |= writes
+        read |= reads
+        if s["kind"] == pk.DIFF:
+            ry, rx = s["a"], s["b"]
+            rh, rw = h // ry, w // rx
+            cur = cl.window(dict(s, src=pk.INPUT)).to(torch.int64)
+            prv = cl.window(dict(s, src=pk.PREV)).to(torch.int64)
+            ad = (cur - prv).abs().reshape(b, c, ry, rh, rx, rw)
+            whole = ad.sum(dim=(1, 3, 5))
+            parts = torch.zeros_like(whole)
+            for q in range(k):      # each block's band rows, region rows met
+                r0, r1 = q * s["src_band"], min(h, (q + 1) * s["src_band"])
+                if r0 >= r1:
+                    continue
+                for yy in range(r0 // rh, (r1 - 1) // rh + 1):
+                    ya, yb = max(r0, yy * rh), min(r1, (yy + 1) * rh)
+                    parts[:, yy] += ad[:, :, yy, ya - yy * rh:yb - yy * rh] \
+                        .sum(dim=(1, 2, 4))
+            assert torch.equal(parts, whole)
+            d = frame_diff_ref(cur.to(frames.dtype), prv.to(frames.dtype),
+                               regions=(ry, rx))
+        elif s["kind"] == pk.COLOR:
+            windows[s["idx"]] = _window(s)
+            covers([pk.owned_items(q, s["src_band"], s["y0"], 1, s["h"])
+                    for q in range(k)], s["h"])
+            fracs[s["idx"]] = color_frac(cl.window(s), s["rgb"])
+        elif s["kind"] == pk.PREPROCESS:
+            out = fused_preprocess_ref(
+                cl.window(s), crop=(0, 0, s["h"], s["w"]),
+                factor=s["factor"], grey=bool(s["grey"]))
+            if s["grey"]:
+                out = out.repeat(1, 3, 1, 1)
+            assert out.shape[2:] == (s["dst_h"], s["dst_w"])
+            covers([(min(s["dst_h"], q * s["dst_band"]),
+                     min(s["dst_h"], (q + 1) * s["dst_band"]))
+                    for q in range(k)], s["dst_h"])
+            elem = frames.element_size() if s["src"] == pk.INPUT else 4
+            need = c * s["dst_band"] * s["factor"] ** 2 * s["dst_w"] * elem
+            if "gather" in plan["area_bytes"]:      # a block's source rows
+                assert need <= plan["area_bytes"]["gather"]
+            else:       # in the predecessor's band, dead after the diff
+                assert plan["stages"][0]["kind"] == pk.DIFF
+                assert plan["gather"] == plan["off"][pk.PREV]
+                assert need <= plan["bytes"][pk.PREV]
+            cl.write(s["dst"], out, s["dst_band"])
+            windows = {i: w for i, w in windows.items() if w[0] != s["dst"]}
+        elif s["kind"] == pk.SIGNATURE:
+            gy, gx = s["a"], s["b"]
+            ph = s["h"] // gy
+            owned = [pk.owned_items(q, s["src_band"], s["y0"], ph, gy)
+                     for q in range(k)]
+            covers(owned, gy)
+            if s["idx"] < 0:        # its own pass for the window's max
+                assert plan["area_bytes"]["sig_slots"] == 4 * k
+            else:       # a colour's on the same, unwritten window
+                assert windows[s["idx"]] == _window(s)
+                assert plan["area_bytes"]["color_slots"] == 16 * k * len(
+                    windows)
+            feats = signature_feats(cl.window(s), gy, gx)
+        else:
+            covers([pk.owned_items(q, s["src_band"], s["y0"], 1, s["h"])
+                    for q in range(k)], s["h"])
+            x = cl.window(s).clone()
+    if plan["x_band"]:
+        assert x is None
+        x = cl.read(pk.XOUT, plan["x_h"], plan["x_w"], plan["x_band"], 0, 0,
+                    plan["x_h"], plan["x_w"])
+    _disjoint(plan)
+    return d, tuple(fracs[i] for i in range(len(fracs))), x, feats
+
+
+_PATH_SPEC = (("diff", (4, 8)), ("preprocess", (64, 0, 64, 256), 2, False),
+              ("color", (190., 40., 40.), None))
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """The bitwise replays run PyTorch's CPU kernels on one thread: with
+    several, a first call of the colour chain in a process now and then
+    counts a pixel or two more (about one process in ten, seen with
+    PyTorch 2.13 on the CPU; never on one thread), so two evaluations of
+    the same plain function on the same frames can differ."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def _check_replay(got, want, spec):
+    d, fracs, x, feats = got
     assert (d is None) == (want[0] is None)
     if d is not None:
         assert torch.equal(d, want[0])
@@ -426,8 +595,82 @@ def test_kernel_descriptor_replays_the_plain_version(spec):
     assert all(torch.equal(a, b) for a, b in zip(fracs, want[1]))
     assert x.dtype == want[2].dtype and torch.equal(x, want[2])
     assert torch.equal(feats, signature_feats(want[2], *spec[-1][1]))
-    struct = pk._spec_struct(stages)
+
+
+@pytest.mark.parametrize("spec", SPECS + [
+    (("crop", (16, 32, 96, 192)), ("preprocess", (0, 0, 96, 192), 2, False),
+     ("color", (190., 40., 40.), (8, 8, 32, 64)),
+     ("preprocess", (0, 0, 48, 96), 2, True), ("crop", (4, 8, 16, 32))),
+    (("diff", (4, 8)), ("color", (190., 40., 40.), (10, 20, 30, 40))),
+    (("preprocess", (0, 0, 128, 256), 2, False),
+     ("preprocess", (0, 0, 64, 128), 2, False),
+     ("preprocess", (0, 0, 32, 64), 2, False)),
+    _PATH_SPEC])
+def test_kernel_descriptor_replays_the_plain_version(spec):
+    """The stage descriptor walked over whole buffers, then the cluster
+    plan walked over banded buffers (uint8 and float32 frames): both equal
+    the plain version."""
+    f, p = _inputs(9)
+    spec, _ = _with_sig(spec)
+    stages, scratch = pk.compile_spec(spec, (3, 128, 256))
+    assert len(stages) <= pk.MAX_STAGES
+    assert scratch == 0 or any(s.get("dst") in (pk.SCRATCH0, pk.SCRATCH1)
+                               for s in stages)
+    ft, pt = torch.from_numpy(f), torch.from_numpy(p)
+    ff, pf = ft.to(torch.float32), pt.to(torch.float32)
+    plan = pk.cluster_plan(stages, (3, 128, 256), 1)
+    plan32 = pk.cluster_plan(stages, (3, 128, 256), 4)
+    with _one_thread():
+        want = fused_prefix_ref(ft, pt, None, spec=spec[:-1])
+        _check_replay(_replay(stages, ft, pt), want, spec)
+        _check_replay(_replay_cluster(plan, ft, pt), want, spec)
+        _check_replay(_replay_cluster(plan32, ff, pf),
+                      fused_prefix_ref(ff, pf, None, spec=spec[:-1]), spec)
+    struct = pk._spec_struct(plan)
     assert struct.n == len(stages) and struct.st[0].kind == stages[0]["kind"]
+    assert struct.blocks == pk.BLOCKS and struct.smem == plan["smem"]
+    assert list(struct.off) == plan["off"] and struct.st[0].sync == 1
+
+
+@pytest.mark.parametrize("shape,spec", [
+    ((3, 127, 256), (("diff", (1, 8)), ("preprocess", (63, 0, 64, 256), 2,
+                                         False), ("color", (190., 40., 40.),
+                                                  None))),
+    ((3, 30, 50), (("diff", (3, 5)), ("color", (40., 40., 190.),
+                                      (5, 9, 20, 30)),
+                   ("preprocess", (0, 0, 30, 50), 2, True))),
+    ((3, 30, 50), (("crop", (1, 2, 27, 45)),
+                   ("preprocess", (0, 0, 27, 45), 3, False),
+                   ("preprocess", (0, 0, 9, 15), 3, False))),
+    ((3, 5, 40), (("diff", (1, 1)), ("crop", (1, 0, 3, 40))))])
+@pytest.mark.parametrize("blocks", [8, 4])
+def test_cluster_plan_replays_ragged_frames(shape, spec, blocks):
+    """Frames whose rows do not divide by the cluster's blocks (some bands
+    short or empty): the banded replay equals the plain version."""
+    r = np.random.RandomState(17)
+    f, p = (torch.from_numpy(r.randint(0, 256, (2,) + shape).astype(
+        np.uint8)) for _ in range(2))
+    spec, _ = _with_sig(spec, shape)
+    stages, _ = pk.compile_spec(spec, shape)
+    plan = pk.cluster_plan(stages, shape, 1, blocks=blocks)
+    with _one_thread():
+        _check_replay(_replay_cluster(plan, f, p),
+                      fused_prefix_ref(f, p, None, spec=spec[:-1]), spec)
+
+
+def test_cluster_plan_refuses_a_frame_beyond_the_budget():
+    """3x256x512 frames with a diff fit a cluster's shared memory as uint8
+    (two 48 KB bands a block) but not as float32."""
+    spec = (("diff", (4, 8)), ("preprocess", (0, 0, 256, 512), 2, False))
+    stages, _ = pk.compile_spec(spec, (3, 256, 512))
+    assert pk.cluster_plan(stages, (3, 256, 512), 1)["smem"] \
+        <= pk.SMEM_BUDGET
+    with pytest.raises(ValueError, match="budget"):
+        pk.cluster_plan(stages, (3, 256, 512), 4)
+    with pytest.raises(ValueError, match="budget"):
+        pk.cluster_plan(pk.compile_spec((("crop", (0, 0, 8, 8)),),
+                                        (3, 1024, 1024))[0],
+                        (3, 1024, 1024), 1)
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
