@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero and prints no result line):
   1. set-up: the card's name and power limit, TF32 off for matmuls and
      convolutions, the hand-written kernels built from ``src/repro_torch/
-     kernels/csrc`` (one ``nvcc`` per source, in parallel), and the
-     tensor-core instructions in the built libraries counted with
-     ``cuobjdump --dump-sass`` (HMMA in flash_attention's,
+     kernels/csrc`` (one ``nvcc`` per source, in parallel), ptxas' report
+     of every fused_preprocess function (no stack frame, no spills, or it
+     fails), and the tensor-core instructions in the built libraries
+     counted with ``cuobjdump --dump-sass`` (HMMA in flash_attention's,
      decode_attention's and ssd_scan's, IMMA in int8_matmul's; none
      fails);
   2. kernel checks: each kernel against its plain PyTorch version on the
@@ -19,10 +20,14 @@ Phases (any failure exits non-zero and prints no result line):
      kernels, colour and signature in PyTorch) for fused_prefix (timed
      only here; the port never calls SDPA); the pixel kernels beside the
      launch floor (an empty kernel, ``csrc/launch_floor.cu``, on each
-     one's grid), fused_prefix's cluster occupancy, its stage cut, its
-     frames of 127 and 30 rows, B 1 and B 40, and its d and x equal bit for
-     bit to frame_diff's and fused_preprocess's; decode_attention at gemma2's,
-     chatglm3-6b's (a group of 16) and phi3-mini's (D 96) decode shapes,
+     one's grid), fused_preprocess timed at the reduced and optimized
+     plans' crops and the reduced one in grey and checked at ragged rows,
+     odd offsets, f 1-5, B 1 and 64 and unaligned frames, fused_prefix's
+     cluster occupancy, its stage cut, its frames of 127 and 30 rows, B 1
+     and B 40, and its d and x equal bit for bit to frame_diff's and
+     fused_preprocess's (path, grey and optimized specs); decode_attention
+     at gemma2's, chatglm3-6b's (a group of 16) and phi3-mini's (D 96)
+     decode shapes,
      timed at the served paths' two ticks (the long request's slot beside
      three short ones, and four short slots), and ragged ones, ssd_scan at mamba2's chunks (a 512-token prefill, a
      13-token one) and the reference sweep's grouped shapes,
@@ -300,10 +305,12 @@ TIMING_KEYS = ("ms", "plain_ms", "library_ms", "bound")
 
 
 def timing(t):
-    """A timing dict as the kernels line writes it."""
+    """A timing dict as the kernels line writes it (with its launch floor
+    where it has one)."""
     return {"ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-            "library_ms": t["library_ms"]}
+            "library_ms": t["library_ms"],
+            **{k: t[k] for k in ("launch_floor_ms",) if k in t}}
 
 
 def bound(nbytes: float, ops: float, ops_s: float = FP32_OPS_S):
@@ -321,6 +328,18 @@ def flash_line(label, t, nbytes, ops, library="SDPA"):
           f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}, 3xTF32 at "
           f"{FLASH_OPS_S / 1e12:.0f} TFLOP/s; {bound(nbytes, ops)[0]:.5f} "
           f"ms at the fp32 CUDA cores' {FP32_OPS_S / 1e12:.0f})")
+
+
+def no_stack(report, name):
+    """Phase 1: every function of ``name``'s library reports 0 bytes of
+    stack frame and of spill stores and loads (``-Xptxas -v``)."""
+    found = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                       r"stores, (\d+) bytes spill loads",
+                       str(report[name]["log"]))
+    print(f"[1] {name}: {len(found)} functions, stack frame and spill "
+          f"bytes {sorted(set(found))} (ptxas)")
+    check(found and all(f == ("0", "0", "0") for f in found),
+          f"{name}: a function has a stack frame or spills")
 
 
 def sass_mma_counts():
@@ -399,26 +418,42 @@ def kernel_checks(dev):
         # 512 regions, a warp each, four warps a block
         launch_floor_ms=floor_ms(128, 128))
 
-    # fused_preprocess: the reduced plan's crop, then odd offsets
-    for crop, f, grey in [((64, 0, 64, 256), 2, False),
-                          ((0, 0, 128, 256), 1, False),
-                          ((33, 17, 30, 98), 2, True),
-                          ((1, 3, 63, 125), 1, False),
-                          ((5, 7, 96, 60), 3, False)]:
-        x = frames((16, 3, 128, 256))
+    # fused_preprocess: the reduced plan's crop, then odd offsets, a ragged
+    # output row (w/f % 4 != 0), an odd x0, f 4 and a generic f, B 1 and
+    # 64, grey at the path crop, the optimized plan's crop, and frames
+    # whose rows or address are not 16-byte aligned
+    for b, shape, crop, f, grey in [
+            (16, (3, 128, 256), (64, 0, 64, 256), 2, False),
+            (16, (3, 128, 256), (0, 0, 128, 256), 1, False),
+            (16, (3, 128, 256), (33, 17, 30, 98), 2, True),
+            (16, (3, 128, 256), (1, 3, 63, 125), 1, False),
+            (16, (3, 128, 256), (5, 7, 96, 60), 3, False),
+            (16, (3, 128, 256), (0, 0, 128, 250), 2, False),
+            (16, (3, 128, 256), (64, 3, 64, 250), 2, False),
+            (16, (3, 128, 256), (96, 0, 32, 256), 4, False),
+            (16, (3, 128, 256), (3, 5, 90, 150), 5, False),
+            (1, (3, 128, 256), (64, 0, 64, 256), 2, False),
+            (64, (3, 128, 256), (64, 0, 64, 256), 2, False),
+            (16, (3, 128, 256), (64, 0, 64, 256), 2, True),
+            (16, (3, 128, 256), (96, 0, 32, 256), 2, False),
+            (4, (3, 30, 50), (1, 3, 26, 44), 2, False),
+            (4, (3, 40, 100), (1, 3, 36, 94), 2, True)]:
+        x = frames((b,) + shape)
         compare("fused_preprocess",
                 fused_preprocess_cuda(x, crop=crop, factor=f, grey=grey),
                 fused_preprocess_ref(x, crop=crop, factor=f, grey=grey),
-                f"crop {crop} /{f}{' grey' if grey else ''}")
+                f"B{b} {shape[1]}x{shape[2]} crop {crop} /{f}"
+                f"{' grey' if grey else ''}")
     x = frames((16, 3, 128, 256))
-    path = dict(crop=(64, 0, 64, 256), factor=2)
-    n_in, n_out = 16 * 3 * 64 * 256, 16 * 3 * 32 * 128
-    rows["fused_preprocess"] = dict(
-        ms=device_ms(lambda: fused_preprocess_cuda(x, **path)),
-        plain_ms=device_ms(lambda: fused_preprocess_ref(x, **path)),
-        library_ms=None, bound=bound(n_in + 4 * n_out, n_in + 2 * n_out),
-        # a thread an output, 256 a block
-        launch_floor_ms=floor_ms(n_out // 256, 256))
+    raw = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)
+    odd = raw[1:].view(x.shape)          # a frame pointer off by one byte
+    odd.copy_(x)
+    compare("fused_preprocess",
+            fused_preprocess_cuda(odd, crop=(64, 0, 64, 256), factor=2),
+            fused_preprocess_ref(x, crop=(64, 0, 64, 256), factor=2),
+            "B16 crop (64, 0, 64, 256) /2 frames at an odd address")
+    del raw, odd
+    rows["fused_preprocess"] = preprocess_timings(x)
 
     # flash attention in model layout: the MLLM's S (full frame 140, crop
     # 76, crop/2 28) and ragged S, G = 2 (big) and 1 (small)
@@ -462,13 +497,58 @@ def kernel_checks(dev):
     lm_kernel_checks(compare, gen, dev, rows)
     magnitude_checks(gen, dev)
     rows.update(int8_checks(dev))
-    for name in ("frame_diff", "fused_preprocess"):
-        t = rows[name]
-        print(f"  {name} at the path's shape: kernel {t['ms']:.4f} ms, plain "
+    t = rows["frame_diff"]
+    print(f"  frame_diff at the path's shape: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
+          f"({t['bound'][1]}), launch floor {t['launch_floor_ms']:.4f} "
+          f"ms (an empty kernel on its grid)")
+    return rows
+
+
+#: fused_preprocess's timed shapes on 16 3x128x256 frames: the reduced
+#: plan's crop (the kernels line's top level), the optimized plan's, and
+#: the reduced crop in grey (the grey spec fused_prefix is held to)
+PREPROCESS_TIMED = {"path": ((64, 0, 64, 256), 2, False),
+                    "optimized": ((96, 0, 32, 256), 2, False),
+                    "grey": ((64, 0, 64, 256), 2, True)}
+
+
+def preprocess_timings(x):
+    """fused_preprocess's kernel, plain version, bound and launch floor (an
+    empty kernel on the grid ``preprocess_plan`` gives) at each of
+    ``PREPROCESS_TIMED`` on frames ``x``; the path's timing with the
+    others nested by name."""
+    from repro_torch.kernels.fused_preprocess.kernel import (
+        fused_preprocess_cuda, preprocess_plan)
+    from repro_torch.kernels.fused_preprocess.ref import fused_preprocess_ref
+
+    out = {}
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    for name, (crop, f, grey) in PREPROCESS_TIMED.items():
+        kw = dict(crop=crop, factor=f, grey=grey)
+        b, c = x.shape[:2]
+        n_in = b * c * crop[2] * crop[3]
+        n_out = b * (1 if grey else c) * (crop[2] // f) * (crop[3] // f)
+        plan = preprocess_plan(tuple(x.shape), crop, f, grey, sms=sms)
+        gx, gy = plan["grid"]
+        t = dict(
+            ms=device_ms(lambda: fused_preprocess_cuda(x, **kw)),
+            plain_ms=device_ms(lambda: fused_preprocess_ref(x, **kw)),
+            library_ms=None,
+            # a sum a byte, then per channel value a division by 255, one
+            # by f*f, a subtraction and a division (grey: 5 more)
+            bound=bound(n_in + 4 * n_out,
+                        n_in + (4 * c + 5 if grey else 4) * n_out),
+            launch_floor_ms=floor_ms(gx * gy, plan["threads"]))
+        print(f"  fused_preprocess {name} B{b} crop {crop} /{f}"
+              f"{' grey' if grey else ''}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
               f"({t['bound'][1]}), launch floor {t['launch_floor_ms']:.4f} "
-              f"ms (an empty kernel on its grid)")
-    return rows
+              f"ms (an empty kernel on its grid: {gx} x {gy} blocks of "
+              f"{plan['threads']} threads, {plan['smem']} B of shared "
+              f"memory a block)")
+        out[name] = t
+    return {**out.pop("path"), **out}
 
 
 RED, BLUE = (190., 40., 40.), (40., 40., 190.)
@@ -477,6 +557,9 @@ PATH_SPEC = (("diff", (4, 8)), ("preprocess", (64, 0, 64, 256), 2, False),
              ("color", RED, None))
 GREY_SPEC = (("diff", (4, 8)), ("preprocess", (64, 0, 64, 256), 2, True),
              ("color", BLUE, None))
+#: the path's prefix at the optimized plan's crop
+OPTIMIZED_SPEC = (("diff", (4, 8)), ("preprocess", (96, 0, 32, 256), 2, False),
+                  ("color", RED, None))
 PREFIX_CASES = [   # (label, spec, batch, dtype[, frame shape])
     # the four specs of the reference's sweep (tests/test_kernels.py)
     ("sweep diff+color+pre", (("diff", (4, 8)), ("color", RED, None),
@@ -564,7 +647,8 @@ def prefix_checks(compare, frames):
                         + (f"[{i}]" if name == "fracs" else ""))
     f, p = frames((16, 3, 128, 256)), frames((16, 3, 128, 256))
     # the unfused kernels' outputs, bit for bit: phase 8's records rest on it
-    for label, pspec in (("path", PATH_SPEC), ("grey", GREY_SPEC)):
+    for label, pspec in (("path", PATH_SPEC), ("grey", GREY_SPEC),
+                         ("optimized", OPTIMIZED_SPEC)):
         d, _, x, _ = prefix_kernel(f, p, spec=pspec)
         crop, factor, grey = pspec[1][1:]
         xp = fused_preprocess_cuda(f, crop=crop, factor=factor, grey=grey)
@@ -1788,6 +1872,7 @@ def main() -> int:
             for line in str(r["log"]).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"    {name}: {line.strip()}")
+        no_stack(report, "fused_preprocess")
         sass_mma_counts()
 
         print("[2] kernels vs their plain PyTorch versions on the card")

@@ -11,16 +11,22 @@ Each run checks its tree's frame_diff, fused_preprocess and fused_prefix
 against the tree's plain versions (``chip_smoke.TOL``) and prints their
 device time (``chip_smoke.device_ms``) at ``chip_smoke.py``'s phase 2
 shapes, the main paths': frame_diff on 16 uint8 3x128x256 frame pairs in
-4x8 regions, fused_preprocess on the crop 64x256 /2 of 16 frames, and
+4x8 regions, fused_preprocess on 16 frames at each of
+``chip_smoke.PREPROCESS_TIMED`` (the reduced and optimized plans' crops
+/2, and the reduced crop in grey), and
 fused_prefix's launch on the path spec with its signature (uint8 and
 float32 frames), cut after each stage and with its preprocess alone, and
 the unfused chain.  This tree's
 runs add the launch floor (``chip_smoke.floor_ms``: an empty kernel on each
-kernel's grid).
+kernel's grid; fused_preprocess's from ``preprocess_plan``).  Every run
+hashes fused_preprocess's output at each timed shape; the script prints
+whether every run of every tree gave the same bits, and exits non-zero if
+not.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -67,11 +73,18 @@ def worker(tree: str) -> dict:
                 frame_diff_ref(f, p, regions=(4, 8)))
     out["frame_diff B16 4x8"] = (cs.device_ms(
         lambda: frame_diff_cuda(f, p, regions=(4, 8))), err)
+    digests = {}
+    for name, (crop, factor, grey) in cs.PREPROCESS_TIMED.items():
+        kw = dict(crop=crop, factor=factor, grey=grey)
+        got = fused_preprocess_cuda(f, **kw)
+        err = check("fused_preprocess", got, fused_preprocess_ref(f, **kw))
+        label = (f"fused_preprocess B16 {crop[2]}x{crop[3]}/{factor}"
+                 f"{' grey' if grey else ''}")
+        digests[label] = hashlib.sha256(got.cpu().numpy().tobytes()
+                                        ).hexdigest()
+        out[label] = (cs.device_ms(lambda: fused_preprocess_cuda(f, **kw)),
+                      err)
     path = dict(crop=(64, 0, 64, 256), factor=2)
-    err = check("fused_preprocess", fused_preprocess_cuda(f, **path),
-                fused_preprocess_ref(f, **path))
-    out["fused_preprocess B16 64x256/2"] = (cs.device_ms(
-        lambda: fused_preprocess_cuda(f, **path)), err)
     spec, _ = cs.with_signature(cs.PATH_SPEC, (3, 128, 256))
     gy, gx = spec[-1][1]
     for dtype in (torch.uint8, torch.float32):
@@ -101,12 +114,19 @@ def worker(tree: str) -> dict:
 
     out["unfused chain B16 path"] = (cs.device_ms(unfused, n=8), 0.0)
     if this:
-        for label, grid in (("frame_diff", (128, 128)),
-                            ("fused_preprocess", (16 * 3 * 32 * 128 // 256,
-                                                  256)),
-                            ("fused_prefix", (16 * 8, 512, 8))):
+        from repro_torch.kernels.fused_preprocess.kernel import \
+            preprocess_plan
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        grids = [("frame_diff", (128, 128)),
+                 ("fused_prefix", (16 * 8, 512, 8))]
+        for name, (crop, factor, grey) in cs.PREPROCESS_TIMED.items():
+            plan = preprocess_plan(tuple(f.shape), crop, factor, grey,
+                                   sms=sms)
+            grids.append((f"fused_preprocess {name}", (
+                plan["grid"][0] * plan["grid"][1], plan["threads"])))
+        for label, grid in grids:
             out[f"launch floor, {label}'s grid"] = (cs.floor_ms(*grid), 0.0)
-    return out
+    return {"times": out, "digests": digests}
 
 
 def main() -> int:
@@ -119,7 +139,7 @@ def main() -> int:
         print(json.dumps(worker(args.worker)))
         return 0
     runs = list(args.tree) + [ROOT]
-    results = {}
+    results, digests = {}, {}
     for tree in runs + runs[::-1]:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", tree],
@@ -128,7 +148,9 @@ def main() -> int:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return 1
         res = json.loads(proc.stdout.strip().splitlines()[-1])
-        results.setdefault(os.path.relpath(tree, ROOT), []).append(res)
+        label = os.path.relpath(tree, ROOT)
+        results.setdefault(label, []).append(res["times"])
+        digests.setdefault(label, []).append(res["digests"])
     shapes = list(dict.fromkeys(k for rs in results.values() for k in rs[0]))
     print("ms per call (the two turns) and max_abs_err against the plain "
           "version, per run")
@@ -138,8 +160,18 @@ def main() -> int:
             if shape in rs[0]:
                 ms = ", ".join(f"{r[shape][0]:.4f}" for r in rs)
                 print(f"  {label:30s} {ms}  (err {rs[0][shape][1]:.2e})")
+    # fused_preprocess's output at every timed shape, bit for bit (the
+    # inputs come from one seed in every run)
+    this = digests.pop(".")
+    same = True
+    for shape, digest in this[0].items():
+        eq = all(d[shape] == digest for ds in [this, *digests.values()]
+                 for d in ds)
+        same &= eq
+        print(f"{shape}: output equal in every run of every tree, bit for "
+              f"bit (sha256): {eq}")
     print(json.dumps(results))
-    return 0
+    return 0 if same else 1
 
 
 if __name__ == "__main__":

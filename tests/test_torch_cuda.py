@@ -6,6 +6,7 @@ no JAX, so it also runs on a GPU host without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -59,15 +60,90 @@ def test_frame_diff_kernel(dev, shape, regions):
                                atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("crop,factor,grey", [
-    ((64, 0, 64, 256), 2, False), ((33, 17, 30, 98), 2, True),
-    ((5, 7, 96, 60), 3, False)])
-def test_fused_preprocess_kernel(dev, crop, factor, grey):
-    x = _frames(torch.Generator().manual_seed(1), (4, 3, 128, 256))
+@pytest.mark.parametrize("b,crop,factor,grey", [
+    (4, (64, 0, 64, 256), 2, False), (4, (33, 17, 30, 98), 2, True),
+    (4, (5, 7, 96, 60), 3, False),
+    (4, (0, 0, 128, 250), 2, False),    # a ragged output row (125 values)
+    (4, (64, 3, 64, 250), 2, False),    # an odd x0
+    (16, (96, 0, 32, 256), 4, False),   # f = 4
+    (4, (3, 5, 90, 150), 5, False),     # the generic-f instantiation
+    (1, (64, 0, 64, 256), 2, False), (64, (64, 0, 64, 256), 2, False),
+    (16, (64, 0, 64, 256), 2, True),    # grey at the path crop
+    (16, (96, 0, 32, 256), 2, False)])  # the optimized plan's crop
+def test_fused_preprocess_kernel(dev, b, crop, factor, grey):
+    x = _frames(torch.Generator().manual_seed(1), (b, 3, 128, 256))
+    reset_launch_counts()
     got = fused_preprocess_cuda(x.to(dev), crop=crop, factor=factor,
                                 grey=grey).cpu()
+    assert launch_counts()["fused_preprocess_u8"] == 1
     want = fused_preprocess_ref(x, crop=crop, factor=factor, grey=grey)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((4, 3, 30, 50), 0),        # rows not 4-byte aligned: byte copies
+    ((4, 3, 40, 100), 0),       # 4-byte rows
+    ((4, 3, 64, 128), 4),       # a frame pointer 4 bytes past 16
+    ((4, 3, 64, 128), 1)])      # one byte past
+def test_fused_preprocess_kernel_unaligned_frames(dev, shape, offset):
+    x = _frames(torch.Generator().manual_seed(5), shape)
+    raw = torch.empty(x.numel() + offset, dtype=torch.uint8, device=dev)
+    xd = raw[offset:].view(shape)
+    xd.copy_(x)
+    crop = (1, 3, shape[2] - 4, shape[3] - 6)
+    got = fused_preprocess_cuda(xd, crop=crop, factor=2).cpu()
+    torch.testing.assert_close(got, fused_preprocess_ref(x, crop=crop,
+                                                         factor=2),
+                               atol=1e-5, rtol=1e-5)
+
+
+def _preprocess_f32(frames, f, grey, mean, std):
+    """preprocess.cuh's arithmetic in numpy float32, each operation rounded
+    (IEEE): area_mean, normalize and luma of every f x f window."""
+    b, c, h, w = frames.shape
+    s = frames.astype(np.uint32).reshape(b, c, h // f, f, w // f, f).sum(
+        axis=(3, 5))
+    f32 = np.float32
+    with np.errstate(over="ignore", invalid="ignore"):
+        n = [((s[:, i].astype(f32) / f32(255.0)) / f32(f * f) - f32(mean[i]))
+             / f32(std[i]) for i in range(c)]
+        if grey:
+            return ((n[0] * f32(0.299) + n[1] * f32(0.587))
+                    + n[2] * f32(0.114))[:, None]
+    return np.stack(n, axis=1)
+
+
+@pytest.mark.parametrize("grey", [False, True])
+@pytest.mark.parametrize("factor", [1, 2, 3, 4, 5])
+def test_fused_preprocess_kernel_every_sum_bitwise(dev, factor, grey):
+    """Every window sum a factor can give, in each channel, through mean
+    and std sets that keep every division on the kernel's fast path (the
+    defaults, ImageNet's) and one that does not (stds of 1e-36 and 3e30, a
+    subnormal mean: those threads take preprocess.cuh's own division):
+    the kernel equals preprocess.cuh's arithmetic in IEEE float32 bit for
+    bit, as the earlier kernel and fused_prefix's x do."""
+    f, per_row = factor, 128
+    sums = np.arange(255 * f * f + 1)
+    rows = -(-sums.size // per_row)
+    sums = np.resize(sums, rows * per_row)
+    # a window of sum s: s // 255 bytes of 255, one of s % 255, then zeros
+    k = np.arange(f * f)
+    win = np.where(k[None] < sums[:, None] // 255, 255,
+                   np.where(k[None] == sums[:, None] // 255,
+                            sums[:, None] % 255, 0))
+    plane = win.reshape(rows, per_row, f, f).transpose(0, 2, 1, 3).reshape(
+        rows * f, per_row * f)
+    frames = np.stack([np.roll(plane, 37 * i, axis=1) for i in range(3)])
+    frames = frames[None].astype(np.uint8)
+    x = torch.from_numpy(frames).to(dev)
+    crop = (0, 0) + frames.shape[2:]
+    for mean, std in [((0.5, 0.5, 0.5), (0.25, 0.25, 0.25)),
+                      ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
+                      ((0.0, 3e-39, 1e30), (1e-36, 3e30, -0.5))]:
+        got = fused_preprocess_cuda(x, crop=crop, factor=f, mean=mean,
+                                    std=std, grey=grey).cpu().numpy()
+        np.testing.assert_array_equal(
+            got, _preprocess_f32(frames, f, grey, mean, std))
 
 
 @pytest.mark.parametrize("s", [140, 76, 28, 1, 257])
@@ -157,14 +233,17 @@ def test_fused_prefix_kernel(dev, case, dtype):
                                        atol=1e-5, rtol=1e-5, msg=name)
 
 
-@pytest.mark.parametrize("case", ["path", "grey"])
+@pytest.mark.parametrize("case", ["path", "grey", "optimized"])
 def test_fused_prefix_equals_the_unfused_kernels(dev, case):
     """fused_prefix's d and x are the unfused kernels' bit for bit (Skip's
     keep decisions and the extract's frames in a fused plan and its
     unfused twin rest on it); each call one launch of its entry point."""
-    spec = PREFIX_CASES["path"] if case == "path" else \
-        (("diff", (4, 8)), ("preprocess", (64, 0, 64, 256), 2, True),
-         ("color", BLUE, None))
+    spec = {"path": PREFIX_CASES["path"],
+            "grey": (("diff", (4, 8)), ("preprocess", (64, 0, 64, 256), 2,
+                                        True), ("color", BLUE, None)),
+            "optimized": (("diff", (4, 8)), ("preprocess", (96, 0, 32, 256),
+                                             2, False),
+                          ("color", RED, None))}[case]
     g = torch.Generator().manual_seed(4)
     f, p = (_frames(g, (16, 3, 128, 256)).to(dev) for _ in range(2))
     crop, factor, grey = spec[1][1:]

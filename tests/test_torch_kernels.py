@@ -164,6 +164,7 @@ def test_flash_attention_model_layout_vs_pallas():
     ((32, 128, 64, 128), 2, True),
     ((96, 0, 32, 256), 4, False),
     ((64, 0, 64, 256), 2, False),       # the reduced Q8 plan's crop
+    ((96, 0, 32, 256), 2, False),       # the optimized Q8 plan's crop
 ])
 def test_fused_preprocess_sweep(crop, factor, grey):
     f = frames(2)
