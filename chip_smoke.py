@@ -93,6 +93,35 @@ Phases (any failure exits non-zero and prints no result line):
      serves), with the top-1 agreement of the logits against the fp32 run
      printed (not gated: random full-width weights over 65k tokens have
      near ties).
+ 13. the catalog (run after phase 8, on its models): every one of the 13
+     queries' naive plans over 512 frames of its dataset (TollBooth seed
+     11 for Q1-Q9, Volleyball seed 3 for Q10-Q13), micro-batch 16, fps,
+     MLLM frames, outputs and evaluator score printed (the path
+     ``catalog``); then each over 32 frames on the card and on the CPU:
+     the same records, window results, counts and scores;
+ 14. multi-query shared execution: ``MultiQueryRuntime`` over Q1-Q9's
+     naive plans on TollBooth (``mq_tollbooth``, one merged extract),
+     Q10-Q13's on Volleyball (``mq_volleyball``), and Q8's reduced prefix
+     (Skip, fused preprocess, red filter) under Q8's, Q6's and Q2's
+     extracts and tails (``mq_reduced``); each query's result equal to its
+     own ``StreamRuntime`` run bit for bit (records, windows, counts),
+     fewer shared MLLM frames than the independent sum, query-frames/s
+     shared against independent printed;
+ 15. the semantic gate (``SemanticGate(GateConfig(threshold=0.06))`` on
+     the card): Q8's fused plan without its filter, gated
+     (``q8_fused_gated``), against its gated unfused twin: the same
+     records and gate counters, and no signature of the gate's own on the
+     fused run (the fused_prefix kernel's is consumed); Q8's naive plan
+     gated (``q8_naive_gated``): cache hits, fewer forward frames (misses
+     plus revalidations) than MLLM frames, hit rate and forwards saved
+     printed; a gate at threshold 0 equal to no gate;
+ 16. observability and faults: phase 14's Q1-Q9 set observed
+     (``mq_observed``) equal to the unobserved run bit for bit, span
+     categories and the SLO table printed, the Chrome trace written to
+     ``build/mq_trace.json``, observed and unobserved walls printed; Q8's
+     reduced plan without its filter under a ``FaultInjector`` whose
+     corrupt deliveries ``guard_stream`` absorbs (``q8_reduced_faulted``):
+     the unfaulted run's records, and the injector fired.
 
 Each phase that drives a plan zeroes the kernels' launch counts first and
 reads them after; a kernel of the plan that was never launched fails the
@@ -103,6 +132,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -171,8 +201,16 @@ SASS_MMA = {"flash_attention": "HMMA", "decode_attention": "HMMA",
             "ssd_scan": "HMMA", "int8_matmul": "IMMA"}
 #: the paths driven end to end, by the name used in ``launches_by_path``
 PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
-         "gemma2_serve", "mamba2_serve", "chatglm3_serve", "chatglm3_int8",
-         "chatglm3_dequant_serve")
+         "catalog", "mq_tollbooth", "mq_volleyball", "mq_reduced",
+         "q8_fused_gated", "q8_naive_gated", "mq_observed",
+         "q8_reduced_faulted", "gemma2_serve", "mamba2_serve",
+         "chatglm3_serve", "chatglm3_int8", "chatglm3_dequant_serve")
+#: the volleyball stream's seed (Q10-Q13); TollBooth's is STREAM_SEED
+VOLLEYBALL_SEED = 3
+#: the semantic gate's threshold on the card (phase 15)
+GATE_THRESHOLD = 0.06
+#: the multi-query SLO target of the observed run (phase 16), ms
+SLO_TARGET_MS = 100.0
 #: the serving phases: 8 requests of the launcher's generator plus a long
 #: one; s_max and slots as a deployment of gemma2-2b on one card would
 SERVE_SLOTS, SERVE_S_MAX, SERVE_NEW = 4, 8192, 12
@@ -1374,6 +1412,308 @@ def fused_vs_unfused(ctx, fused, unfused):
 
 
 # ---------------------------------------------------------------------------
+# phases 13-16: the catalog, multi-query sharing, the gate, obs and faults
+# ---------------------------------------------------------------------------
+
+def dataset_stream(dataset):
+    """The catalog's stream of ``dataset`` at its seed."""
+    from repro_torch.data import TollBoothStream, VolleyballStream
+
+    if dataset == "tollbooth":
+        return TollBoothStream(seed=STREAM_SEED)
+    return VolleyballStream(seed=VOLLEYBALL_SEED)
+
+
+def counted(name, expect, fn):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after; every kernel of ``expect`` must have been launched."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"  {name} launches {counts}")
+    for k in expect:
+        check(counts[KERNELS[k][0]] > 0,
+              f"{name}: kernel {k} was never launched")
+    return out, counts
+
+
+def same_records(a, b, by_order=False):
+    """Outputs, window results, MLLM frames and operator counts equal (the
+    counts in plan order where ``by_order``: a merged extract has its own
+    name)."""
+    ca, cb = a.op_input_counts, b.op_input_counts
+    if by_order:
+        ca, cb = list(ca.values()), list(cb.values())
+    return (a.outputs == b.outputs and a.window_results == b.window_results
+            and a.mllm_frames == b.mllm_frames and ca == cb)
+
+
+def catalog_phase(ctx):
+    """Phase 13: every query's naive plan over 512 frames of its dataset
+    on the card (fps, MLLM frames, outputs, score), then each over 32
+    frames on the card and on the CPU (plain versions): the same records.
+    Returns the 512-frame runs by query and their launch counts."""
+    from repro_torch.queries.catalog import QUERIES
+    from repro_torch.streaming.runtime import StreamRuntime
+
+    def drive_all():
+        out = {}
+        for qid, q in QUERIES.items():
+            out[qid] = StreamRuntime(q.naive_plan(), ctx,
+                                     micro_batch=MICRO_BATCH).run(
+                dataset_stream(q.dataset), N_FRAMES)
+        return out
+
+    runs, counts = counted("catalog", ["flash_attention"], drive_all)
+    for qid, r in runs.items():
+        print(f"  {qid} ({QUERIES[qid].dataset}): {r.fps:.1f} fps, "
+              f"mllm_frames {r.mllm_frames}, outputs {len(r.outputs)}, "
+              f"windows {len(r.window_results)}, score "
+              f"{QUERIES[qid].evaluate(r):.4f}")
+        check(r.mllm_frames == N_FRAMES and r.n_frames == N_FRAMES,
+              f"catalog {qid}: {r.mllm_frames} MLLM frames")
+    cpu = make_ctx("cpu")
+    for qid, q in QUERIES.items():
+        a, b = (StreamRuntime(q.naive_plan(), c, micro_batch=8).run(
+            dataset_stream(q.dataset), 32) for c in (ctx, cpu))
+        check(same_records(a, b) and q.evaluate(a) == q.evaluate(b),
+              f"catalog {qid}: card and CPU records differ on 32 frames")
+    print(f"  all {len(QUERIES)} queries, 32 frames: card == CPU records, "
+          "window results, counts and scores")
+    return runs, counts
+
+
+MQ_SETS = {"mq_tollbooth": [f"Q{i}" for i in range(1, 10)],
+           "mq_volleyball": ["Q10", "Q11", "Q12", "Q13"],
+           "mq_reduced": ["Q8", "Q6", "Q2"]}
+
+
+def mq_plans(name):
+    """The plans of one multi-query set: naive plans, or (``mq_reduced``)
+    Q8's reduced prefix under Q8's, Q6's and Q2's extracts and tails."""
+    from repro_torch.queries.catalog import get_query
+    from repro_torch.streaming import operators as ops
+    from repro_torch.streaming.plan import Plan
+
+    if name != "mq_reduced":
+        return [get_query(q).naive_plan() for q in MQ_SETS[name]]
+    plans = []
+    for qid in MQ_SETS[name]:
+        q = get_query(qid)
+        plans.append(Plan(
+            [ops.SourceOp("tollbooth"),
+             ops.SkipOp(amount=3, threshold=0.02, regions=(4, 8)),
+             ops.FusedPreprocessOp(crop=(64, 0, 64, 256), factor=2),
+             ops.CheapColorFilterOp("red", min_frac=0.008),
+             ops.MLLMExtractOp(q.tasks, "big")] + q.tail() + [ops.SinkOp()],
+            query=qid))
+    return plans
+
+
+def run_mq(name, ctx):
+    from repro_torch.streaming.multiquery import MultiQueryRuntime
+
+    ds = "volleyball" if name == "mq_volleyball" else "tollbooth"
+    return MultiQueryRuntime(mq_plans(name), ctx,
+                             micro_batch=MICRO_BATCH).run(
+        dataset_stream(ds), N_FRAMES)
+
+
+def multiquery_phase(ctx, solo):
+    """Phase 14: each set through ``MultiQueryRuntime`` on the card; every
+    query's result equal to its own ``StreamRuntime`` run bit for bit
+    (``solo``: phase 13's naive runs; the reduced set's run here), fewer
+    shared MLLM frames than the independent sum, and the path's kernels
+    launched.  Returns the shared results, their launch counts and a
+    summary."""
+    from repro_torch.streaming.runtime import StreamRuntime
+
+    shared, counts, summary = {}, {}, {}
+    for name in MQ_SETS:
+        expect = ["flash_attention"] + (
+            ["frame_diff", "fused_preprocess"] if name == "mq_reduced"
+            else [])
+        res, counts[name] = counted(name, expect,
+                                    lambda: run_mq(name, ctx))
+        shared[name] = res
+        if name == "mq_reduced":
+            indep = {p.query: StreamRuntime(p, ctx, micro_batch=MICRO_BATCH)
+                     .run(dataset_stream("tollbooth"), N_FRAMES)
+                     for p in mq_plans(name)}
+        else:
+            indep = {q: solo[q] for q in MQ_SETS[name]}
+        print("  " + res.shared_plan.replace("\n", "\n  "))
+        for qid, r in res.per_query.items():
+            check(same_records(r, indep[qid], by_order=True),
+                  f"{name} {qid}: shared result differs from its own run")
+        indep_mllm = sum(r.mllm_frames for r in indep.values())
+        indep_wall = sum(r.wall_s for r in indep.values())
+        indep_qfps = len(indep) * N_FRAMES / indep_wall
+        check(res.mllm_frames < indep_mllm,
+              f"{name}: shared MLLM frames {res.mllm_frames} not below "
+              f"the independent {indep_mllm}")
+        print(f"  {name}: {res.n_queries} queries, shared == independent "
+              f"bit for bit; MLLM frames {res.mllm_frames} shared vs "
+              f"{indep_mllm} independent; {res.fps:.1f} query-frames/s "
+              f"shared (wall {res.wall_s:.3f} s) vs {indep_qfps:.1f} "
+              f"independent (sum of walls {indep_wall:.3f} s)")
+        summary[name] = {"queries": res.n_queries, "wall_s": res.wall_s,
+                         "query_frames_s": res.fps,
+                         "mllm_frames": res.mllm_frames,
+                         "indep_wall_s": indep_wall,
+                         "indep_query_frames_s": indep_qfps,
+                         "indep_mllm_frames": indep_mllm}
+    return shared, counts, summary
+
+
+def gated_run(plan, ctx, gate):
+    """One run of ``plan`` under ``gate`` without the warmup batch (the
+    kernels and models are warm by now), so that the gate's counters
+    cover exactly the measured frames."""
+    from repro_torch.streaming.runtime import StreamRuntime
+
+    rt = StreamRuntime(plan, dataclasses.replace(ctx, gate=gate),
+                       micro_batch=MICRO_BATCH)
+    return rt.run(dataset_stream("tollbooth"), N_FRAMES, warmup=0)
+
+
+class CountingFeatures:
+    """Counts a gate's own ``TemporalSignature.features`` calls."""
+
+    def __init__(self, signature):
+        self.calls = 0
+        self._features = signature.features
+        signature.features = self
+
+    def __call__(self, frames):
+        self.calls += 1
+        return self._features(frames)
+
+
+def gate_phase(ctx, naive):
+    """Phase 15: the semantic gate on the card.  Q8's fused plan without
+    its filter, gated, against its gated unfused twin (same records, same
+    counters, no signature of the gate's own on the fused run); Q8's naive
+    plan gated (hits, fewer forward frames than MLLM frames); a gate at
+    threshold 0 against no gate (``naive``: phase 3's run)."""
+    from repro_torch.semantic import GateConfig, SemanticGate
+
+    def gate():
+        return SemanticGate(GateConfig(threshold=GATE_THRESHOLD),
+                            device=ctx.device)
+
+    g_f, g_u = gate(), gate()
+    own_f, own_u = CountingFeatures(g_f.signature), \
+        CountingFeatures(g_u.signature)
+    fused, fcounts = counted(
+        "q8_fused_gated", ["fused_prefix", "flash_attention"],
+        lambda: gated_run(q8_plan("fused", tail=False), ctx, g_f))
+    unfused = gated_run(q8_plan("unfused", tail=False), ctx, g_u)
+    fname = q8_plan("fused").ops[1].name
+    ok = (fused.outputs == unfused.outputs
+          and fused.mllm_frames == unfused.mllm_frames
+          and fused.op_input_counts[fname]
+          == unfused.op_input_counts["skip[3,no_car]"])
+    print(f"  q8_fused_gated == q8_unfused_gated: records {ok} "
+          f"(outputs {len(fused.outputs)}, mllm_frames "
+          f"{fused.mllm_frames}); counters fused {g_f.counters}, unfused "
+          f"{g_u.counters}; the gate's own signature calls: fused "
+          f"{own_f.calls}, unfused {own_u.calls}")
+    check(ok, "q8_fused_gated and q8_unfused_gated differ")
+    check(g_f.counters == g_u.counters,
+          "the fused and unfused gates counted differently")
+    check(own_f.calls == 0 and own_u.calls > 0,
+          "the fused run's gate computed a signature of its own")
+    check(fused.mllm_frames > 0, "q8_fused_gated extracted nothing")
+
+    g_n = gate()
+    plan = q8_plan("naive")
+    nres, ncounts = counted("q8_naive_gated", ["flash_attention"],
+                            lambda: gated_run(plan, ctx, g_n))
+    c = g_n.counters
+    paid = c["cache_misses"] + c["revalidations"]
+    print(f"  q8_naive_gated at threshold {GATE_THRESHOLD}: {c}; hit rate "
+          f"{g_n.hit_rate():.4f}; forward frames {paid} of "
+          f"{nres.mllm_frames} MLLM frames ({nres.mllm_frames - paid} "
+          f"saved), {plan.ops[1].forwards} forwards; {nres.fps:.1f} fps "
+          f"gated vs {naive.fps:.1f} ungated")
+    check(c["cache_hits"] > 0 and paid < nres.mllm_frames,
+          "q8_naive_gated: no cache hit or no forward saved")
+    check(g_n.served() == nres.mllm_frames == N_FRAMES,
+          "q8_naive_gated: the gate did not classify every frame")
+
+    off = gated_run(q8_plan("naive"), ctx,
+                    SemanticGate(GateConfig(threshold=0.0),
+                                 device=ctx.device))
+    check(same_records(off, naive), "a gate at threshold 0 changed q8_naive")
+    print("  gate at threshold 0 == ungated q8_naive bit for bit")
+    summary = {"threshold": GATE_THRESHOLD, "counters": dict(c),
+               "hit_rate": g_n.hit_rate(), "forward_frames": paid,
+               "mllm_frames": nres.mllm_frames,
+               "forwards": plan.ops[1].forwards, "fps": nres.fps,
+               "ungated_fps": naive.fps,
+               "fused_gated_counters": dict(g_f.counters),
+               "fused_own_signature_calls": own_f.calls,
+               "unfused_own_signature_calls": own_u.calls}
+    return {"q8_fused_gated": fcounts, "q8_naive_gated": ncounts}, summary
+
+
+def obs_faults_phase(ctx, base):
+    """Phase 16: phase 14's Q1-Q9 set observed (``base``: its unobserved
+    run) equal bit for bit, its span categories, SLO table and walls, the
+    Chrome trace written under build/; then Q8's reduced plan under a
+    fault injector whose corrupt deliveries ``guard_stream`` absorbs."""
+    from repro_torch.faults import FaultInjector, FaultRule
+    from repro_torch.obs import Observability
+
+    obs = Observability(slo_target_ms=SLO_TARGET_MS)
+    observed, counts = counted(
+        "mq_observed", ["flash_attention"],
+        lambda: run_mq("mq_tollbooth", dataclasses.replace(ctx, obs=obs)))
+    for qid, r in base.per_query.items():
+        check(same_records(observed.per_query[qid], r),
+              f"mq_observed {qid}: observed run differs from unobserved")
+    cats = sorted({e["cat"] for e in obs.tracer.events()})
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "mq_trace.json")
+    n_ev = obs.tracer.export_chrome(path)
+    print(f"  observed == unobserved, {len(base.per_query)} queries bit for "
+          f"bit; span categories {cats}; {n_ev} events written to "
+          f"{os.path.relpath(path, ROOT)}")
+    for line in obs.slo.table().splitlines():
+        print(f"  | {line}")
+    print(f"  wall: observed {observed.wall_s:.3f} s, unobserved "
+          f"{base.wall_s:.3f} s")
+    check(obs.slo.row("mq")["frames"] == N_FRAMES,
+          "mq_observed: the SLO record missed frames")
+
+    inj = FaultInjector(seed=3, rules=[FaultRule(
+        site="source", kind="corrupt", start=1, every=4, param=2)])
+    clean = run_plan(q8_plan("reduced", tail=False), ctx, N_FRAMES,
+                     MICRO_BATCH, STREAM_SEED)
+    faulted, fcounts = counted(
+        "q8_reduced_faulted", ["frame_diff", "fused_preprocess"],
+        lambda: run_plan(q8_plan("reduced", tail=False),
+                         dataclasses.replace(ctx, faults=inj), N_FRAMES,
+                         MICRO_BATCH, STREAM_SEED))
+    ok = same_records(faulted, clean) and faulted.labels == clean.labels
+    print(f"  q8_reduced under {len(inj.log)} injected corrupt deliveries "
+          f"(absorbed by guard_stream): records equal the unfaulted run's "
+          f"{ok} (outputs {len(clean.outputs)})")
+    check(len(inj.log) > 0, "the fault injector never fired")
+    check(ok and len(clean.outputs) > 0,
+          "q8_reduced_faulted differs from the unfaulted run")
+    summary = {"observed_wall_s": observed.wall_s,
+               "unobserved_wall_s": base.wall_s, "span_categories": cats,
+               "trace_events": n_ev, "slo": obs.slo.row("mq"),
+               "faults_fired": len(inj.log)}
+    return {"mq_observed": counts, "q8_reduced_faulted": fcounts}, summary
+
+
+# ---------------------------------------------------------------------------
 # phases 9-11: LM serving
 # ---------------------------------------------------------------------------
 
@@ -1917,6 +2257,21 @@ def main() -> int:
             "q8_unfused", q8_plan("unfused"), ctx,
             ["frame_diff", "fused_preprocess", "flash_attention"])
         fused_vs_unfused(ctx, runs["q8_fused"], runs["q8_unfused"])
+
+        t13 = time.perf_counter()
+        print("[13] the catalog: every query's naive plan on its dataset")
+        catalog, counts["catalog"] = catalog_phase(ctx)
+        print("[14] multi-query shared execution (MultiQueryRuntime)")
+        shared, mq_counts, mq_summary = multiquery_phase(ctx, catalog)
+        counts.update(mq_counts)
+        print("[15] the semantic gate")
+        gate_counts, gate_summary = gate_phase(ctx, runs["q8_naive"])
+        counts.update(gate_counts)
+        print("[16] observability and faults")
+        of_counts, of_summary = obs_faults_phase(ctx,
+                                                 shared["mq_tollbooth"])
+        counts.update(of_counts)
+        print(f"[13-16] {time.perf_counter() - t13:.1f} s")
         del ctx
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1984,6 +2339,11 @@ def main() -> int:
         "frames": N_FRAMES, "micro_batch": MICRO_BATCH,
         "stream_seed": STREAM_SEED, "detector_seed": DETECTOR_SEED}},
         default=str))
+    print(json.dumps({"catalog": {
+        qid: {"fps": r.fps, "mllm_frames": r.mllm_frames,
+              "outputs": len(r.outputs)} for qid, r in catalog.items()},
+        "multiquery": mq_summary, "gate": gate_summary,
+        "obs_faults": of_summary}, default=str))
     print(json.dumps({"serving": {**serving, "device_busy_share": {
         k: busy[k] for k in ("gemma2_decode", "mamba2_decode")},
         "chatglm3_int8": int8_summary,

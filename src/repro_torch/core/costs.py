@@ -1,6 +1,6 @@
 """Calibrated operator cost catalog: the measured cost model the physical
-phase (and, in later slices, the fleet optimizer and the sharing-tree
-planner) prices plans with.
+phase (and, once the serving tier is ported, the fleet optimizer and the
+sharing-tree planner) prices plans with.
 
 Counterpart of ``repro/core/costs.py``.  Every timing the optimization
 phases take (``logical._time_op`` micro-benchmarks, semantic/physical
@@ -12,8 +12,10 @@ measuring its survivor fraction, and stamps ``op.cost_us`` /
 Entries are keyed ``"<OpClass>"`` for relational/semantic ops and
 ``"mllm[<variant>]"`` for extracts (plus per-resolution
 ``"mllm[<variant>]@<H>x<W>"`` diagnostic rows).  Direct per-op
-measurements outrank run-derived estimates.  The catalog round-trips
-through JSON (``save``/``load``).
+measurements outrank run-derived estimates, except ``reconcile``'s
+serving-time measurements.  Measured semantic-gate hit rates ride along
+per feed (``record_gate_hit_rate``).  The catalog round-trips through
+JSON (``save``/``load``).
 
 Timing is the host clock around ``op.process``.  On the card that measures
 device work only because every operator of the port ends in a
@@ -87,6 +89,9 @@ class CostCatalog:
 
     def __init__(self):
         self.entries: Dict[str, CostEntry] = {}
+        #: measured semantic-gate hit rate per feed (fraction of extract
+        #: frames answered from the keyframe cache)
+        self.gate_hit_rates: Dict[str, float] = {}
 
     # -- recording ---------------------------------------------------------
     def record(self, key: str, us: float, pass_rate: float = 1.0,
@@ -116,6 +121,65 @@ class CostCatalog:
         for op in plan_ops:
             if isinstance(op, MLLMExtractOp):
                 self.record(mllm_key(op.model), us, direct=False)
+
+    def record_gate_hit_rate(self, feed: str, rate: float) -> None:
+        """Fold one measured semantic-cache hit rate for a feed (from a
+        gated run's counters) into the catalog, EMA-merged like every
+        other measurement, so recent traffic dominates."""
+        assert 0.0 <= rate <= 1.0, rate
+        if feed in self.gate_hit_rates:
+            self.gate_hit_rates[feed] = \
+                (1 - EMA) * self.gate_hit_rates[feed] + EMA * rate
+        else:
+            self.gate_hit_rates[feed] = rate
+
+    def reconcile(self, measured: Dict[str, Dict[str, float]],
+                  tolerance: float = 0.5) -> List[str]:
+        """Fold *serving-time* measurements back into the catalog:
+        predictions that drift from reality are EMA-pulled toward what
+        the last run measured, so the next planning pass self-corrects.
+
+        ``measured`` maps catalog key → ``{"us": marginal µs/frame,
+        "overhead_us"?: per-invocation µs, "pass_rate"?: survivor
+        fraction, "frames"?: sample weight}``.  Unlike ``record``, this
+        bypasses the direct-outranks-run protection: a measurement taken
+        under serving conditions is better ground truth for planning than
+        an offline micro-benchmark.  Keys without a prior entry are
+        created outright.
+
+        Returns the keys whose prior marginal cost was off by more than
+        ``tolerance`` (relative, both directions): the drift flags the
+        flight report surfaces."""
+        flagged: List[str] = []
+        for key, m in measured.items():
+            us = float(m["us"])
+            if us < 0 or not np.isfinite(us):
+                continue
+            e = self.entries.get(key)
+            if e is None:
+                self.entries[key] = CostEntry(
+                    us=us, pass_rate=float(m.get("pass_rate", 1.0)),
+                    overhead_us=float(m.get("overhead_us", 0.0)),
+                    direct=False)
+                continue
+            if e.us > us * (1 + tolerance) or us > e.us * (1 + tolerance):
+                flagged.append(key)
+            e.us = (1 - EMA) * e.us + EMA * us
+            if "pass_rate" in m:
+                e.pass_rate = (1 - EMA) * e.pass_rate \
+                    + EMA * float(m["pass_rate"])
+            if "overhead_us" in m:
+                e.overhead_us = (1 - EMA) * e.overhead_us \
+                    + EMA * float(m["overhead_us"])
+            e.n += 1
+        return flagged
+
+    def mean_gate_hit_rate(self) -> float:
+        """Workload-level hit rate the planner discounts extract costs
+        by; 0 until a gated run has been measured."""
+        if not self.gate_hit_rates:
+            return 0.0
+        return sum(self.gate_hit_rates.values()) / len(self.gate_hit_rates)
 
     # -- lookup / stamping -------------------------------------------------
     def lookup(self, key: str) -> Optional[float]:
@@ -210,6 +274,7 @@ class CostCatalog:
             "version": self.VERSION,
             "entries": {k: dataclasses.asdict(e)
                         for k, e in sorted(self.entries.items())},
+            "gate_hit_rates": dict(sorted(self.gate_hit_rates.items())),
         }
 
     @classmethod
@@ -219,6 +284,7 @@ class CostCatalog:
         cat = cls()
         for k, e in data.get("entries", {}).items():
             cat.entries[k] = CostEntry(**e)
+        cat.gate_hit_rates = dict(data.get("gate_hit_rates", {}))
         return cat
 
     def save(self, path: str) -> None:

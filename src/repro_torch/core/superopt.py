@@ -13,9 +13,9 @@ measurement the phases take flows into a shared ``CostCatalog``, and a
 final calibration pass stamps the optimized plan's operators with measured
 ``cost_us``/``pass_rate``.
 
-The reference's observability spans and gauges around each phase reduce to
-nothing here: the port has no copy of ``repro.obs`` yet, so they wait for
-its slice.
+With ``ctx.obs`` set, each phase and the calibration is an ``opt:<phase>``
+span on the ``superopt`` track, and the phase walls and calibrated op
+timings land in the metrics registry as ``superopt/<qid>/...`` gauges.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from repro_torch.core.logical import LogicalOptimizer
 from repro_torch.core.phases import OptimizationPhase, PhaseContext
 from repro_torch.core.physical import PhysicalOptimizer
 from repro_torch.core.semantic import SemanticOptimizer
+from repro_torch.obs import resolve_obs
 from repro_torch.streaming.operators import OpContext
 from repro_torch.streaming.plan import Plan
 from repro_torch.streaming.runtime import StreamRuntime
@@ -116,19 +117,38 @@ class SuperOptimizer:
         report_phases: List[Dict[str, Any]] = []
         phase_wall_s: Dict[str, float] = {}
         naive_desc = plan.describe()
+        obs = resolve_obs(self.ctx.obs)
 
         for name in phases:
             phase = self.phase_registry[name]
+            t0_ns = obs.now() if obs.enabled else 0
             t0 = time.perf_counter()
             plan, rep = phase.run(plan, pctx)
             phase_wall_s[name] = time.perf_counter() - t0
+            if obs.enabled:
+                obs.tracer.span(f"opt:{name}", "optimize", t0_ns,
+                                obs.now(), track="superopt")
             report_phases.append(rep)
 
         op_timings: List[Dict[str, Any]] = []
         if calibrate:
+            t0_ns = obs.now() if obs.enabled else 0
             t0 = time.perf_counter()
             op_timings = self.calibrate(plan, pctx)
             phase_wall_s["calibration"] = time.perf_counter() - t0
+            if obs.enabled:
+                obs.tracer.span("opt:calibration", "optimize", t0_ns,
+                                obs.now(), track="superopt")
+
+        if obs.enabled:
+            # the phase walls and calibrated op timings land in the
+            # registry next to the serving metrics
+            m = obs.metrics
+            for ph, w in phase_wall_s.items():
+                m.set_gauge(f"superopt/{query.qid}/{ph}_wall_s", w)
+            for row in op_timings:
+                m.set_gauge(
+                    f"superopt/{query.qid}/op_us/{row['op']}", row["us"])
 
         report = OptimizationReport(
             query=query.qid, naive_plan=naive_desc,

@@ -9,7 +9,8 @@ per stale source, all at once, and waits for them together.
 Every C entry point takes raw device pointers, its sizes and the CUDA stream
 (PyTorch's current stream) and returns ``cudaGetLastError()`` after the
 launch; ``CudaKernel.launch`` raises on a non-zero code and counts the
-launch.  A kernel allocates nothing: the Python wrapper allocates outputs.
+launch (under a lock: a multi-query fan-out launches from several
+threads).  A kernel allocates nothing: the Python wrapper allocates outputs.
 """
 from __future__ import annotations
 
@@ -30,6 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
+#: guards ``CudaKernel.launches``: ``+=`` on an attribute is not atomic
+#: across threads
+_COUNT_LOCK = threading.Lock()
 #: every kernel the port binds, by name — read by ``launch_counts()``
 REGISTRY: Dict[str, "CudaKernel"] = {}
 
@@ -131,7 +135,8 @@ class CudaKernel:
             rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} at launch")
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

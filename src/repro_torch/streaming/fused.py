@@ -73,10 +73,13 @@ class FusedPrefixOp(Op):
     ``stage_ops`` are the original descriptors in plan order: they hold
     every threshold and region, and Skip's runtime state (``keep_from_diff``
     advances the member SkipOp itself, so a fused plan snapshots and
-    restores like the unfused one).  The op also emits the signature of
-    the surviving rows as ``batch["_sig"]`` for the extract downstream."""
+    restores like the unfused one).  ``sig=True`` also emits the semantic
+    gate's signature of the surviving rows as ``batch["_sig"]``, which the
+    extract immediately downstream consumes; ``sig=False`` leaves the
+    signature stage out of the kernel's spec."""
 
     stage_ops: Tuple[Op, ...] = ()
+    sig: bool = True
 
     def __post_init__(self):
         if not fusable_segment(list(self.stage_ops)):
@@ -92,7 +95,8 @@ class FusedPrefixOp(Op):
     def signature(self) -> Tuple:
         # nested primitive tuples instead of Op instances: hashable
         return ("FusedPrefixOp",
-                tuple(o.signature() for o in self.stage_ops))
+                tuple(o.signature() for o in self.stage_ops),
+                ("sig", self.sig))
 
     def unfuse(self) -> List[Op]:
         """Fresh, stateless copies of the member descriptors: the unfused
@@ -128,8 +132,10 @@ class FusedPrefixOp(Op):
         self._layouts = {}
 
     def _layout(self, shape: Tuple[int, ...]):
-        """The stage spec (with the signature stage) and the projection on
-        the device, for one input frame shape."""
+        """The stage spec (with the signature stage where ``sig``) and the
+        projection on the device (or None), for one input frame shape."""
+        if not self.sig:
+            return self._pix_spec, None
         if shape not in self._layouts:
             # the signature layout of the *final* frame shape, from the one
             # source of truth the unfused signature also reads
@@ -179,7 +185,9 @@ class FusedPrefixOp(Op):
         if self._normalizes:
             batch["normalized"] = True
         batch = _mask_batch(batch, keep)
-        batch["_sig"] = (feats.cpu().numpy()[keep], emb.cpu().numpy()[keep])
+        if self.sig:
+            batch["_sig"] = (feats.cpu().numpy()[keep],
+                             emb.cpu().numpy()[keep])
         return batch
 
     # ------------------------------------------------------------------

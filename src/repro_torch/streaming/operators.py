@@ -9,9 +9,10 @@ runs there (the hand-written kernels on CUDA, their plain versions on the
 CPU) and brings its small result back.  Operators may drop rows (Skip /
 filters); the runtime forwards the compacted batch.
 
-Not ported yet: the semantic gate and the observability / fault-injection
-hooks; ``OpContext`` has no fields for them until the port has its own
-copies of those modules.
+``OpContext`` carries the optional semantic gate (``repro_torch.semantic``),
+observability (``repro_torch.obs``) and fault injector
+(``repro_torch.faults``); left None, each resolves to its inert default and
+every path stays bitwise what it is without them.
 """
 from __future__ import annotations
 
@@ -109,6 +110,17 @@ class OpContext:
     #: the cascade detector (``repro_torch.streaming.detector.TinyDet``)
     detector: Optional[torch.nn.Module] = None
     device: Any = None
+    #: optional ``repro_torch.semantic.SemanticGate``, the temporal-
+    #: redundancy extract cache.  None (default) keeps every extract path
+    #: exactly as it was; an *inactive* gate (threshold 0) is equally inert.
+    gate: Any = None
+    #: optional ``repro_torch.obs.Observability``: tracing, metrics and SLO
+    #: accounting.  None resolves to the inert ``NULL_OBS``.
+    obs: Any = None
+    #: optional ``repro_torch.faults.FaultInjector``.  None resolves to the
+    #: inert ``NULL_FAULTS``; every fault call site is guarded by
+    #: ``if faults.enabled:``.
+    faults: Any = None
     frame_shape: Tuple[int, int, int] = (3, 128, 256)
     #: micro-batch size the driving runtime uses
     micro_batch: int = 16
@@ -432,6 +444,12 @@ class MLLMExtractOp(Op):
                 raise ValueError(f"{self.name}: variant {v!r} needs a model "
                                  f"on {ctx.device}")
         self._runs = {v: make_extract_fn(variants[v]) for v in wanted}
+        # semantic gating (solo path), keyed by this op
+        self._gate = ctx.gate
+        self._gate_feed = f"op:{id(self)}"
+        if self._gate is not None and ctx.obs is not None:
+            # the gate emits its own consult spans / hit-miss events
+            self._gate.obs = ctx.obs
 
     def resolve_variant(self, n: int) -> str:
         """Pick the physical variant for a batch of ``n`` surviving frames
@@ -444,7 +462,12 @@ class MLLMExtractOp(Op):
             else "pruned"
 
     def begin_extract(self, n: int) -> str:
-        """Account ``n`` frames of model load and resolve the variant."""
+        """Account ``n`` frames of model load and resolve the variant.
+
+        ``frames_processed`` (and every runtime's ``mllm_frames``) counts
+        frames *reaching* the extract.  With the semantic gate the cache
+        absorbs part of that load: the frames that paid a forward are the
+        gate's ``cache_misses + revalidations``."""
         self.frames_processed += n
         return self.resolve_variant(n)
 
@@ -472,15 +495,30 @@ class MLLMExtractOp(Op):
 
     def process(self, batch: Batch) -> Batch:
         # a FusedPrefixOp immediately upstream computed the gate signature
-        # in its device pass; the port has no gate yet, so the extract
-        # drops it here and it never reaches a tail or a sink record
+        # in its device pass; consume it here so it never leaks past the
+        # extract into tails or sink records
+        sig = None
         if "_sig" in batch:
             batch = dict(batch)
-            batch.pop("_sig")
+            sig = batch.pop("_sig")
         n = batch["frames"].shape[0]
         if n == 0:
             return batch
         variant = self.begin_extract(n)
+        gate = self._gate
+        if gate is not None and gate.active:
+            # cache-consult stage: near-duplicates of a recent keyframe
+            # are answered from the cache; only novel frames and
+            # revalidated hits pay the forward
+            adm = gate.admit(self._gate_feed, variant, batch["frames"],
+                             sig=sig)
+            if adm.n_model:
+                mf = adm.model_frames(batch["frames"])
+                preds = self._forward(variant, mf, adm.n_model)
+                adm.bind({k: v[:adm.n_model] for k, v in preds.items()})
+            else:
+                adm.bind(None)
+            return self.apply_preds(batch, adm.assemble(), n)
         preds = self._forward(variant, batch["frames"], n)
         return self.apply_preds(batch, preds, n)
 
@@ -488,16 +526,24 @@ class MLLMExtractOp(Op):
         self.frames_processed = 0
         self.forwards = 0
         self._density_ema = 0.5
+        if getattr(self, "_gate", None) is not None:
+            self._gate.reset(self._gate_feed)
 
     def snapshot(self):
-        return {"frames_processed": self.frames_processed,
-                "forwards": self.forwards,
-                "density_ema": self._density_ema}
+        st = {"frames_processed": self.frames_processed,
+              "forwards": self.forwards,
+              "density_ema": self._density_ema}
+        if getattr(self, "_gate", None) is not None and self._gate.active:
+            st["gate"] = self._gate.snapshot_feed(self._gate_feed)
+        return st
 
     def restore(self, st):
         self.frames_processed = st["frames_processed"]
         self.forwards = st.get("forwards", 0)
         self._density_ema = st.get("density_ema", 0.5)
+        if st.get("gate") is not None \
+                and getattr(self, "_gate", None) is not None:
+            self._gate.restore_feed(self._gate_feed, st["gate"])
 
 
 # ===========================================================================

@@ -10,9 +10,11 @@ time (the paper's FPS / model-load metrics).
 ``restore()`` resumes by replaying the source from the recorded offset, and
 the first ``run()`` after it suppresses the warmup reset.
 
-The reference's observability spans/SLO records and its fault-injection
-stream guard reduce to nothing here: the port has no copy of ``repro.obs``
-or ``repro.faults`` yet, so those hooks wait for their own slices.
+With ``ctx.obs`` set, every operator call is an ``op:<name>`` span on the
+``stream`` track and every micro-batch an SLO record of feed ``stream``
+(host clock; nothing synchronizes the card on that account); with
+``ctx.faults`` set, the measured stream goes through ``guard_stream``'s
+transport validation and bounded redelivery.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.faults import guard_stream
+from repro_torch.obs import resolve_obs
 from repro_torch.streaming.operators import (
     MLLMExtractOp,
     Op,
@@ -76,6 +80,8 @@ class RunScaffold:
                        ops: List[Op]) -> None:
         self.ctx = dataclasses.replace(ctx, micro_batch=micro_batch)
         self.micro_batch = micro_batch
+        #: observability handle (``ctx.obs`` or the inert NULL_OBS)
+        self.obs = resolve_obs(ctx.obs)
         for op in ops:
             op.open(self.ctx)
         self._source_index = 0
@@ -116,9 +122,11 @@ def drive_stream(stream, n_frames: int, micro_batch: int, base: int,
     return base + done
 
 
-def flush_ops(ops: List[Op], emit) -> None:
+def flush_ops(ops: List[Op], emit, terminal=None) -> None:
     """End of stream: let every op in the chain emit buffered partials and
-    push them through the downstream ops."""
+    push them through the downstream ops.  ``emit`` receives window
+    results; ``terminal``, if given, receives each fully propagated batch
+    (the multi-query runtime fans it out to the per-query tails)."""
     for i, op in enumerate(ops):
         fb = op.flush()
         if fb is None:
@@ -129,6 +137,8 @@ def flush_ops(ops: List[Op], emit) -> None:
             fb = nxt.process(fb)
             if "window_results" in fb:
                 emit(fb.pop("window_results"))
+        if terminal is not None:
+            terminal(fb)
 
 
 class StreamRuntime(RunScaffold):
@@ -175,22 +185,43 @@ class StreamRuntime(RunScaffold):
         mllm_start = self._begin_run(stream, warmup, warm_advance,
                                      self.plan.ops)
 
+        obs = self.obs
+
         def advance(batch):
             self._stamp(batch)
+            t_b = obs.now() if obs.enabled else 0
+            n0 = len(batch["idx"])
             for op in self.plan.ops:
                 counts[op.name] += len(batch["idx"])
-                batch = op.process(batch)
+                if obs.enabled:
+                    t_op = obs.now()
+                    batch = op.process(batch)
+                    obs.tracer.span(f"op:{op.name}", "prefix", t_op,
+                                    obs.now(), track="stream",
+                                    n=len(batch["idx"]))
+                else:
+                    batch = op.process(batch)
                 if "window_results" in batch:
                     window_results.extend(batch.pop("window_results"))
+            if obs.enabled:
+                obs.slo.record("stream", (obs.now() - t_b) / 1e6, n=n0)
+
+        # the measured stream goes through transport validation and
+        # bounded redelivery when a fault injector is live (the bare
+        # stream otherwise).  Warmup above ran unguarded: it must not
+        # consume schedule events the measured stream would never see.
+        guarded = guard_stream(stream, self.ctx.faults)
 
         t0 = time.perf_counter()
-        drive_stream(stream, n_frames, self.micro_batch,
+        drive_stream(guarded, n_frames, self.micro_batch,
                      self._source_index, advance, labels_all)
         if flush:
             flush_ops(self.plan.ops, window_results.extend)
         if self.ctx.device.type == "cuda":
             torch.cuda.synchronize(self.ctx.device)
         wall = time.perf_counter() - t0
+        if obs.enabled:
+            obs.metrics.set_gauge("run/wall_s", wall)
 
         mllm_frames = mllm_frames_of(self.plan.ops) - mllm_start
         return RunResult(

@@ -35,7 +35,9 @@ def test_port_modules_were_found():
             "model.py", "ssm.py", "engine.py", "sampler.py", "serve.py",
             "gemma2_2b.py", "mamba2_130m.py", "utils.py", "quantize.py",
             "chatglm3_6b.py", "glm4_9b.py", "phi3_mini_3_8b.py",
-            "chip_smoke.py"} <= names
+            "multiquery.py", "gate.py", "cache.py", "admission.py",
+            "tracer.py", "metrics.py", "slo.py", "report.py", "audit.py",
+            "injector.py", "breaker.py", "chip_smoke.py"} <= names
     kernels = {p.parent.name for p in FILES if p.name == "kernel.py"}
     assert {"decode_attention", "ssd_scan", "flash_attention",
             "int8_matmul"} <= kernels
