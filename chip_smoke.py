@@ -122,6 +122,33 @@ Phases (any failure exits non-zero and prints no result line):
      reduced plan without its filter under a ``FaultInjector`` whose
      corrupt deliveries ``guard_stream`` absorbs (``q8_reduced_faulted``):
      the unfaulted run's records, and the injector fired.
+ 17. the serving tier (after phase 16, on phase 8's models): (a) the
+     reference's example feeds (tb-north 1234 Q2/Q6/Q8, tb-south 4321
+     Q1/Q5, tb-east 2025 Q3/Q9, court-1 volleyball 1234 Q12/Q13) plus Q8's
+     reduced and fused plans on TollBooth 11, 512 frames a feed,
+     micro-batch 16, through ``MultiStreamRuntime`` (one
+     ``SharedExtractServer``, max_batch 64, 2 forwards in flight on the
+     server's own CUDA stream), after an untimed 128-frame warm-up run,
+     pipelined (``serve_pipelined``) and lock-step (``serve_lockstep``),
+     once each: equal to each other and each query
+     to its own ``StreamRuntime`` run bit for bit, fewer forwards than
+     the independent runs, at least 2 forwards in flight; feed-frames/s
+     of both and of the independent runs (the sum of their walls), and a
+     profiled 128-frame run's device busy share; (b) the same feeds over
+     32 frames on the card and on the CPU: equal records, windows, counts
+     and scores; (c) four TollBooth feeds on Q8's naive plan under
+     ``SemanticGate(GateConfig(threshold=0.06))`` in the server
+     (``serve_gated``) against ungated: hits, forward frames, forwards,
+     feed-frames/s; threshold 0 equal to ungated; (d) (a)'s feeds under a
+     ``FaultInjector`` (a transient forward error, forward latency, a
+     dead source on tb-east; ``serve_faulted``): the healthy feeds equal
+     the clean run, served + degraded + dropped = 512 on every feed, the
+     breaker tripped on tb-east; (e) ``FleetOptimizer.optimize`` over the
+     example workload, ``MultiStreamRuntime.from_fleet`` over 512 frames
+     (``serve_fleet``) equal to each plan's solo run, then observed:
+     ``PlanAudit``'s table and ``forward_gap`` from the server's
+     ``forward_device_ms`` probes.  Phase 2 also checks and times
+     flash_attention at the server's coalesced buckets, B 32 and B 64.
 
 Each phase that drives a plan zeroes the kernels' launch counts first and
 reads them after; a kernel of the plan that was never launched fails the
@@ -203,7 +230,9 @@ SASS_MMA = {"flash_attention": "HMMA", "decode_attention": "HMMA",
 PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
          "catalog", "mq_tollbooth", "mq_volleyball", "mq_reduced",
          "q8_fused_gated", "q8_naive_gated", "mq_observed",
-         "q8_reduced_faulted", "gemma2_serve", "mamba2_serve",
+         "q8_reduced_faulted", "serve_pipelined", "serve_lockstep",
+         "serve_gated", "serve_faulted", "serve_fleet", "gemma2_serve",
+         "mamba2_serve",
          "chatglm3_serve", "chatglm3_int8", "chatglm3_dequant_serve")
 #: the volleyball stream's seed (Q10-Q13); TollBooth's is STREAM_SEED
 VOLLEYBALL_SEED = 3
@@ -501,6 +530,9 @@ def kernel_checks(dev):
 
     cases = [(16, s, 4 * g, 4, 32, dict(causal=True))
              for s in (140, 76, 28, 1, 257) for g in (2, 1)]
+    # the extract server's coalesced buckets (phase 17: up to 64 frames a
+    # forward)
+    cases += [(b, 140, 8, 4, 32, dict(causal=True)) for b in (32, 64)]
     cases += [(4, 140, 8, 4, 32, dict(causal=False)),
               (4, 140, 8, 4, 32, dict(causal=True, cap=20.0)),
               (4, 140, 8, 4, 32, dict(causal=True, window=35)),
@@ -530,7 +562,20 @@ def kernel_checks(dev):
             bound=bound(nbytes, ops, FLASH_OPS_S))
         shapes[s] = t
         flash_line(f"B16 S{s} H8/4 D32", t, nbytes, ops)
-    rows["flash_attention"] = shapes[140]
+    coalesced = {}
+    for b in (32, 64):
+        q, k, v = qkv(b, 140, 8, 4, 32)
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+        ops = 4 * 32 * 140 * 141 // 2 * b * 8
+        t = dict(
+            ms=device_ms(lambda: flash_attention_cuda(q, k, v)),
+            plain_ms=device_ms(lambda: flash_attention_plain(q, k, v)),
+            library_ms=sdpa_ms(q, k, v),
+            bound=bound(nbytes, ops, FLASH_OPS_S))
+        coalesced[f"b{b}_s140"] = t
+        flash_line(f"B{b} S140 H8/4 D32 (coalesced bucket)", t, nbytes,
+                   ops)
+    rows["flash_attention"] = {**shapes[140], **coalesced}
     rows["fused_prefix"] = prefix_checks(compare, frames)
     lm_kernel_checks(compare, gen, dev, rows)
     magnitude_checks(gen, dev)
@@ -1714,6 +1759,374 @@ def obs_faults_phase(ctx, base):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the serving tier (extract server, multi-stream runtime, fleet)
+# ---------------------------------------------------------------------------
+
+#: the reference's example workload (examples/multistream_serve.py):
+#: name, dataset, stream seed, queries
+SERVE_FEEDS = (("tb-north", "tollbooth", 1234, ("Q2", "Q6", "Q8")),
+               ("tb-south", "tollbooth", 4321, ("Q1", "Q5")),
+               ("tb-east", "tollbooth", 2025, ("Q3", "Q9")),
+               ("court-1", "volleyball", 1234, ("Q12", "Q13")))
+#: phase 17 (a)'s two more feeds: Q8 on its reduced and its fused plan over
+#: TollBooth seed 11 (frame_diff, fused_preprocess and fused_prefix under
+#: the server)
+SERVE_Q8 = (("q8-reduced", "reduced"), ("q8-fused", "fused"))
+#: the server's coalescing ceiling and its forwards in flight
+SERVE_MAX_BATCH, SERVE_INFLIGHT = 64, 2
+#: phase 17 (b)'s frames a feed, card against CPU
+SERVE_CHECK_FRAMES = 32
+#: phase 17 (c)'s four TollBooth feeds on Q8's naive plan
+GATE_FEEDS = (("tb-north", 1234), ("tb-south", 4321), ("tb-east", 2025),
+              ("tb-11", STREAM_SEED))
+#: phase 17 (a)'s untimed warm-up run, frames a feed
+SERVE_WARMUP_FRAMES = 128
+#: phase 17 (e)'s fleet optimizer validation frames
+FLEET_VAL_FRAMES = 32
+
+
+def serve_stream(dataset, seed):
+    from repro_torch.data import TollBoothStream, VolleyballStream
+
+    if dataset == "tollbooth":
+        return TollBoothStream(seed=seed)
+    return VolleyballStream(seed=seed)
+
+
+def serve_plans():
+    """(feed, dataset, seed, plan) for every query of phase 17 (a)."""
+    from repro_torch.queries.catalog import get_query
+
+    out = [(name, ds, seed, get_query(q).naive_plan())
+           for name, ds, seed, qids in SERVE_FEEDS for q in qids]
+    out += [(name, "tollbooth", STREAM_SEED, q8_plan(which))
+            for name, which in SERVE_Q8]
+    return out
+
+
+def serve_feeds():
+    from repro_torch.scheduler import Feed
+
+    plans = {}
+    for name, ds, seed, plan in serve_plans():
+        plans.setdefault((name, ds, seed), []).append(plan)
+    return [Feed(name, serve_stream(ds, seed), ps)
+            for (name, ds, seed), ps in plans.items()]
+
+
+def run_served(ctx, feeds, n_frames, **kw):
+    from repro_torch.scheduler import MultiStreamRuntime
+
+    ms = MultiStreamRuntime(feeds, ctx, micro_batch=MICRO_BATCH,
+                            max_inflight=SERVE_INFLIGHT, **kw)
+    check(ms.server.max_batch == SERVE_MAX_BATCH,
+          f"server max_batch {ms.server.max_batch}")
+    return ms, ms.run(n_frames)
+
+
+def served_equal(a, b, by_order=False):
+    """Two served results' per-query records equal (``same_records``) on
+    every feed and query, and their MLLM frames."""
+    ok = a.mllm_frames == b.mllm_frames and a.feeds.keys() == b.feeds.keys()
+    for name, fa in a.feeds.items():
+        fb = b.feeds[name]
+        ok = ok and fa.per_query.keys() == fb.per_query.keys() and all(
+            same_records(r, fb.per_query[q], by_order)
+            for q, r in fa.per_query.items())
+    return ok
+
+
+def feed_fps(res, n_frames):
+    """Feed-frames/s of a served run (every feed's frames over its wall)."""
+    return res.n_feeds * n_frames / res.wall_s
+
+
+def serve_solo(ctx, n_frames):
+    """Each query of phase 17 (a) alone through ``StreamRuntime`` on its
+    feed's stream: results by (feed, query), the forwards of their
+    extracts and the sum of their walls."""
+    from repro_torch.streaming import operators as ops
+    from repro_torch.streaming.runtime import StreamRuntime
+
+    out, forwards, wall = {}, 0, 0.0
+    for name, ds, seed, plan in serve_plans():
+        r = StreamRuntime(plan, ctx, micro_batch=MICRO_BATCH).run(
+            serve_stream(ds, seed), n_frames)
+        out[(name, plan.query)] = r
+        forwards += sum(op.forwards for op in plan.ops
+                        if isinstance(op, ops.MLLMExtractOp))
+        wall += r.wall_s
+    return out, forwards, wall
+
+
+def serving_phase(ctx):
+    """Phase 17: the serving tier on the card.  (a) the example feeds plus
+    Q8's reduced and fused feeds through ``MultiStreamRuntime``, pipelined
+    and lock-step, against each query's own run; (b) the same feeds card
+    against CPU; (c) the gate in the server; (d) faults; (e) the fleet
+    optimizer, ``from_fleet`` and the plan audit.  Returns the launch
+    counts by path and a summary."""
+    from repro_torch.faults import FaultInjector, FaultRule
+    from repro_torch.queries.catalog import get_query
+    from repro_torch.semantic import GateConfig, SemanticGate
+
+    counts, summary = {}, {}
+    pix = ["flash_attention", "frame_diff", "fused_preprocess",
+           "fused_prefix"]
+    t0 = time.perf_counter()
+
+    # (a) pipelined, lock-step, independent, after an untimed warm-up
+    # run: the first served run of a process pays first uses (new bucket
+    # shapes, library kernels loaded lazily)
+    run_served(ctx, serve_feeds(), SERVE_WARMUP_FRAMES)
+    (ms, piped), counts["serve_pipelined"] = counted(
+        "serve_pipelined", pix,
+        lambda: run_served(ctx, serve_feeds(), N_FRAMES))
+    (_, lock), counts["serve_lockstep"] = counted(
+        "serve_lockstep", pix,
+        lambda: run_served(ctx, serve_feeds(), N_FRAMES, pipelined=False))
+    solo, solo_forwards, solo_wall = serve_solo(ctx, N_FRAMES)
+    check(served_equal(piped, lock),
+          "serve: pipelined and lock-step results differ")
+    for (name, qid), r in solo.items():
+        check(same_records(piped.feeds[name].per_query[qid], r, True),
+              f"serve {name} {qid}: served result differs from its own "
+              "run")
+    st, lst = piped.server_stats, lock.server_stats
+    n_feeds = piped.n_feeds
+    print("  " + ms.describe().replace("\n", "\n  "))
+    print(f"  serve, {n_feeds} feeds x {N_FRAMES} frames, {piped.n_queries}"
+          f" queries: each query == its own run bit for bit, pipelined == "
+          f"lock-step; feed-frames/s pipelined {feed_fps(piped, N_FRAMES):.1f}"
+          f" (wall {piped.wall_s:.3f} s), lock-step "
+          f"{feed_fps(lock, N_FRAMES):.1f} ({lock.wall_s:.3f} s), "
+          f"independent "
+          f"{n_feeds * N_FRAMES / solo_wall:.1f} (sum of {len(solo)} walls "
+          f"{solo_wall:.3f} s)")
+    print(f"  serve forwards: pipelined {st['forwards']} (frames "
+          f"{st['frames']}, padded {st['padded_frames']}, coalesced "
+          f"{st['coalesced_batches']}, max in flight "
+          f"{st['max_inflight_seen']}, staging allocated/reused/skipped "
+          f"{st['staging_allocated']}/{st['staging_reused']}/"
+          f"{st['staging_skipped']}); lock-step {lst['forwards']} (frames "
+          f"{lst['frames']}, padded {lst['padded_frames']}, coalesced "
+          f"{lst['coalesced_batches']}); independent {solo_forwards}")
+    check(st["forwards"] < solo_forwards,
+          f"serve: {st['forwards']} forwards, not fewer than the "
+          f"independent {solo_forwards}")
+    check(st["max_inflight_seen"] >= 2,
+          f"serve: max_inflight_seen {st['max_inflight_seen']} < 2")
+    summary["a"] = {
+        "feeds": n_feeds, "queries": piped.n_queries,
+        "feed_frames_s": {"pipelined": feed_fps(piped, N_FRAMES),
+                          "lockstep": feed_fps(lock, N_FRAMES),
+                          "independent": n_feeds * N_FRAMES / solo_wall},
+        "wall_s": {"pipelined": piped.wall_s, "lockstep": lock.wall_s,
+                   "independent_sum": solo_wall},
+        "forwards": {"pipelined": st["forwards"],
+                     "lockstep": lst["forwards"],
+                     "independent": solo_forwards},
+        "pipelined_stats": {k: st[k] for k in (
+            "frames", "padded_frames", "coalesced_batches",
+            "max_inflight_seen", "dispatches", "staging_allocated",
+            "staging_reused", "staging_skipped")},
+        "lockstep_stats": {k: lst[k] for k in (
+            "frames", "padded_frames", "coalesced_batches")}}
+
+    # the device's busy share over 128 frames a feed, pipelined
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        run_served(ctx, serve_feeds(), 128)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    summary["a"]["device_busy_share_128"] = device_summary(
+        prof, wall_ms, "serve_pipelined", "128 frames a feed (warm-up "
+        "batch included)", 8)
+
+    parts = {"a": time.perf_counter() - t0}
+
+    # (b) card == CPU
+    cpu = make_ctx("cpu")
+    _, a = run_served(ctx, serve_feeds(), SERVE_CHECK_FRAMES)
+    _, b = run_served(cpu, serve_feeds(), SERVE_CHECK_FRAMES)
+    ok = served_equal(a, b) and all(
+        get_query(q).evaluate(r) == get_query(q).evaluate(
+            b.feeds[f].per_query[q])
+        for f, fr in a.feeds.items() for q, r in fr.per_query.items())
+    print(f"  serve card == CPU, {SERVE_CHECK_FRAMES} frames a feed: "
+          f"records, windows, counts and scores {ok}")
+    check(ok, "serve: card and CPU results differ")
+    del cpu
+
+    parts["b"] = time.perf_counter() - t0 - sum(parts.values())
+
+    # (c) the gate in the server: four TollBooth feeds on Q8's naive plan
+    from repro_torch.scheduler import Feed
+
+    def gate_feeds():
+        return [Feed(name, serve_stream("tollbooth", seed),
+                     [get_query("Q8").naive_plan()])
+                for name, seed in GATE_FEEDS]
+
+    def gate(threshold):
+        return SemanticGate(GateConfig(threshold=threshold),
+                            device=ctx.device)
+
+    (_, gated), counts["serve_gated"] = counted(
+        "serve_gated", ["flash_attention"],
+        lambda: run_served(ctx, gate_feeds(), N_FRAMES,
+                           gate=gate(GATE_THRESHOLD)))
+    _, ungated = run_served(ctx, gate_feeds(), N_FRAMES)
+    _, gated2 = run_served(ctx, gate_feeds(), N_FRAMES,
+                           gate=gate(GATE_THRESHOLD))
+    _, off = run_served(ctx, gate_feeds(), N_FRAMES, gate=gate(0.0))
+    check(served_equal(off, ungated),
+          "serve: a gate at threshold 0 changed the results")
+    check(served_equal(gated2, gated)
+          and gated2.server_stats["cache_hits"]
+          == gated.server_stats["cache_hits"],
+          "serve: two gated runs differ")
+    gs, us = gated.server_stats, ungated.server_stats
+    print(f"  serve_gated at {GATE_THRESHOLD}, {len(GATE_FEEDS)} feeds: "
+          f"hits {gs['cache_hits']}, misses {gs['cache_misses']}, "
+          f"revalidations {gs['revalidations']} (mismatches "
+          f"{gs['cache_mismatches']}); forward frames {gs['frames']} of "
+          f"{gated.mllm_frames}, forwards {gs['forwards']} (padded "
+          f"{gs['padded_frames']}); {feed_fps(gated, N_FRAMES):.1f} then "
+          f"{feed_fps(gated2, N_FRAMES):.1f} feed-frames/s.  Ungated: "
+          f"forward frames {us['frames']}, "
+          f"forwards {us['forwards']}, {feed_fps(ungated, N_FRAMES):.1f} "
+          f"feed-frames/s.  Threshold 0 == ungated bit for bit")
+    check(gs["cache_hits"] > 0 and gs["frames"] < gated.mllm_frames,
+          "serve_gated: no hit or no forward frame saved")
+    summary["c"] = {
+        "threshold": GATE_THRESHOLD, "feeds": len(GATE_FEEDS),
+        "gated": {k: gs[k] for k in ("cache_hits", "cache_misses",
+                                     "revalidations", "cache_mismatches",
+                                     "frames", "forwards",
+                                     "padded_frames")},
+        "ungated": {k: us[k] for k in ("frames", "forwards",
+                                       "padded_frames")},
+        "mllm_frames": gated.mllm_frames,
+        "feed_frames_s": {"gated": feed_fps(gated, N_FRAMES),
+                          "gated_2": feed_fps(gated2, N_FRAMES),
+                          "ungated": feed_fps(ungated, N_FRAMES)}}
+
+    parts["c"] = time.perf_counter() - t0 - sum(parts.values())
+
+    # (d) faults: one transient forward error, injected latency, and a
+    # dead source on tb-east
+    sick = "tb-east"
+    inj = FaultInjector(seed=17, rules=[
+        FaultRule(site="forward", kind="error", feed="tb-south", start=1,
+                  count=1, param=1),
+        FaultRule(site="forward", kind="latency", start=0, every=8,
+                  count=4, param=2),
+        FaultRule(site="source", kind="corrupt", feed=sick, start=2,
+                  every=1, param=99)])
+    (_, faulted), counts["serve_faulted"] = counted(
+        "serve_faulted", pix,
+        lambda: run_served(ctx, serve_feeds(), N_FRAMES, faults=inj))
+    fst = faulted.server_stats
+    for name, fr in faulted.feeds.items():
+        check(fr.served + fr.degraded + fr.dropped == N_FRAMES,
+              f"serve_faulted {name}: served {fr.served} + degraded "
+              f"{fr.degraded} + dropped {fr.dropped} != {N_FRAMES}")
+        if name != sick:
+            check(fr.breaker.get("trips", 0) == 0 and all(
+                same_records(r, piped.feeds[name].per_query[q])
+                for q, r in fr.per_query.items()),
+                f"serve_faulted {name}: a healthy feed's results differ "
+                "from the clean run's")
+    sf = faulted.feeds[sick]
+    check(sf.breaker.get("trips", 0) >= 1,
+          f"serve_faulted: the breaker did not trip on {sick}")
+    check(fst["retries"] >= 1 and fst["latency_faults"] >= 1,
+          "serve_faulted: the forward error or the latency never fired")
+    print(f"  serve_faulted: {len(inj.log)} faults fired; retries "
+          f"{fst['retries']}, latency faults {fst['latency_faults']}; "
+          f"{sick}: served {sf.served}, degraded {sf.degraded}, dropped "
+          f"{sf.dropped}, breaker {sf.breaker}; the {n_feeds - 1} healthy "
+          f"feeds == the clean run bit for bit")
+    summary["d"] = {"faults_fired": len(inj.log),
+                    "retries": fst["retries"],
+                    "latency_faults": fst["latency_faults"],
+                    "sick": {"served": sf.served, "degraded": sf.degraded,
+                             "dropped": sf.dropped,
+                             "breaker": dict(sf.breaker)}}
+
+    parts["d"] = time.perf_counter() - t0 - sum(parts.values())
+
+    # (e) the fleet optimizer, from_fleet, and the plan audit
+    from repro_torch.core.fleet import FleetOptimizer, FleetQuery
+    from repro_torch.obs import Observability, forward_gap
+    from repro_torch.scheduler import MultiStreamRuntime
+    from repro_torch.streaming.runtime import StreamRuntime
+
+    workload = [FleetQuery(get_query(q),
+                           lambda s, ds=ds: serve_stream(ds, s), feed=name)
+                for name, ds, _, qids in SERVE_FEEDS for q in qids]
+    t1 = time.perf_counter()
+    fleet = FleetOptimizer(ctx, val_frames=FLEET_VAL_FRAMES,
+                           micro_batch=MICRO_BATCH).optimize(workload)
+    t_opt = time.perf_counter() - t1
+    for line in fleet.describe().splitlines():
+        print(f"  | {line}")
+    seeds = {name: (ds, seed) for name, ds, seed, _ in SERVE_FEEDS}
+
+    def streams():
+        return {name: serve_stream(*seeds[name])
+                for name in fleet.plans_by_feed}
+
+    def fleet_run(c):
+        ms = MultiStreamRuntime.from_fleet(fleet, streams(), c,
+                                           micro_batch=MICRO_BATCH)
+        return ms, ms.run(N_FRAMES)
+
+    (_, fres), counts["serve_fleet"] = counted(
+        "serve_fleet", ["flash_attention"], lambda: fleet_run(ctx))
+    fsolo_wall = 0.0
+    for name, plans in fleet.plans_by_feed.items():
+        for p in plans:
+            r = StreamRuntime(p.clone(), ctx, micro_batch=MICRO_BATCH).run(
+                serve_stream(*seeds[name]), N_FRAMES)
+            fsolo_wall += r.wall_s
+            check(same_records(fres.feeds[name].per_query[p.query], r,
+                               True),
+                  f"serve_fleet {name} {p.query}: differs from its solo run")
+    obs = Observability(slo_target_ms=SLO_TARGET_MS)
+    oms, ores = fleet_run(dataclasses.replace(ctx, obs=obs))
+    check(served_equal(ores, fres), "serve_fleet: observed run differs")
+    for line in oms.audit().table(obs.metrics).splitlines():
+        print(f"  | {line}")
+    gap = forward_gap(obs.metrics)
+    print(f"  serve_fleet: optimize {t_opt:.1f} s; {fres.n_queries} "
+          f"queries == their solo runs bit for bit; forwards "
+          f"{fres.server_stats['forwards']}; {feed_fps(fres, N_FRAMES):.1f}"
+          f" feed-frames/s (solo sum of walls {fsolo_wall:.3f} s); "
+          f"observed == unobserved; forward_gap {gap}; drift flags "
+          f"{oms.drift_flags}")
+    check(gap is not None and gap["probes"] > 0,
+          "serve_fleet: no forward_device_ms probe")
+    summary["e"] = {"optimize_s": t_opt, "decisions": fleet.decisions,
+                    "fleet_cost_us": fleet.fleet_cost_us,
+                    "forwards": fres.server_stats["forwards"],
+                    "feed_frames_s": feed_fps(fres, N_FRAMES),
+                    "solo_wall_s": fsolo_wall, "forward_gap": gap,
+                    "drift_flags": list(oms.drift_flags)}
+    summary["seconds"] = time.perf_counter() - t0
+    parts["e"] = summary["seconds"] - sum(parts.values())
+    summary["part_seconds"] = parts
+    print(f"[17] {summary['seconds']:.1f} s: " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in parts.items())
+        + f" (optimize {t_opt:.1f})")
+    return counts, summary
+
+
+# ---------------------------------------------------------------------------
 # phases 9-11: LM serving
 # ---------------------------------------------------------------------------
 
@@ -2185,6 +2598,7 @@ def chatglm3_int8(dev, rows):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2272,6 +2686,10 @@ def main() -> int:
                                                  shared["mq_tollbooth"])
         counts.update(of_counts)
         print(f"[13-16] {time.perf_counter() - t13:.1f} s")
+        print("[17] the serving tier: SharedExtractServer, "
+              "MultiStreamRuntime, the gate in the server, faults, fleet")
+        serve_counts, serve_summary = serving_phase(ctx)
+        counts.update(serve_counts)
         del ctx
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2343,12 +2761,15 @@ def main() -> int:
         qid: {"fps": r.fps, "mllm_frames": r.mllm_frames,
               "outputs": len(r.outputs)} for qid, r in catalog.items()},
         "multiquery": mq_summary, "gate": gate_summary,
-        "obs_faults": of_summary}, default=str))
+        "obs_faults": of_summary, "serving_tier": serve_summary},
+        default=str))
     print(json.dumps({"serving": {**serving, "device_busy_share": {
         k: busy[k] for k in ("gemma2_decode", "mamba2_decode")},
         "chatglm3_int8": int8_summary,
         "slots": SERVE_SLOTS, "s_max": SERVE_S_MAX,
         "new_tokens": SERVE_NEW}}))
+    print(f"[total] {time.perf_counter() - t_start:.1f} s (phase 17 "
+          f"{serve_summary['seconds']:.1f} s)")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

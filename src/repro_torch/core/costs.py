@@ -1,6 +1,5 @@
 """Calibrated operator cost catalog: the measured cost model the physical
-phase (and, once the serving tier is ported, the fleet optimizer and the
-sharing-tree planner) prices plans with.
+phase, the fleet optimizer and the sharing-tree planner price plans with.
 
 Counterpart of ``repro/core/costs.py``.  Every timing the optimization
 phases take (``logical._time_op`` micro-benchmarks, semantic/physical
@@ -185,6 +184,10 @@ class CostCatalog:
     def lookup(self, key: str) -> Optional[float]:
         e = self.entries.get(key)
         return e.us if e is not None else None
+
+    #: the catalog key of an op (the sharing-tree planner reads an
+    #: unstamped op's pass rate under it)
+    key_of = staticmethod(op_cost_key)
 
     def lookup_op(self, op: Op) -> Optional[float]:
         return self.lookup(op_cost_key(op))

@@ -17,9 +17,9 @@ nothing of the JAX package):
 
 The contract: faults the stack absorbs leave every answer bitwise equal
 to a fault-free run, and with ``NULL_FAULTS`` the stack is bitwise
-identical to a build without this package.  The extract server and the
-multi-stream runtime, which drive the forward-site rules and the
-breaker, come with the serving tier.
+identical to a build without this package.  ``repro_torch.scheduler``'s
+extract server drives the forward-site rules and its multi-stream
+runtime the breaker.
 """
 from __future__ import annotations
 

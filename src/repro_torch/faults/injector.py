@@ -109,7 +109,8 @@ class FaultRule:
 
 class FaultInjector:
     """A seeded fault schedule (see module docs).  Thread the instance
-    through ``OpContext.faults``; the inert ``NULL_FAULTS`` is the
+    through ``OpContext.faults`` / ``SharedExtractServer(faults=...)`` /
+    ``MultiStreamRuntime(faults=...)``; the inert ``NULL_FAULTS`` is the
     default everywhere."""
 
     enabled = True

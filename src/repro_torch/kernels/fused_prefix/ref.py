@@ -44,20 +44,31 @@ def project_rowwise(feats: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     return (feats[:, :, None] * proj[None]).sum(dim=1)
 
 
+#: A float32 square distance ``d2`` has a correctly rounded float32 square
+#: root below 70 exactly when ``d2`` is below this, the float32 just under
+#: 4900: sqrt(4900 - 2^-11) rounds up to 70.
+NEAR_D2 = 4899.99951171875
+
+
 def color_frac(x: torch.Tensor, rgb: Sequence[float]) -> torch.Tensor:
     """Per-frame fraction of pixels within RGB distance 70 of ``rgb``.
 
     Raw vs normalized is decided per frame (max <= 8 means normalized).
     The target colour enters as Python scalars, one channel at a time, so
     nothing is copied to the device and each distance is summed in channel
-    order, as the CUDA kernel sums it."""
+    order, as the CUDA kernel sums it.  The kernel's ``sqrtf(d2) < 70`` is
+    taken as ``d2 < NEAR_D2``: PyTorch's CPU ``sqrt`` is not correctly
+    rounded: about one value in a thousand is an ulp off, and on a
+    process's first multithreaded call some are off by 1e-4 of their value
+    (sqrt(4900) gave 69.983 and sqrt(4901) 69.997), which moved pixels
+    across the threshold."""
     x = x.to(torch.float32)
     norm = x.reshape(x.shape[0], -1).amax(dim=1) <= 8.0
     x = torch.where(norm[:, None, None, None], (x * 0.25 + 0.5) * 255.0, x)
     d2 = (x[:, 0] - float(rgb[0])) ** 2
     for k in range(1, x.shape[1]):
         d2 = d2 + (x[:, k] - float(rgb[k])) ** 2
-    return (torch.sqrt(d2) < 70.0).to(torch.float32).mean(dim=(1, 2))
+    return (d2 < NEAR_D2).to(torch.float32).mean(dim=(1, 2))
 
 
 def signature_feats(x: torch.Tensor, gy: int, gx: int) -> torch.Tensor:

@@ -36,40 +36,42 @@ def attention_spec(d_model: int, att: AttentionConfig) -> Dict[str, ParamSpec]:
 
 
 def _project_qkv(params: Dict[str, torch.Tensor], xq: torch.Tensor,
-                 xkv: torch.Tensor
+                 xkv: torch.Tensor, mm=torch.matmul
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """xq (B, Sq, d), xkv (B, Skv, d) -> q (B,Sq,H,Dh), k/v (B,Skv,Hk,Dh)."""
     def proj(x, w):
         d, h, dh = w.shape
-        return (x @ w.reshape(d, h * dh)).reshape(*x.shape[:-1], h, dh)
+        return mm(x, w.reshape(d, h * dh)).reshape(*x.shape[:-1], h, dh)
 
     return (proj(xq, params["wq"]), proj(xkv, params["wk"]),
             proj(xkv, params["wv"]))
 
 
 def _out_proj(params: Dict[str, torch.Tensor],
-              out: torch.Tensor) -> torch.Tensor:
+              out: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """out (B, S, H, Dh) -> (B, S, d)."""
     h, dh, d = params["wo"].shape
-    return out.reshape(*out.shape[:-2], h * dh) @ params["wo"].reshape(
-        h * dh, d)
+    return mm(out.reshape(*out.shape[:-2], h * dh),
+              params["wo"].reshape(h * dh, d))
 
 
 def attend_prefill(params: Dict[str, torch.Tensor], att: AttentionConfig,
                    x: torch.Tensor, positions: torch.Tensor, *,
-                   local: bool = False, return_kv: bool = False):
+                   local: bool = False, return_kv: bool = False,
+                   mm=torch.matmul):
     """Causal self-attention over a full sequence x (B, S, d).  A local
     layer masks its sliding window when S exceeds it (below that the window
     hides nothing), as the reference chooses.  With ``return_kv`` also the
-    rotated (k, v), (B, S, Hk, Dh) each, for the cache."""
-    q, k, v = _project_qkv(params, x, x)
+    rotated (k, v), (B, S, Hk, Dh) each, for the cache.  ``mm`` computes
+    the projections (``layers.frame_matmul`` for the stream MLLM)."""
+    q, k, v = _project_qkv(params, x, x, mm)
     q = apply_rope(q, positions, att.rotary_pct, att.rope_theta)
     k = apply_rope(k, positions, att.rotary_pct, att.rope_theta)
     window = att.window if (local and att.window is not None
                             and x.shape[1] > att.window) else None
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                           causal=True, cap=att.softcap, window=window)
-    y = _out_proj(params, out)
+    y = _out_proj(params, out, mm)
     return (y, (k, v)) if return_kv else y
 
 

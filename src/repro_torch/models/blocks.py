@@ -87,10 +87,13 @@ def block_cache_shapes(cfg: ArchConfig, kind: str, batch: int,
 def apply_block(cfg: ArchConfig, kind: str, params: Dict[str, Any],
                 x: torch.Tensor, *, mode: str, positions: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
-                lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lens: Optional[torch.Tensor] = None,
+                mm=torch.matmul) -> torch.Tensor:
     """One block: x + mixer(norm(x)) (sandwiched by a post norm when the
     config says so), then the same with the MLP.  ``cache`` (this block's
-    leaves for this period) is filled or advanced in place."""
+    leaves for this period) is filled or advanced in place.  ``mm``
+    computes the MLP's products and, in ``causal`` mode, the attention's
+    projections (``layers.frame_matmul`` for the stream MLLM)."""
     ent = _entry(kind)
     h = norm(params["pre_norm"], x, cfg.norm)
     mix = params["mixer"]
@@ -113,7 +116,7 @@ def apply_block(cfg: ArchConfig, kind: str, params: Dict[str, Any],
             cache["v"][:, :v.shape[1]] = v.to(cache["v"].dtype)
         else:
             y = attn.attend_prefill(mix, cfg.attention, h, positions,
-                                    local=local)
+                                    local=local, mm=mm)
     if cfg.post_block_norm:
         y = norm(params["post_mixer_norm"], y, cfg.norm)
     x = x + y
@@ -122,7 +125,8 @@ def apply_block(cfg: ArchConfig, kind: str, params: Dict[str, Any],
         mlp = params["mlp"]
         # the reference picks GeLU by the config's name
         act = "gelu" if cfg.name.startswith("gemma") else "silu"
-        y = apply_mlp(mlp["w_in"], mlp.get("w_gate"), mlp["w_out"], h, act)
+        y = apply_mlp(mlp["w_in"], mlp.get("w_gate"), mlp["w_out"], h, act,
+                      mm=mm)
         if cfg.post_block_norm:
             y = norm(params["post_mlp_norm"], y, cfg.norm)
         x = x + y
@@ -138,10 +142,12 @@ def _period(tree: Any, i: int) -> Any:
 def apply_stack(cfg: ArchConfig, stacked: Dict[str, Any], x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str = "causal",
                 cache: Optional[Dict[str, Any]] = None,
-                lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lens: Optional[torch.Tensor] = None,
+                mm=torch.matmul) -> torch.Tensor:
     """Run every period of the stacked weights in order.  ``cache`` is a
     dict per block key ``i{j}`` of (n_periods, B, ...) tensors, filled
-    (``prefill_cache``) or advanced (``decode``) in place."""
+    (``prefill_cache``) or advanced (``decode``) in place.  ``mm`` is
+    ``apply_block``'s."""
     _check(cfg)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; have {MODES}")
@@ -154,5 +160,5 @@ def apply_stack(cfg: ArchConfig, stacked: Dict[str, Any], x: torch.Tensor,
             x = apply_block(
                 cfg, kind, p_params[key], x, mode=mode, positions=positions,
                 cache=None if cache is None else _period(cache[key], i),
-                lens=lens)
+                lens=lens, mm=mm)
     return x

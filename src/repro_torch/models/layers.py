@@ -109,17 +109,30 @@ def mlp_spec(d_model: int, d_ff: int,
     return spec
 
 
+def frame_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (B, S, K) and w (K, N), as one batched GEMM of B
+    products of S rows each.  A plain ``x @ w`` is one GEMM of B·S rows,
+    whose algorithm cuBLAS picks by the row count (split-K among them), so
+    a row's sums would depend on how many frames share the call; here each
+    frame's product has the same shape whatever B is (on the H100, rows
+    of 4-32 frames equal their rows in a 64-frame call, where the plain
+    GEMM moved them by up to 1.7e-4).  The stream MLLM uses it, so a frame
+    coalesced by the extract server gets its solo logits bit for bit."""
+    return torch.bmm(x, w.expand(x.shape[0], *w.shape))
+
+
 def apply_mlp(w_in: torch.Tensor, w_gate: Optional[torch.Tensor],
               w_out: torch.Tensor, x: torch.Tensor,
-              act: str = "silu") -> torch.Tensor:
+              act: str = "silu", mm=torch.matmul) -> torch.Tensor:
     """``(act(x·w_in) * (x·w_gate))·w_out``, the activation on ``w_in``;
     ungated when ``w_gate`` is None.  ``act="gelu"`` is the tanh
-    approximation, as ``jax.nn.gelu``'s default.  Weights are (in, out)."""
-    h = x @ w_in
+    approximation, as ``jax.nn.gelu``'s default.  Weights are (in, out);
+    ``mm`` computes each product (``frame_matmul`` for the stream MLLM)."""
+    h = mm(x, w_in)
     h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
     if w_gate is not None:
-        h = h * (x @ w_gate)
-    return h @ w_out
+        h = h * mm(x, w_gate)
+    return mm(h, w_out)
 
 
 # --------------------------------------------------------------------------

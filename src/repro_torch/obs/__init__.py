@@ -32,7 +32,7 @@ from __future__ import annotations
 import time
 from typing import Optional
 
-from repro_torch.obs.audit import forward_gap
+from repro_torch.obs.audit import PlanAudit, forward_gap
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, Metrics
 from repro_torch.obs.report import write_flight_report
 from repro_torch.obs.slo import SLOTracker
@@ -100,6 +100,6 @@ def resolve_obs(*candidates) -> Observability:
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Metrics", "NULL_OBS", "NULL_TRACER",
-    "NullTracer", "Observability", "PHASES", "FAULT_PHASES", "SLOTracker",
-    "Tracer", "forward_gap", "resolve_obs", "write_flight_report",
+    "NullTracer", "Observability", "PHASES", "FAULT_PHASES", "PlanAudit",
+    "SLOTracker", "Tracer", "forward_gap", "resolve_obs", "write_flight_report",
 ]

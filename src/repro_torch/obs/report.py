@@ -5,9 +5,8 @@ Counterpart of ``repro/obs/report.py``.
 ``write_flight_report`` renders the run's observability surfaces — the
 per-feed SLO table, the optimizer's per-decision audit table with drift
 flags, the device-vs-observed forward gap, and headline metrics — into
-a single markdown file.  The port has no ``PlanAudit`` yet (it prices
-sharing forests, which wait for the serving tier); ``audit`` is any object
-with a ``table(metrics)`` method.
+a single markdown file.  ``audit`` is a ``PlanAudit`` (or any object
+with a ``table(metrics)`` method).
 
 Every section is optional (pass None to skip): the report renders
 whatever the caller measured, never demands surfaces a given run didn't

@@ -10,7 +10,8 @@ forward and which are answered from keyframes, with every Nth hit per
 keyframe escalated to a revalidation (model + compare).
 
 The gate is a runtime service shared by every consumer (the solo
-``MLLMExtractOp`` path keys state by op), and it is *inert* unless
+``MLLMExtractOp`` path keys state by op, the ``SharedExtractServer`` by
+feed name), and it is *inert* unless
 enabled with a positive threshold: callers check ``gate.active`` and take
 their original, bitwise-identical path when it is False.  ``device=None``
 means CUDA for the gate's ``TemporalSignature``; a fused prefix upstream

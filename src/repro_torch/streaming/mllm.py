@@ -20,7 +20,7 @@ from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.data.tollbooth import BRANDS, COLORS, PLATE_CHARS
 from repro_torch.data.volleyball import ACTIONS
 from repro_torch.models.blocks import apply_stack, stack_spec
-from repro_torch.models.layers import apply_norm
+from repro_torch.models.layers import apply_norm, frame_matmul
 from repro_torch.models.param import ParamSpec, ParamTree, init_params
 
 PLATE_LEN = 6
@@ -117,18 +117,32 @@ class StreamMLLM(ParamTree):
         b = frames.shape[0]
         patches = self._patchify(self._stem(frames.to(torch.float32)))
         n_p = patches.shape[1]
-        x_p = patches @ self.patch_proj + self.patch_pos_emb[:n_p][None]
+        # every product runs frame by frame (``frame_matmul``): a frame's
+        # logits do not depend on the batch it came in, so a row of the
+        # extract server's coalesced forward equals its solo row (on the
+        # H100 every stage of 4-32 frames equals its rows of a 64-frame
+        # forward, checked stage by stage)
+        x_p = frame_matmul(patches, self.patch_proj) \
+            + self.patch_pos_emb[:n_p][None]
         x_t = self.task_tokens[None].expand(b, -1, -1)
         x = torch.cat([x_p, x_t], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         bb = self.backbone.tree()
-        x = apply_stack(self.cfg, bb["stack"], x, positions)
+        x = apply_stack(self.cfg, bb["stack"], x, positions,
+                        mm=frame_matmul)
         x = apply_norm(bb["final_norm"]["scale"], x)
         task_h = x[:, n_p:, :]                       # (B, n_tasks, d)
         heads = self.heads.tree()
-        out = {name: task_h[:, i] @ heads[name]
+        out = {name: frame_matmul(task_h[:, i:i + 1], heads[name])[:, 0]
                for i, name in enumerate(SCALAR_TASKS)}
-        out["plate"] = task_h[:, len(SCALAR_TASKS):] @ heads["plate"]
+        # one product per plate position, each a batch of B one-row
+        # products like the scalar heads': on the H100 a frame's six rows
+        # as one product (N 36) moved with the batch count, and so did
+        # one-row products in batches of 6B once 6B passed 64
+        t0 = len(SCALAR_TASKS)
+        out["plate"] = torch.stack(
+            [frame_matmul(task_h[:, t0 + j:t0 + j + 1], heads["plate"])[:, 0]
+             for j in range(PLATE_LEN)], dim=1)
         return out                                   # plate (B, 6, 36)
 
 

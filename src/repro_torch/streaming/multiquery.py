@@ -31,8 +31,13 @@ in the reference), and, beyond the reference's synchronous path, every
 prefix operator call is an ``op:<name>`` span (category ``prefix``) and
 every fan-out a ``tail`` span, both on the ``feed:mq`` track.
 
-The reference's pipelined path (``server=``, a ``SharedExtractServer``)
-and ``from_fleet`` come with the serving tier (ROADMAP queue 1 item 6).
+Passing a ``SharedExtractServer`` (``server=``) switches ``run`` to the
+*pipelined* serving path: the shared prefix suspends at its extract op,
+the forward is dispatched through the server (on its own CUDA stream), and
+the next micro-batch's source pull, prefix ops and tail fan-out overlap
+it: the dispatch/poll/resume protocol of ``MultiStreamRuntime``, under the
+feed label ``mq``.  Outputs equal the synchronous path's (``server=None``,
+the default).  ``from_fleet`` serves one feed of a ``FleetResult``.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.obs import NULL_OBS
@@ -139,16 +145,15 @@ class MultiQueryResult:
 class MultiQueryRuntime(RunScaffold):
     """Runs N plans over one stream with a shared prefix.  ``ctx=None``
     builds a model-less ``OpContext`` on CUDA (raising where CUDA is
-    absent).  ``server=`` (the pipelined path) is not ported yet."""
+    absent).  ``server=`` (a ``SharedExtractServer``) takes the pipelined
+    path; ``max_pending`` bounds its outstanding continuations and
+    ``coalesce_frames`` (default: one micro-batch) is its dispatch
+    window."""
 
     def __init__(self, plans: List[Plan], ctx: Optional[OpContext] = None,
                  micro_batch: int = 16, parallel_tails: bool = True,
-                 server=None):
-        if server is not None:
-            raise NotImplementedError(
-                "MultiQueryRuntime(server=...): the pipelined path through "
-                "a SharedExtractServer comes with the serving tier "
-                "(ROADMAP queue 1 item 6); pass server=None")
+                 server=None, max_pending: int = 2,
+                 coalesce_frames: Optional[int] = None):
         # local import: repro_torch.core pulls in the optimizer stack
         from repro_torch.core.multiquery import factor_plans
 
@@ -158,6 +163,31 @@ class MultiQueryRuntime(RunScaffold):
                             micro_batch, self._all_ops())
         for tail in self.shared.tails:
             assert isinstance(tail[-1], SinkOp), "tails must end in a Sink"
+        #: pipelined serving (a SharedExtractServer); None keeps the
+        #: synchronous in-line extract path
+        self.server = server
+        self.max_pending = max_pending
+        #: dispatch once this many frames are queued; a single feed fills
+        #: one micro-batch per pull, so default to shipping every batch
+        self.coalesce_frames = coalesce_frames if coalesce_frames is not None \
+            else micro_batch
+        self._gexec = None
+        if server is not None:
+            # deferred: repro_torch.scheduler imports this module
+            from repro_torch.scheduler.multistream import _GroupExec
+
+            self._gexec = _GroupExec(self.shared, self.ctx, server,
+                                     feed="mq",
+                                     parallel_tails=parallel_tails,
+                                     open_ops=False)
+
+    @classmethod
+    def from_fleet(cls, fleet, feed: str, ctx: OpContext,
+                   **kw) -> "MultiQueryRuntime":
+        """Serve one feed of a ``repro_torch.core.fleet.FleetResult``: the
+        fleet optimizer canonicalized the plans' prefixes, so factoring
+        here recovers the sharing the joint optimizer planned for."""
+        return cls([p.clone() for p in fleet.plans_by_feed[feed]], ctx, **kw)
 
     def _all_ops(self) -> List[Op]:
         ops = list(self.shared.prefix)
@@ -167,13 +197,17 @@ class MultiQueryRuntime(RunScaffold):
 
     # ------------------------------------------------------------------
     def snapshot(self) -> Dict[str, Any]:
-        # the solo path's gate state rides the extract op's own snapshot
-        return {
+        st = {
             "source_index": self._source_index,
             "prefix": [op.snapshot() for op in self.shared.prefix],
             "tails": [[op.snapshot() for op in tail]
                       for tail in self.shared.tails],
         }
+        if self.server is not None and self.server.gate is not None:
+            # the server path gates under this runtime's feed label; the
+            # solo path's gate state rides the extract op's own snapshot
+            st["gate"] = self.server.gate.snapshot_feed("mq")
+        return st
 
     def restore(self, st: Dict[str, Any]) -> None:
         self._source_index = st["source_index"]
@@ -182,6 +216,9 @@ class MultiQueryRuntime(RunScaffold):
         for tail, states in zip(self.shared.tails, st["tails"]):
             for op, s in zip(tail, states):
                 op.restore(s)
+        if st.get("gate") is not None and self.server is not None \
+                and self.server.gate is not None:
+            self.server.gate.restore_feed("mq", st["gate"])
         self._mark_restored()
 
     # ------------------------------------------------------------------
@@ -220,6 +257,8 @@ class MultiQueryRuntime(RunScaffold):
     # ------------------------------------------------------------------
     def run(self, stream, n_frames: int, warmup: int = 1,
             flush: bool = True) -> MultiQueryResult:
+        if self.server is not None:
+            return self._run_pipelined(stream, n_frames, warmup, flush)
         sinks = [tail[-1] for tail in self.shared.tails]
         for sink in sinks:
             sink.collected = []
@@ -264,6 +303,89 @@ class MultiQueryRuntime(RunScaffold):
                              windows, prefix_mllm_start, tail_mllm_start)
 
     # ------------------------------------------------------------------
+    def _run_pipelined(self, stream, n_frames: int, warmup: int,
+                       flush: bool) -> MultiQueryResult:
+        """Dispatch-ahead serving through the SharedExtractServer: the
+        prefix suspends at its extract, the forward runs on the server's
+        stream, and the next micro-batch's host work overlaps it.
+        ``max_pending`` bounds outstanding continuations; resume order is
+        FIFO, so outputs equal the synchronous path's."""
+        from repro_torch.scheduler.extract_server import settle_fifo
+
+        g = self._gexec
+        g.begin_run()
+        labels_all: List[Dict[str, Any]] = []
+        pendings: List[tuple] = []
+
+        def resume(lane, p):
+            return lane.resume(p)
+
+        def drain_pendings():
+            nonlocal pendings
+            while pendings:
+                self.server.drain()
+                pendings, _ = settle_fifo(pendings, resume)
+
+        def warm_advance(batch):
+            p = g.start(batch)
+            if p is not None:
+                pendings.append((g, p))
+            drain_pendings()
+
+        fresh = warmup and not self._restored
+        self._begin_run(stream, warmup, warm_advance, self._all_ops())
+        if fresh:
+            g.reset_accumulators()
+            if self.server.gate is not None:
+                self.server.gate.reset("mq")   # no warmup keyframe leaks
+            self.server.reset_stats()
+        prefix_mllm_start = mllm_frames_of(self.shared.prefix)
+        tail_mllm_start = [mllm_frames_of(tail)
+                           for tail in self.shared.tails]
+
+        def settle() -> int:
+            nonlocal pendings
+            pendings, resumed = settle_fifo(pendings, resume)
+            return resumed
+
+        base = self._source_index
+        done = 0
+        obs = self.obs
+        t0 = time.perf_counter()
+        while done < n_frames or pendings:
+            progressed = False
+            if done < n_frames and len(pendings) < self.max_pending:
+                take = min(self.micro_batch, n_frames - done)
+                t_pull = obs.now() if obs.enabled else 0
+                frames, labels = stream.batch(take)
+                labels_all.extend(labels)
+                batch = {"frames": frames,
+                         "idx": np.arange(base + done, base + done + take)}
+                done += take
+                self._stamp(batch)
+                if obs.enabled:
+                    t_arr = obs.now()
+                    obs.tracer.span("ingest", "ingest", t_pull, t_arr,
+                                    track="feed:mq", n=take)
+                    batch["_obs_t0"] = t_arr
+                    batch["_obs_n"] = take
+                    g.arrival[0] = t_arr
+                p = g.start(batch)
+                if p is not None:
+                    pendings.append((g, p))
+                progressed = True
+            self.server.pump(progressed, self.coalesce_frames, settle)
+        drain_pendings()
+        if flush:
+            g.flush()
+        if self.ctx.device.type == "cuda":
+            torch.cuda.synchronize(self.ctx.device)
+        wall = time.perf_counter() - t0
+        return self._collect(wall, n_frames, labels_all, g.pcounts,
+                             g.counts, g.windows, prefix_mllm_start,
+                             tail_mllm_start)
+
+    # ------------------------------------------------------------------
     def _collect(self, wall: float, n_frames: int, labels_all,
                  pcounts, counts, windows, prefix_mllm_start,
                  tail_mllm_start) -> MultiQueryResult:
@@ -271,6 +393,8 @@ class MultiQueryRuntime(RunScaffold):
         n_q = len(self.shared.tails)
         if self.obs.enabled:
             self.obs.metrics.set_gauge("run/wall_s", wall)
+            if self.server is not None:
+                self.obs.metrics.ingest("server", self.server.stats)
         prefix_mllm = mllm_frames_of(self.shared.prefix) - prefix_mllm_start
         per_query: Dict[str, RunResult] = {}
         total_mllm = prefix_mllm

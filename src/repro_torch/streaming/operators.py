@@ -158,11 +158,17 @@ class SinkOp(Op):
 
     def process(self, batch: Batch) -> Batch:
         n = len(batch["idx"])
-        for i in range(n):
-            rec = {"idx": int(batch["idx"][i])}
-            for k, v in batch.get("attrs", {}).items():
-                rec[k] = np.asarray(v[i]).tolist()
-            self.collected.append(rec)
+        if not batch.get("_suppress_sink"):
+            # quarantine-recovery replay (``MultiStreamRuntime._replay``):
+            # frames re-driven to rebuild operator state were already
+            # accounted (served before the trip, or degraded/dropped
+            # during it); collecting their records again would serve them
+            # twice
+            for i in range(n):
+                rec = {"idx": int(batch["idx"][i])}
+                for k, v in batch.get("attrs", {}).items():
+                    rec[k] = np.asarray(v[i]).tolist()
+                self.collected.append(rec)
         if "window_results" in batch:
             self.collected.extend(batch["window_results"])
         return batch

@@ -9,8 +9,11 @@ and the CUDA kernel's host-side plan (the stage descriptor, and its
 layout over a thread-block cluster's banded shared memory) is rehearsed
 here by replaying it with the plain stage functions.
 """
-import contextlib
 import copy
+import os
+import subprocess
+import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -113,6 +116,79 @@ def test_fused_prefix_ref_matches_reference(case):
                 assert tuple(o.shape) == tuple(r.shape), name
                 assert str(o.dtype).split(".")[-1] == str(r.dtype), name
                 _close(o, r)
+
+
+def _threshold_frames():
+    """Two raw frames of pixels at squared distance 4899, 4900 and 4901
+    from (190, 40, 40), and two normalized frames whose red channel steps
+    through consecutive float32 values across distance 70; the exact count
+    of each (numpy's float32 arithmetic in the colour filter's order, and
+    its correctly rounded square root)."""
+    a = np.arange(256)
+    d = ((a[:, None, None] - 190) ** 2 + (a[None, :, None] - 40) ** 2
+         + (a[None, None, :] - 40) ** 2)
+    px = np.concatenate([np.argwhere(d == t) for t in (4899, 4900, 4901)])
+    raw = np.resize(px, (2, 128 * 256, 3)).transpose(0, 2, 1)
+    raw = raw.reshape(2, 3, 128, 256).astype(np.uint8)
+    at = np.float32((120.0 / 255.0 - 0.5) / 0.25)
+    steps = np.arange(-(64 * 256), 64 * 256, dtype=np.int32)
+    red = (at.view(np.int32) + steps).view(np.float32)
+    norm = np.empty((2, 3, 128, 256), np.float32)
+    norm[:, 0] = red.reshape(128, 256)
+    norm[:, 1:] = np.float32((40.0 / 255.0 - 0.5) / 0.25)
+    counts = []
+    for f in (raw, norm):
+        x = f.astype(np.float32)
+        if f.dtype == np.float32:
+            x = (x * np.float32(0.25) + np.float32(0.5)) * np.float32(255.0)
+        d2 = (x[:, 0] - np.float32(190.0)) ** 2
+        d2 = d2 + (x[:, 1] - np.float32(40.0)) ** 2
+        d2 = d2 + (x[:, 2] - np.float32(40.0)) ** 2
+        counts.append((np.sqrt(d2) < np.float32(70.0)).sum(axis=(1, 2)))
+    return (raw, norm), counts
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_color_frac_counts_the_threshold_exactly(threads):
+    """The plain colour count equals the exact one (the CUDA kernel's
+    IEEE ``sqrtf(d2) < 70``) at the threshold, on one thread and on
+    several."""
+    frames, counts = _threshold_frames()
+    assert all(0 < c.min() and c.max() < 128 * 256 for c in counts)
+    n = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        for f, want in zip(frames, counts):
+            got = color_frac(torch.from_numpy(f), (190., 40., 40.))
+            assert np.array_equal(np.rint(got.numpy() * 128 * 256), want)
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_color_frac_first_multithreaded_call_is_exact():
+    """A process's first multithreaded colour count, where PyTorch's CPU
+    ``sqrt`` has been seen to return sqrt(4900) as 69.983 (on all of a
+    thread's rows, in about one process in ten on 8 threads): four fresh
+    interpreters, on PyTorch's default thread count, each count the
+    threshold frames on their first call."""
+    code = ("import sys, numpy as np, torch;"
+            "from repro_torch.kernels.fused_prefix.ref import color_frac;"
+            "f = np.load(sys.argv[1]);"
+            "print(int((color_frac(torch.from_numpy(f), (190., 40., 40.))"
+            " * f.shape[2] * f.shape[3]).round().sum()))")
+    frames, counts = _threshold_frames()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        for i, f in enumerate(frames * 2):
+            path = os.path.join(tmp, f"f{i}.npy")
+            np.save(path, f)
+            runs.append((subprocess.Popen(
+                [sys.executable, "-c", code, path], env=env,
+                stdout=subprocess.PIPE, text=True), counts[i % 2].sum()))
+        for proc, want in runs:
+            out, _ = proc.communicate(timeout=120)
+            assert proc.returncode == 0 and int(out) == want
 
 
 def test_out_frame_shape_matches_reference():
@@ -575,21 +651,6 @@ _PATH_SPEC = (("diff", (4, 8)), ("preprocess", (64, 0, 64, 256), 2, False),
               ("color", (190., 40., 40.), None))
 
 
-@contextlib.contextmanager
-def _one_thread():
-    """The bitwise replays run PyTorch's CPU kernels on one thread: with
-    several, a first call of the colour chain in a process now and then
-    counts a pixel or two more (about one process in ten, seen with
-    PyTorch 2.13 on the CPU; never on one thread), so two evaluations of
-    the same plain function on the same frames can differ."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
 def _check_replay(got, want, spec):
     d, fracs, x, feats = got
     assert (d is None) == (want[0] is None)
@@ -624,12 +685,11 @@ def test_kernel_descriptor_replays_the_plain_version(spec):
     ff, pf = ft.to(torch.float32), pt.to(torch.float32)
     plan = pk.cluster_plan(stages, (3, 128, 256), 1)
     plan32 = pk.cluster_plan(stages, (3, 128, 256), 4)
-    with _one_thread():
-        want = fused_prefix_ref(ft, pt, None, spec=spec[:-1])
-        _check_replay(_replay(stages, ft, pt), want, spec)
-        _check_replay(_replay_cluster(plan, ft, pt), want, spec)
-        _check_replay(_replay_cluster(plan32, ff, pf),
-                      fused_prefix_ref(ff, pf, None, spec=spec[:-1]), spec)
+    want = fused_prefix_ref(ft, pt, None, spec=spec[:-1])
+    _check_replay(_replay(stages, ft, pt), want, spec)
+    _check_replay(_replay_cluster(plan, ft, pt), want, spec)
+    _check_replay(_replay_cluster(plan32, ff, pf),
+                  fused_prefix_ref(ff, pf, None, spec=spec[:-1]), spec)
     struct = pk._spec_struct(plan)
     assert struct.n == len(stages) and struct.st[0].kind == stages[0]["kind"]
     assert struct.blocks == pk.BLOCKS and struct.smem == plan["smem"]
@@ -657,9 +717,8 @@ def test_cluster_plan_replays_ragged_frames(shape, spec, blocks):
     spec, _ = _with_sig(spec, shape)
     stages, _ = pk.compile_spec(spec, shape)
     plan = pk.cluster_plan(stages, shape, 1, blocks=blocks)
-    with _one_thread():
-        _check_replay(_replay_cluster(plan, f, p),
-                      fused_prefix_ref(f, p, None, spec=spec[:-1]), spec)
+    _check_replay(_replay_cluster(plan, f, p),
+                  fused_prefix_ref(f, p, None, spec=spec[:-1]), spec)
 
 
 def test_cluster_plan_refuses_a_frame_beyond_the_budget():

@@ -37,7 +37,9 @@ def test_port_modules_were_found():
             "chatglm3_6b.py", "glm4_9b.py", "phi3_mini_3_8b.py",
             "multiquery.py", "gate.py", "cache.py", "admission.py",
             "tracer.py", "metrics.py", "slo.py", "report.py", "audit.py",
-            "injector.py", "breaker.py", "chip_smoke.py"} <= names
+            "injector.py", "breaker.py", "chip_smoke.py",
+            "sharing_tree.py", "extract_server.py", "multistream.py",
+            "fleet.py"} <= names
     kernels = {p.parent.name for p in FILES if p.name == "kernel.py"}
     assert {"decode_attention", "ssd_scan", "flash_attention",
             "int8_matmul"} <= kernels

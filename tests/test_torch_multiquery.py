@@ -59,8 +59,9 @@ def contexts():
 
 @pytest.fixture(autouse=True)
 def one_thread():
-    """The colour filter's plain count on the CPU can differ by a pixel on
-    a process's first multithreaded call; compare on one thread."""
+    """Small CPU runs on one thread, beside JAX's runtime and the suite's
+    other worker processes; the colour count is exact at any thread count
+    (``tests/test_torch_fused_prefix.py``)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -187,10 +188,23 @@ def test_reduced_set_factors_through_the_merged_extract():
     assert set(sh.prefix[-1].tasks) == {"present", "color", "plate"}
 
 
-def test_server_path_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        MultiQueryRuntime([get_query("Q2").naive_plan()],
-                          OpContext(device="cpu"), server=object())
+def test_server_path_is_not_ported(contexts):
+    """The name is historical: the server path (``server=``, a
+    ``SharedExtractServer``) is ported now and equals the synchronous
+    path bit for bit (``tests/test_torch_serving.py`` holds it against the
+    reference)."""
+    from repro_torch.scheduler import SharedExtractServer
+
+    ctx = contexts[1]
+    piped = MultiQueryRuntime([get_query(q).naive_plan() for q in MQ_QIDS],
+                              ctx, micro_batch=MB,
+                              server=SharedExtractServer(ctx)).run(
+        TollBoothStream(seed=4), 16)
+    sync = MultiQueryRuntime([get_query(q).naive_plan() for q in MQ_QIDS],
+                             ctx, micro_batch=MB).run(
+        TollBoothStream(seed=4), 16)
+    for q in MQ_QIDS:
+        _same_run(piped.per_query[q], sync.per_query[q])
 
 
 def test_flush_ops_terminal_receives_propagated_batches():
