@@ -149,6 +149,32 @@ Phases (any failure exits non-zero and prints no result line):
      ``PlanAudit``'s table and ``forward_gap`` from the server's
      ``forward_device_ms`` probes.  Phase 2 also checks and times
      flash_attention at the server's coalesced buckets, B 32 and B 64.
+ 18. training on the card (after phase 12): (a) flash_attention's
+     backward kernel (``csrc/flash_attention_bwd.cu``, through the
+     ``autograd.Function`` that launches the forward with its log-sum-exp)
+     at the path shapes (the stream MLLMs' frame sizes, chatglm3-6b's
+     micro-batch), every head dim with groups 1, 2, 16 and 64, ragged S,
+     bidirectional, capped and windowed: dQ, dK, dV within TOL of the
+     plain version's autograd and, against float64, within BWD_WITNESS
+     times the plain version's error plus BWD_FLOOR of the largest
+     gradient; two launches equal bit for bit; the backward timed alone
+     and with its forward beside the plain version's autograd and SDPA's
+     fp32 backward (timed only); (d) ``launch/train.py --arch
+     chatglm3-6b --int8-opt --steps 3 --batch 16 --seq 64 --grad-accum 2``
+     in its own process at full width and depth: finite losses, step
+     seconds, peak memory, the forward-with-lse and backward launches
+     28 x 2 x 3 (``chatglm3_train``); (b) ``train_stream_models`` on the
+     card at PRETRAIN_STEPS (``stream_pretrain``): each model's mean loss
+     over its last LOSS_WINDOW steps below its first, launches = layers x
+     steps (the teacher's forwards apart), then Q8's naive plan over 512
+     frames with the trained models (``q8_trained``), its score beside
+     phase 3's; (c) the big MLLM's first three ``_train`` steps on the
+     card, each step's loss and gradients against the CPU's on the same
+     parameters (loss within 1e-3; a gradient leaf within 1e-3 of its
+     largest |g| or no farther than twice the plain attention on the
+     card; ``mllm_train_vs_cpu``); (e) a stream-MLLM ``Trainer`` saved
+     and restored on the card replays the next five losses
+     (``mllm_resume``).  cuDNN runs deterministic algorithms in phase 18.
 
 Each phase that drives a plan zeroes the kernels' launch counts first and
 reads them after; a kernel of the plan that was never launched fails the
@@ -195,9 +221,14 @@ FLASH_OPS_S = TF32_OPS_S / 3
 # decode_attention: the reference sweep's fp32 tolerance; ssd_scan its SSD
 # sweep's (sums of up to 256 products in another order); int8_matmul none:
 # its int32 sums are exact and both versions round (acc * sx) * sw alike
+# flash_attention_lse: the forward's (its log-sum-exp sums the same
+# exponentials); flash_attention_bwd: relative to the largest gradient,
+# the forward's (sums of up to G x S products in other orders; phase 18
+# also holds it to float64)
 TOL = {"frame_diff": 1e-6, "fused_preprocess": 1e-5, "flash_attention": 2e-5,
        "fused_prefix": 1e-5, "decode_attention": 2e-5, "ssd_scan": 1e-4,
-       "int8_matmul": 0.0}
+       "int8_matmul": 0.0, "flash_attention_lse": 2e-5,
+       "flash_attention_bwd": 2e-5}
 KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
     "frame_diff": ("frame_diff_u8",
                    "src/repro_torch/kernels/csrc/frame_diff.cu",
@@ -219,6 +250,17 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
     "int8_matmul": ("int8_mma_f32",
                     "src/repro_torch/kernels/csrc/int8_matmul.cu",
                     "src/repro/kernels/int8_matmul/kernel.py:36"),
+    # training (phase 18): the forward's entry point that also writes each
+    # row's log-sum-exp, and the backward (the TPU package differentiates
+    # plain jnp: no Pallas backward; it is the gradient of the kernel at
+    # kernel.py:94)
+    "flash_attention_lse": ("flash_attention_lse_f32",
+                            "src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:94"),
+    "flash_attention_bwd": ("flash_attention_bwd_f32",
+                            "src/repro_torch/kernels/csrc/"
+                            "flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:94"),
 }
 #: a kernel's other launches, each its own C entry point with its own
 #: count, made once with every launch of the kernel's entry above
@@ -233,7 +275,9 @@ PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
          "q8_reduced_faulted", "serve_pipelined", "serve_lockstep",
          "serve_gated", "serve_faulted", "serve_fleet", "gemma2_serve",
          "mamba2_serve",
-         "chatglm3_serve", "chatglm3_int8", "chatglm3_dequant_serve")
+         "chatglm3_serve", "chatglm3_int8", "chatglm3_dequant_serve",
+         "chatglm3_train", "stream_pretrain", "q8_trained",
+         "mllm_train_vs_cpu", "mllm_resume")
 #: the volleyball stream's seed (Q10-Q13); TollBooth's is STREAM_SEED
 VOLLEYBALL_SEED = 3
 #: the semantic gate's threshold on the card (phase 15)
@@ -377,7 +421,9 @@ def timing(t):
     return {"ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
-            **{k: t[k] for k in ("launch_floor_ms",) if k in t}}
+            **{k: t[k] for k in t if k in ("launch_floor_ms",
+                                            "library_expanded_ms")
+               or k.startswith("fwd_bwd_")}}
 
 
 def bound(nbytes: float, ops: float, ops_s: float = FP32_OPS_S):
@@ -2597,6 +2643,521 @@ def chatglm3_int8(dev, rows):
     return serving, counts, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training on the card
+# ---------------------------------------------------------------------------
+
+#: (a) the backward's gate: against float64, each of dQ, dK, dV of the
+#: kernel no farther than BWD_WITNESS times the fp32 plain version's
+#: autograd (on the same card), plus BWD_FLOOR of the largest float64
+#: gradient (a few ulps of it, where the plain version happens to land on
+#: float64's rounding)
+BWD_WITNESS, BWD_FLOOR = 2.0, 1e-6
+#: (a) the backward's path shapes, (B, S, H, Hk, D), as pretraining's
+#: batches give them (patches of 16 plus 12 task tokens): the big stream
+#: MLLM's ``_make_mllm_batches`` at the full frame (128 x 256), the crop
+#: (64 x 256), the crop /2 (32 x 128) and volleyball /2 (64 x 128); the small
+#: one's ``_make_distill_batches`` at the crop /2 and volleyball /2 (the only
+#: frames it trains on); chatglm3-6b's micro-batch of 8 x 64 tokens
+BWD_PATH = {"mllm_s140": (16, 140, 8, 4, 32), "mllm_s76": (16, 76, 8, 4, 32),
+            "mllm_s28": (16, 28, 8, 4, 32), "mllm_s44": (16, 44, 8, 4, 32),
+            "small_s28": (16, 28, 4, 4, 32), "small_s44": (16, 44, 4, 4, 32),
+            "chatglm3_b8_s64": (8, 64, 32, 2, 128)}
+#: (b) pretraining's steps: the big MLLM, the distilled small one, TinyDet
+#: (the reference's defaults are 1600 / 500 / 250)
+PRETRAIN_STEPS = (400, 150, 100)
+#: (b) losses are compared as the mean of the first and of the last
+#: LOSS_WINDOW steps
+LOSS_WINDOW = 20
+#: (c) card == CPU: the big MLLM's steps, and its tolerance (ROADMAP,
+#: "Tolerances": the big MLLM's logits drift up to 5.1e-4 in fp32); a
+#: gradient leaf may instead be as far as BWD_WITNESS times the plain
+#: attention's on the card (``mllm_card_vs_cpu``)
+CARD_CPU_STEPS, CARD_CPU_TOL = 3, 1e-3
+#: (d) the reference launcher's recipe at full width and depth
+CHATGLM3_TRAIN = ("--arch", "chatglm3-6b", "--int8-opt", "--steps", "3",
+                  "--batch", "16", "--seq", "64", "--grad-accum", "2")
+#: (e) the replay's tolerance, the reference test's
+REPLAY_RTOL, REPLAY_ATOL = 1e-4, 1e-5
+
+
+def flash64(q, k, v, causal=True, cap=None, window=None):
+    """flash attention in float64 from the same inputs, differentiable (the
+    plain version's arithmetic, float64 throughout)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    return flash_attention_plain(q.double(), k.double(), v.double(),
+                                 causal=causal, cap=cap, window=window)
+
+
+def visible_pairs(s, causal=True, window=None):
+    qpos = torch.arange(s)[:, None]
+    kpos = torch.arange(s)[None, :]
+    mask = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return int(mask.sum())
+
+
+def grads_of(fn, q, k, v, dout, **kw):
+    """(out, dq, dk, dv) of ``fn`` by autograd at ``dout``."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves, **kw)
+    out.backward(dout.to(out.dtype))
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+def flash_bwd_check(label, q, k, v, dout, kw):
+    """The kernels' gradient (``ops.flash_attention``: the forward with its
+    log-sum-exp, then the backward) against the plain version's autograd
+    in fp32 on the card and in float64: within ``TOL`` of the plain one
+    (relative to its largest gradient) and within the float64 gate; a
+    second launch equal bit for bit.  Also the training forward's log-sum-
+    exp against the plain one."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_lse_plain, flash_attention_plain)
+
+    got = grads_of(flash_attention, q, k, v, dout, **kw)
+    again = grads_of(flash_attention, q, k, v, dout, **kw)
+    plain = grads_of(flash_attention_plain, q, k, v, dout, **kw)
+    f64 = grads_of(flash64, q, k, v, dout, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash_attention_bwd {label}: two launches differ")
+    worst = 0.0
+    for name, g, p, w in zip(("out", "dq", "dk", "dv"), got, plain, f64):
+        scale = max(w.abs().max().item(), 1e-30)
+        err_k = (g.double() - w).abs().max().item()
+        err_p = (p.double() - w).abs().max().item()
+        vs_plain = (g - p).abs().max().item()
+        check(torch.isfinite(g).all(),
+              f"flash_attention_bwd {label} {name}: not finite")
+        if name == "out":
+            continue
+        tol = TOL["flash_attention_bwd"] * max(p.abs().max().item(), 1.0)
+        check(vs_plain <= tol, f"flash_attention_bwd {label} {name}: "
+              f"{vs_plain:.3e} from the plain version (tol {tol:.3e})")
+        check(err_k <= BWD_WITNESS * err_p + BWD_FLOOR * scale,
+              f"flash_attention_bwd {label} {name}: {err_k:.3e} from "
+              f"float64 against the plain version's {err_p:.3e}")
+        worst = max(worst, err_k / max(err_p, BWD_FLOOR * scale))
+        ERRS["flash_attention_bwd"] = max(ERRS["flash_attention_bwd"],
+                                          vs_plain)
+    with torch.no_grad():
+        out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+        want_out, want_lse = flash_attention_lse_plain(q, k, v, **kw)
+    compare("flash_attention_lse", out, want_out, f"{label} out")
+    compare("flash_attention_lse", lse, want_lse, f"{label} lse")
+    print(f"  flash_attention_bwd {label:44s} vs plain "
+          f"{ERRS['flash_attention_bwd']:.3e}, vs float64 at most "
+          f"{worst:.2f}x the plain version's (gate {BWD_WITNESS:g}x + "
+          f"{BWD_FLOOR:g} max|g|)")
+
+
+def bwd_timing(label, b, s, h, hk, d):
+    """Device ms at one path shape: the backward alone (``autograd.grad``
+    of a retained graph) and forward + backward, of the kernels, of the
+    plain version's autograd and of SDPA's fp32 backward (one call with
+    ``enable_gqa``, causal; timed only), with the backward's bound; and the
+    training forward (with its log-sum-exp) against its plain version."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_lse_plain, flash_attention_plain)
+
+    gen = torch.Generator().manual_seed(b * s + d)
+    q, k, v, dout = (torch.randn(shape, generator=gen).to("cuda") for shape
+                     in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d),
+                         (b, s, h, d)))
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    t = {}
+    for name, fn in (("ms", flash_attention), ("plain_ms",
+                                               flash_attention_plain),
+                     ("library_ms", sdpa)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves)
+        t[name] = device_ms(lambda: torch.autograd.grad(
+            out, leaves, dout, retain_graph=True), n=20)
+
+        def both():
+            ls = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            torch.autograd.grad(fn(*ls), ls, dout)
+
+        t[f"fwd_bwd_{name}"] = device_ms(both, n=10)
+    # SDPA on kv heads repeated before the timing, printed beside the one
+    # call: another kernel where G > 1 in fp32, and a backward without the
+    # group's sum of dK and dV
+    kx, vx = (x.repeat_interleave(h // hk, dim=2) for x in (k, v))
+    leaves = [x.clone().requires_grad_(True) for x in (q, kx, vx)]
+    out = sdpa(*leaves)
+    t["library_expanded_ms"] = device_ms(lambda: torch.autograd.grad(
+        out, leaves, dout, retain_graph=True), n=20)
+    pairs = b * h * visible_pairs(s)
+    nbytes = 4 * (4 * q.numel() + 4 * k.numel() + b * h * s)
+    t["bound"] = bound(nbytes, 10 * d * pairs, FLASH_OPS_S)
+    print(f"  flash_attention_bwd {label} B{b} S{s} H{h}/{hk} D{d}: "
+          f"backward kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
+          f"SDPA {t['library_ms']:.4f} (on repeated kv heads "
+          f"{t['library_expanded_ms']:.4f}), bound {t['bound'][0]:.5f} "
+          f"({t['bound'][1]}); forward + backward {t['fwd_bwd_ms']:.4f}, "
+          f"plain {t['fwd_bwd_plain_ms']:.4f}, SDPA "
+          f"{t['fwd_bwd_library_ms']:.4f}")
+    fwd = dict(
+        ms=device_ms(lambda: flash_attention_cuda(q, k, v, lse=True)),
+        plain_ms=device_ms(lambda: flash_attention_lse_plain(q, k, v)),
+        library_ms=device_ms(lambda: sdpa(q, k, v)),
+        library_expanded_ms=device_ms(lambda: sdpa(q, kx, vx)),
+        bound=bound(4 * (2 * q.numel() + 2 * k.numel() + b * h * s),
+                    4 * d * pairs, FLASH_OPS_S))
+    print(f"  flash_attention_lse {label}: kernel {fwd['ms']:.4f} ms, plain "
+          f"{fwd['plain_ms']:.4f}, SDPA {fwd['library_ms']:.4f} (on "
+          f"repeated kv heads {fwd['library_expanded_ms']:.4f}), bound "
+          f"{fwd['bound'][0]:.5f} ({fwd['bound'][1]})")
+    return t, fwd
+
+
+def flash_bwd_checks(dev, rows):
+    """Phase 18 (a): the backward at the path shapes, every head dim with
+    groups 1, 2, 16 and 64, ragged S, bidirectional, capped and windowed;
+    then its times at the path shapes."""
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+
+    gen = torch.Generator().manual_seed(18)
+
+    def inputs(b, s, h, hk, d):
+        return [torch.randn(shape, generator=gen).to(dev) for shape in
+                ((b, s, h, d), (b, s, hk, d), (b, s, hk, d), (b, s, h, d))]
+
+    cases = [(label, shape, dict(causal=True))
+             for label, shape in BWD_PATH.items()]
+    cases += [(f"D{d} G{g} S{s}", (1, s, g * (1 if g == 64 else 2),
+                                   1 if g == 64 else 2, d), kw)
+              for d in HEAD_DIMS for g in (1, 2, 16, 64) for s in (33, 130)
+              for kw in (dict(causal=True),)]
+    cases += [(f"D{d} S{s} {name}", (2, s, 8, 2, d), kw)
+              for d in (32, 128, 256) for s in (45, 129)
+              for name, kw in (("bidirectional", dict(causal=False)),
+                               ("cap 20", dict(causal=True, cap=20.0)),
+                               ("window 7", dict(causal=True, window=7)),
+                               ("bidirectional window 9",
+                                dict(causal=False, window=9)))]
+    for label, shape, kw in cases:
+        q, k, v, dout = inputs(*shape)
+        flash_bwd_check(f"{label} {kw}", q, k, v, dout, kw)
+    bwd, lse = {}, {}
+    for label, shape in BWD_PATH.items():
+        bwd[label], lse[label] = bwd_timing(label, *shape)
+    top = "mllm_s140"
+    rows["flash_attention_bwd"] = {**bwd[top], **{
+        k: v for k, v in bwd.items() if k != top}}
+    rows["flash_attention_lse"] = {**lse[top], **{
+        k: v for k, v in lse.items() if k != top}}
+
+
+class IndexedBatches:
+    """A fixed list of batches read in order; the index is the state, so a
+    restored trainer replays exactly (``Trainer``'s data interface)."""
+
+    def __init__(self, batches):
+        self.batches, self.index = batches, 0
+
+    def state(self):
+        return {"index": np.asarray(self.index)}
+
+    def set_state(self, st):
+        self.index = int(st["index"])
+
+    def next_batch(self):
+        b = self.batches[self.index % len(self.batches)]
+        self.index += 1
+        return b
+
+
+def falling(label, losses):
+    first = float(np.mean(losses[:LOSS_WINDOW]))
+    last = float(np.mean(losses[-LOSS_WINDOW:]))
+    print(f"  {label}: {len(losses)} steps, mean loss of the first "
+          f"{LOSS_WINDOW} {first:.4f}, of the last {LOSS_WINDOW} {last:.4f}")
+    check(last < first, f"{label}: the loss did not fall ({first:.4f} -> "
+          f"{last:.4f})")
+
+
+def pretrain_phase(dev, q8_random_score):
+    """Phase 18 (b): ``train_stream_models`` on the card, then Q8's naive
+    plan with the trained models.  Returns the launch counts by path and a
+    summary."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.queries.catalog import QUERIES
+    from repro_torch.streaming.pretrain import train_stream_models
+
+    steps = dict(zip(("mllm", "distill", "tinydet"), PRETRAIN_STEPS))
+    stats = {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ctx = train_stream_models(steps_mllm=steps["mllm"],
+                              steps_small=steps["distill"],
+                              steps_det=steps["tinydet"], cache_dir=None,
+                              verbose=False, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"  train_stream_models on the card: {seconds:.1f} s, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for label, st in stats.items():
+        print(f"  {label}: {st['seconds']:.2f} s, "
+              f"{len(st['losses']) / st['seconds']:.2f} steps/s")
+        falling(label, st["losses"])
+    big = ctx.mllm.cfg.n_layers
+    small = ctx.mllm_small.cfg.n_layers
+    # a distillation step runs the student once: its logits feed both the
+    # KL term and its supervised loss
+    trained = big * steps["mllm"] + small * steps["distill"]
+    want = {"flash_attention_lse_f32": trained,
+            "flash_attention_bwd_f32": trained,
+            "flash_attention_f32": big * steps["distill"]}   # the teacher
+    for symbol, n in want.items():
+        check(counts[symbol] == n, f"pretrain: {symbol} launched "
+              f"{counts[symbol]} times, layers x forwards x steps is {n}")
+    print(f"  launches = layers x forwards x steps: forward with lse and "
+          f"backward {trained} each ({big} x {steps['mllm']} + {small} x "
+          f"{steps['distill']}), the teacher's forwards {big} x "
+          f"{steps['distill']}")
+    run, q8_counts = drive("q8_trained", q8_plan("naive"), ctx,
+                           ["flash_attention"])
+    score = QUERIES["Q8"].evaluate(run)
+    print(f"  Q8 naive plan, 512 frames: score {score:.4f} with the trained "
+          f"models against {q8_random_score:.4f} with phase 3's random "
+          f"weights (printed, not gated); {run.fps:.1f} fps")
+    summary = {"seconds": seconds, "steps": steps,
+               "steps_per_s": {k: len(v["losses"]) / v["seconds"]
+                               for k, v in stats.items()},
+               "first_last_mean_loss": {
+                   k: [float(np.mean(v["losses"][:LOSS_WINDOW])),
+                       float(np.mean(v["losses"][-LOSS_WINDOW:]))]
+                   for k, v in stats.items()},
+               "q8_score_trained": score, "q8_score_random": q8_random_score}
+    return {"stream_pretrain": counts, "q8_trained": q8_counts}, summary
+
+
+def mllm_card_vs_cpu(dev):
+    """Phase 18 (c): the big MLLM's first CARD_CPU_STEPS steps of
+    ``_train`` (AdamW at its settings, ``_make_mllm_batches``' batches) on
+    the card; before each, the CPU and a third copy on the card that runs
+    the plain attention (the witness) take the card's parameters, and the
+    step's loss and gradients are compared on the same parameters.  The
+    loss within CARD_CPU_TOL; each gradient leaf within CARD_CPU_TOL of its
+    largest |g|, or no farther from the CPU than BWD_WITNESS times the
+    witness is: fp32 sums in another order, through the big MLLM's residual
+    stream of ~200 at its random init and its norms, move a leaf's
+    gradient further than its logits (the plain attention on the card
+    misses 1e-3 as well).  A trajectory is not compared over several
+    steps: AdamW's first steps are near sign steps, so leaves with near-
+    zero gradients step either way on either device."""
+    from repro_torch.configs.samsara_stream import STREAM_MLLM_CONFIG
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.streaming.mllm import StreamMLLM
+    from repro_torch.streaming.pretrain import _make_mllm_batches
+    from repro_torch.training.optimizer import (OptimizerConfig, adamw_init,
+                                                adamw_update)
+
+    def model(device):
+        m = StreamMLLM(STREAM_MLLM_CONFIG, patch=16, device=device).init(
+            torch.Generator().manual_seed(5))
+        for p in m.parameters():
+            p.requires_grad_(True)
+        return m
+
+    def loss_and_grads(m, batch):
+        for p in m.parameters():
+            p.grad = None
+        loss = m.loss(batch)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in m.named_parameters()}
+
+    card, witness, cpu = model(dev), model(dev), model("cpu")
+    params = dict(card.named_parameters())
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=20, total_steps=400,
+                          weight_decay=0.01)          # ``_train``'s
+    state = adamw_init(params, opt)
+    gens = {"card": _make_mllm_batches(7, device=dev),
+            "cpu": _make_mllm_batches(7, device="cpu")}
+    steps = []
+    reset_launch_counts()
+    for t in range(CARD_CPU_STEPS):
+        batch = gens["card"](t)
+        cpu_batch = gens["cpu"](t)
+        state_dict = card.state_dict()
+        witness.load_state_dict(state_dict)
+        cpu.load_state_dict(state_dict)
+        loss_k, g_k = loss_and_grads(card, batch)
+        with plain_attention():
+            loss_p, g_p = loss_and_grads(witness, batch)
+        loss_c, g_c = loss_and_grads(cpu, cpu_batch)
+        rel = abs(loss_k - loss_c) / abs(loss_c)
+        check(rel <= CARD_CPU_TOL, f"card vs CPU step {t + 1}: loss "
+              f"{loss_k} against {loss_c}")
+        errs = {}
+        for n, g in g_c.items():
+            if g is None:
+                check(g_k[n] is None, f"card vs CPU: {n} has a gradient "
+                      "on the card only")
+                continue
+            scale = max(g.abs().max().item(), 1e-30)
+            errs[n] = ((g_k[n].cpu() - g).abs().max().item() / scale,
+                       (g_p[n].cpu() - g).abs().max().item() / scale)
+        for n, (e_k, e_p) in errs.items():
+            check(e_k <= max(CARD_CPU_TOL, BWD_WITNESS * e_p),
+                  f"card vs CPU step {t + 1}: the gradient of {n} is "
+                  f"{e_k:.3e} of its largest |g| from the CPU's, the "
+                  f"plain attention's on the card {e_p:.3e}")
+        worst = sorted(errs.items(), key=lambda kv: -kv[1][0])[:4]
+        print(f"  step {t + 1}: loss card {loss_k:.6f}, CPU {loss_c:.6f} "
+              f"(relative {rel:.2e}; the plain attention on the card "
+              f"{loss_p:.6f}); gradients from the CPU's, relative to each "
+              f"leaf's largest |g|, kernels | plain attention, the "
+              f"farthest: " + ", ".join(f"{n} {a:.2e} | {b:.2e}"
+                                        for n, (a, b) in worst))
+        steps.append({"loss_card": loss_k, "loss_cpu": loss_c,
+                      "loss_plain_card": loss_p,
+                      "grad_rel_err": max(a for a, _ in errs.values()),
+                      "grad_rel_err_plain": max(b for _, b in errs.values())})
+        adamw_update(params, g_k, state, opt)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["flash_attention_bwd_f32"] > 0,
+          "card vs CPU: the backward kernel was never launched")
+    return counts, {"steps": steps}
+
+
+def chatglm3_train(smi):
+    """Phase 18 (d): ``launch/train.py`` on chatglm3-6b at full width and
+    depth in its own process (its last line is a JSON summary)."""
+    from repro_torch.configs import get_config
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           *CHATGLM3_TRAIN]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    for line in proc.stdout.splitlines()[:-1]:
+        print(f"    {line}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"train.py exited {proc.returncode}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    cfg = get_config("chatglm3-6b")
+    check(out["n_layers"] == cfg.n_layers,
+          f"chatglm3-6b trained at depth {out['n_layers']}")
+    check(all(math.isfinite(x) for x in out["losses"]) and
+          len(out["losses"]) == 3, f"chatglm3-6b losses {out['losses']}")
+    launches = out["launches"]
+    want = cfg.n_layers * 2 * 3       # layers x micro-batches x steps
+    for symbol in ("flash_attention_lse_f32", "flash_attention_bwd_f32"):
+        check(launches.get(symbol, 0) == want,
+              f"chatglm3-6b: {symbol} launched {launches.get(symbol, 0)} "
+              f"times, not {want}")
+    peak = out["max_memory_allocated"]
+    print(f"  chatglm3-6b, {cfg.n_layers} layers, int8 moments, batch 16 x "
+          f"64 in 2 micro-batches, 3 steps: losses {out['losses']}, step "
+          f"s {out['step_s']}, peak {peak / 1e9:.2f} GB "
+          f"(max_memory_allocated; reckoned ~65 GB), launches {launches}; "
+          f"{seconds:.1f} s with start-up; {smi}")
+    return out
+
+
+def mllm_resume(dev):
+    """Phase 18 (e): a stream-MLLM trainer on the card checkpoints at step
+    5 and trains 5 more; a fresh trainer restored from the checkpoint
+    replays those 5 losses."""
+    from repro_torch.configs.samsara_stream import STREAM_MLLM_CONFIG
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.streaming.mllm import StreamMLLM
+    from repro_torch.streaming.pretrain import _make_mllm_batches
+    from repro_torch.training import (CheckpointManager, OptimizerConfig,
+                                      TrainConfig, Trainer)
+
+    gen = _make_mllm_batches(3, device=dev)
+    batches = [gen(i) for i in range(10)]
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=5, total_steps=50,
+                          weight_decay=0.01)
+    ck_dir = os.path.join(ROOT, "build", "resume_ckpt")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck = CheckpointManager(ck_dir, keep=2, device=dev)
+
+    def trainer(seed, steps):
+        m = StreamMLLM(STREAM_MLLM_CONFIG, patch=16, device=dev).init(
+            torch.Generator().manual_seed(seed))
+        return Trainer(m.loss, dict(m.named_parameters()), opt,
+                       TrainConfig(steps=steps, ckpt_every=5, log_every=0),
+                       IndexedBatches(batches), ck)
+
+    reset_launch_counts()
+    first = trainer(0, 5)
+    first.train()
+    check(ck.latest_step() == 5, f"resume: checkpoints {ck.list_steps()}")
+    more = first.train(5)["history"][-5:]
+    second = trainer(1, 5)          # other weights: the restore sets them
+    check(second.restore(5) and second.step == 5 and
+          second.data.index == 5, "resume: restore")
+    replay = second.train(5)["history"]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ok = np.allclose(replay, more, rtol=REPLAY_RTOL, atol=REPLAY_ATOL)
+    print(f"  resume on the card: steps 6-10 {more}, replayed {replay} "
+          f"(rtol {REPLAY_RTOL:g}, atol {REPLAY_ATOL:g}): "
+          f"{'equal' if ok else 'DIFFERENT'}")
+    check(ok, "resume: the restored trainer does not replay")
+    return counts, {"losses": more, "replayed": replay}
+
+
+def training_phase(dev, rows, q8_random_score, smi):
+    """Phase 18: (a) the flash_attention backward, (b) the stream models
+    trained on the card, (c) card == CPU, (d) chatglm3-6b's training steps
+    at full width, (e) resume.  Returns the launch counts by path and a
+    summary."""
+    t18 = time.perf_counter()
+    # a restored trainer replays only if every kernel repeats: cuDNN's
+    # default convolution backward sums with atomics
+    torch.backends.cudnn.deterministic = True
+    print("[18a] flash_attention's backward against its plain version and "
+          "float64")
+    flash_bwd_checks(dev, rows)
+    counts, summary = {}, {}
+    print("[18d] chatglm3-6b: launch/train.py at full width and depth")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = chatglm3_train(smi)
+    from repro_torch.kernels import launch_counts
+    counts["chatglm3_train"] = {k: out["launches"].get(k, 0)
+                                for k in launch_counts()}
+    summary["chatglm3_train"] = {k: out[k] for k in (
+        "n_layers", "losses", "step_s", "max_memory_allocated")}
+    print("[18b] the stream models trained on the card")
+    more, summary["pretrain"] = pretrain_phase(dev, q8_random_score)
+    counts.update(more)
+    print("[18c] card vs CPU: the big MLLM's first steps")
+    counts["mllm_train_vs_cpu"], summary["card_vs_cpu"] = \
+        mllm_card_vs_cpu(dev)
+    print("[18e] resume on the card")
+    counts["mllm_resume"], summary["resume"] = mllm_resume(dev)
+    summary["seconds"] = time.perf_counter() - t18
+    print(f"[18] {summary['seconds']:.1f} s; {smi}")
+    return counts, summary
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2720,6 +3281,14 @@ def main() -> int:
         more, more_counts, int8_summary = chatglm3_int8(dev, rows)
         serving.update(more)
         counts.update(more_counts)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        from repro_torch.queries.catalog import QUERIES
+
+        print("[18] training on the card")
+        train_counts, train_summary = training_phase(
+            dev, rows, QUERIES["Q8"].evaluate(runs["q8_naive"]), smi)
+        counts.update(train_counts)
     except (SmokeFailure, RuntimeError, ValueError, KeyError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
@@ -2768,8 +3337,10 @@ def main() -> int:
         "chatglm3_int8": int8_summary,
         "slots": SERVE_SLOTS, "s_max": SERVE_S_MAX,
         "new_tokens": SERVE_NEW}}))
+    print(json.dumps({"training": train_summary}, default=str))
     print(f"[total] {time.perf_counter() - t_start:.1f} s (phase 17 "
-          f"{serve_summary['seconds']:.1f} s)")
+          f"{serve_summary['seconds']:.1f} s, phase 18 "
+          f"{train_summary['seconds']:.1f} s)")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

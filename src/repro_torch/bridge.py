@@ -1,11 +1,14 @@
-"""Load the JAX package's parameters into the port's modules (the stream
-models and the LMs).
+"""Carry the JAX package's parameters and optimizer state into the port's
+modules (the stream models and the LMs), and the port's parameters back
+out in the reference's layout.
 
-The reference's parameter tree arrives as nested dicts of **numpy** arrays
-(the caller converts, e.g. ``jax.tree_util.tree_map(np.asarray, params)``;
-this module never imports JAX).  Every shape is taken from the arrays, never
+The reference's trees arrive as nested dicts of **numpy** arrays (the
+caller converts, e.g. ``jax.tree_util.tree_map(np.asarray, params)``; this
+module never imports JAX).  Every shape is taken from the arrays, never
 from a config, so a pruned variant with a smaller d_ff loads as it is.  The
-leading per-period axis of the stacked backbone stays.
+leading per-period axis of the stacked backbone stays.  Conv kernels are
+HWIO there and OIHW here.  Loaded parameters do not require grad (serving);
+the trainer turns grad on for what it trains.
 """
 from __future__ import annotations
 
@@ -19,12 +22,14 @@ from torch import nn
 from repro_torch.models.model import LM
 from repro_torch.streaming.detector import TinyDet
 from repro_torch.streaming.mllm import StreamMLLM
+from repro_torch.training.checkpoint import nest
 
 #: reference leaves the port's MLLM does not hold: the LM backbone's token
 #: embedding table, which the extract forward never reads
 UNUSED = ("backbone.embed.",)
-#: conv kernels: reference HWIO -> port OIHW
+#: conv kernels: reference HWIO -> port OIHW (the MLLM's, TinyDet's)
 HWIO = ("conv1", "conv2")
+DET_HWIO = ("conv1", "conv2", "conv3")
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -92,7 +97,7 @@ def load_reference_pruned(model: StreamMLLM,
 def load_reference_detector_params(det: TinyDet,
                                    params: Mapping[str, Any]) -> TinyDet:
     """TinyDet's reference parameters into ``det`` (HWIO -> OIHW convs)."""
-    _load(det, flatten(params), ("conv1", "conv2", "conv3"), det.device)
+    _load(det, flatten(params), DET_HWIO, det.device)
     return det
 
 
@@ -102,3 +107,53 @@ def load_reference_lm_params(lm: LM, params: Mapping[str, Any]) -> LM:
     the arrays, on the model's device."""
     _load(lm, flatten(params), (), lm.device)
     return lm
+
+
+def _hwio_keys(model: nn.Module):
+    if isinstance(model, StreamMLLM):
+        return HWIO
+    if isinstance(model, TinyDet):
+        return DET_HWIO
+    return ()
+
+
+def load_reference_opt_state(model: nn.Module,
+                             state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's AdamW state (``{"moments": tree, "step": n}``, numpy
+    leaves; fp32 moments ``m``/``v`` or int8 ``m_q``/``m_s``/``v_q``/
+    ``v_s``) in the port's layout (``training/optimizer.py``): moments by
+    dotted parameter name, on the model's device, the step an int32
+    tensor.  A conv kernel's fp32 moments are transposed HWIO -> OIHW;
+    its int8 moments raise, since their row scales run along O there and
+    along W here."""
+    hwio = _hwio_keys(model)
+    ours = dict(model.named_parameters())
+    moments: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, p in ours.items():
+        node: Any = state["moments"]
+        for part in name.split("."):
+            node = node[part]
+        leaf = {}
+        for key, arr in node.items():
+            a = np.asarray(arr)
+            if name in hwio:
+                if key not in ("m", "v"):
+                    raise ValueError(
+                        f"{name}: int8 moments of a conv kernel have row "
+                        "scales along another axis in each package")
+                a = a.transpose(3, 2, 0, 1)
+            leaf[key] = torch.tensor(a, device=p.device)
+        moments[name] = leaf
+    return {"moments": moments,
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=model.device)}
+
+
+def reference_params(model: nn.Module) -> Dict[str, Any]:
+    """The port's parameters as the reference's nested tree of numpy
+    arrays (conv kernels OIHW -> HWIO), e.g. to hand trained weights to the
+    JAX package."""
+    hwio = _hwio_keys(model)
+    return nest({name: p.detach().cpu().numpy().transpose(2, 3, 1, 0)
+                 if name in hwio else p.detach().cpu().numpy()
+                 for name, p in model.named_parameters()})

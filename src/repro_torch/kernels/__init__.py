@@ -12,7 +12,9 @@ Every Pallas kernel of the JAX package has its counterpart here:
   frame_diff       — per-region mean |cur − prev| / 255 (the Skip operator)
   fused_preprocess — crop + area downscale + normalize (+ greyscale)
   flash_attention  — causal/local GQA attention with online softmax
-                     (the MLLM extract's attention)
+                     (the MLLM extract's attention), and its backward
+                     (``csrc/flash_attention_bwd.cu``, no Pallas
+                     counterpart: the training path's gradient)
   fused_prefix     — a plan's whole pixel prefix (diff grid, colour
                      fractions, crop/preprocess, signature) in one pass
   decode_attention — one query token per sequence against its KV cache
@@ -26,7 +28,9 @@ Every Pallas kernel of the JAX package has its counterpart here:
 Dispatch rule (every ops.py wrapper follows it): the device of the input
 tensor decides.  A CPU tensor takes the plain version in ``ref.py``; a CUDA
 tensor launches the kernel or raises.  Nothing falls back from one to the
-other, and nothing looks at which hardware the host has.
+other, and nothing looks at which hardware the host has.  Only
+flash_attention takes inputs that require grad on the card (its
+``autograd.Function``); every other kernel refuses them.
 """
 from __future__ import annotations
 

@@ -144,7 +144,10 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     that autograd would differentiate: a kernel writes a fresh tensor
     through ``ctypes``, so its output would be cut from the graph without
     a word.  Callers run under ``torch.no_grad()`` or
-    ``torch.inference_mode()``."""
+    ``torch.inference_mode()``; the one kernel with a backward,
+    flash_attention, is differentiated through its ``autograd.Function``
+    (``kernels/flash_attention/ops.py``), which calls the bindings with
+    grad mode off."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise ValueError(f"{name}: an input requires grad and the CUDA "
                          "kernel has no backward; call it under "

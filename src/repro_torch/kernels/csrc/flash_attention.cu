@@ -83,6 +83,11 @@
 // of its rows sees; ragged edges (any S) are masked in the kernel, never
 // padded: rows past S and keys past S load zeros and are masked out of
 // the softmax.
+//
+// Two entry points run this kernel: flash_attention_f32 (serving, no
+// log-sum-exp) and flash_attention_lse_f32 (training), which also writes
+// each live row's m + log l, the log-sum-exp of its scaled and capped
+// logits, for the backward (flash_attention_bwd.cu).
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -224,7 +229,8 @@ __device__ __forceinline__ void split_tile3(float* hi, float* mid, float* lo) {
 template <int D>
 __global__ void __launch_bounds__(kThreads, Cfg<D>::MINB)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int S,
                  int H, int Hk, int G, int BQ, int causal, float cap,
                  int window, float scale, bool vec) {
   using C = Cfg<D>;
@@ -451,6 +457,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l[i] += __shfl_xor_sync(kFull, l[i], 2);
     if (!live[i]) continue;
     const int r = warp * 16 + gq + 8 * i;
+    // the row's log-sum-exp, in the scaled (and capped) logit domain, for
+    // the backward (every live row sees at least its own key: m is finite)
+    if (lse != nullptr && tq == 0)
+      lse[((size_t)b * H + hk * G + r / BQ) * S + qpos[i]] = m[i] + logf(l[i]);
     float* orow =
         o + (((size_t)b * S + qpos[i]) * H + hk * G + r / BQ) * D + 2 * tq;
 #pragma unroll
@@ -461,9 +471,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int launch(const float* q, const float* k, const float* v, float* o, int B,
-           int S, int H, int Hk, int causal, float cap, int window,
-           cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int B, int S, int H, int Hk, int causal, float cap,
+           int window, cudaStream_t stream) {
   const int G = H / Hk;
   const int BQ = kRows / G;
   const size_t smem = Cfg<D>::smem;
@@ -477,18 +487,16 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
   const dim3 grid((S + BQ - 1) / BQ, Hk, B);
   const float scale = (float)(1.0 / sqrt((double)D));
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, S, H, Hk, G, BQ, causal, cap, window, scale, vec);
+      q, k, v, o, lse, S, H, Hk, G, BQ, causal, cap, window, scale, vec);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// q/o (B, S, H, D), k/v (B, S, Hk, D) float32 contiguous.  cap <= 0 means
-// no soft-cap, window <= 0 no sliding window.
-extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int B, int S,
-                                   int H, int Hk, int D, int causal,
-                                   float cap, int window, void* stream) {
+// q/o (B, S, H, D), k/v (B, S, Hk, D) float32 contiguous; lse (B, H, S)
+// float32, or null for no log-sum-exp.  cap <= 0 means no soft-cap,
+// window <= 0 no sliding window.
+int flash_forward(const void* q, const void* k, const void* v, void* o,
+                  void* lse, int B, int S, int H, int Hk, int D, int causal,
+                  float cap, int window, void* stream) {
   if (B <= 0 || S <= 0 || Hk <= 0 || H % Hk || H / Hk > kRows || B > 65535 ||
       Hk > 65535)
     return (int)cudaErrorInvalidValue;
@@ -496,14 +504,37 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   const float* kf = (const float*)k;
   const float* vf = (const float*)v;
   float* of = (float*)o;
+  float* lf = (float*)lse;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 16: return launch<16>(qf, kf, vf, of, B, S, H, Hk, causal, cap, window, st);
-    case 32: return launch<32>(qf, kf, vf, of, B, S, H, Hk, causal, cap, window, st);
-    case 64: return launch<64>(qf, kf, vf, of, B, S, H, Hk, causal, cap, window, st);
-    case 96: return launch<96>(qf, kf, vf, of, B, S, H, Hk, causal, cap, window, st);
-    case 128: return launch<128>(qf, kf, vf, of, B, S, H, Hk, causal, cap, window, st);
-    case 256: return launch<256>(qf, kf, vf, of, B, S, H, Hk, causal, cap, window, st);
+    case 16: return launch<16>(qf, kf, vf, of, lf, B, S, H, Hk, causal, cap, window, st);
+    case 32: return launch<32>(qf, kf, vf, of, lf, B, S, H, Hk, causal, cap, window, st);
+    case 64: return launch<64>(qf, kf, vf, of, lf, B, S, H, Hk, causal, cap, window, st);
+    case 96: return launch<96>(qf, kf, vf, of, lf, B, S, H, Hk, causal, cap, window, st);
+    case 128: return launch<128>(qf, kf, vf, of, lf, B, S, H, Hk, causal, cap, window, st);
+    case 256: return launch<256>(qf, kf, vf, of, lf, B, S, H, Hk, causal, cap, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// The serving forward: no log-sum-exp.
+extern "C" int flash_attention_f32(const void* q, const void* k,
+                                   const void* v, void* o, int B, int S,
+                                   int H, int Hk, int D, int causal,
+                                   float cap, int window, void* stream) {
+  return flash_forward(q, k, v, o, nullptr, B, S, H, Hk, D, causal, cap,
+                       window, stream);
+}
+
+// The training forward: o and each row's log-sum-exp, lse (B, H, S), which
+// flash_attention_bwd_f32 (flash_attention_bwd.cu) reads.
+extern "C" int flash_attention_lse_f32(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       int B, int S, int H, int Hk, int D,
+                                       int causal, float cap, int window,
+                                       void* stream) {
+  return flash_forward(q, k, v, o, lse, B, S, H, Hk, D, causal, cap, window,
+                       stream);
 }

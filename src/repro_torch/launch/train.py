@@ -1,0 +1,103 @@
+"""Training launcher: an LM of the registry trained on the synthetic token
+stream, with the trainer's full substrate (micro-batched step, int8 AdamW
+option, atomic checkpoints, SIGTERM checkpointing, resume, straggler log).
+
+Counterpart of ``repro/launch/train.py`` on one device, so without its
+``--data-axis``/``--model-axis`` mesh flags; ``--device`` (default cuda)
+and ``--depth`` (layers; default the config's) are the port's own.  It runs
+fp32 with TF32 off for matmuls and convolutions.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
+      --smoke --device cpu --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
+      --int8-opt --steps 3 --batch 16 --seq 64 --grad-accum 2
+
+The last line is a JSON summary: losses, step seconds, and on CUDA the
+peak memory (``torch.cuda.max_memory_allocated``) and the kernels'
+launch counts.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.common.device import resolve_device
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.models.model import LM
+from repro_torch.training import (
+    CheckpointManager,
+    OptimizerConfig,
+    TokenStream,
+    TrainConfig,
+    Trainer,
+)
+
+
+def parse_args(argv: Optional[Sequence[str]] = None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="chatglm3-6b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-trainable)")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--grad-accum", type=int, default=2)
+    ap.add_argument("--int8-opt", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="layers (default: the config's)")
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.depth is not None:
+        cfg = cfg.replace(n_layers=args.depth)
+    # a generator on the device: a full-width model is drawn on the card
+    lm = LM(cfg, device=dev).init(torch.Generator(dev).manual_seed(0))
+    data = TokenStream(cfg.vocab_size, args.batch, args.seq, device=dev)
+    ckpt = CheckpointManager(args.ckpt_dir, device=dev) \
+        if args.ckpt_dir else None
+    trainer = Trainer(
+        lm.loss, dict(lm.named_parameters()),
+        OptimizerConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps,
+                        quantized_state=args.int8_opt),
+        TrainConfig(steps=args.steps, grad_accum=args.grad_accum,
+                    ckpt_every=max(args.steps // 4, 10)),
+        data, ckpt)
+    trainer.install_signal_handlers()
+    if args.resume and trainer.restore():
+        print(f"resumed from step {trainer.step}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    out = trainer.train()
+    print(f"done: step={out['step']} final_loss={out['final_loss']:.4f}")
+    summary = {"arch": cfg.name, "n_layers": cfg.n_layers,
+               "device": str(dev), "int8_opt": args.int8_opt,
+               "batch": args.batch, "seq": args.seq,
+               "grad_accum": args.grad_accum, "step": out["step"],
+               "losses": out["history"], "step_s": out["step_times"]}
+    if dev.type == "cuda":
+        summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        summary["launches"] = {k: v for k, v in launch_counts().items() if v}
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

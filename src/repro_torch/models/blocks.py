@@ -5,7 +5,12 @@ Counterpart of ``repro/models/blocks.py`` for the mixers ``attn``,
 A *period* is one repetition of ``cfg.block_pattern`` (gemma2's (local,
 global) pair); every weight and cache leaf of the stack keeps its leading
 per-period axis, as the reference's scanned stack does, and
-``apply_stack`` loops over that axis.  Modes: ``causal`` (no cache),
+``apply_stack`` splits each stacked leaf into its periods once and loops
+over them (under autograd each period's gradient goes straight into the
+leaf's ``.grad``: ``_PeriodSlice``).  So a stacked leaf's gradient exists
+only in its ``.grad`` after ``loss.backward()``: ``torch.autograd.grad``,
+``backward(inputs=...)``, hooks on the leaf and double backward see none
+for it.  Modes: ``causal`` (no cache),
 ``prefill_cache`` (fills the cache) and ``decode`` (one token against it).
 The port writes caches in place; the reference returns new ones.
 """
@@ -14,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.common.config import ArchConfig, BlockSpecEntry
 from repro_torch.models import attention as attn
@@ -133,10 +139,44 @@ def apply_block(cfg: ArchConfig, kind: str, params: Dict[str, Any],
     return x
 
 
-def _period(tree: Any, i: int) -> Any:
+class _PeriodSlice(torch.autograd.Function):
+    """Period ``i`` of a stacked parameter (the view ``leaf[i]``) whose
+    gradient is added into the parameter's ``.grad`` slice as soon as it
+    arrives; the parameter itself receives nothing through autograd.  With
+    ``unbind`` (or ``select``) autograd would hold every period's gradient
+    until the last one arrived and then stack them (or build a full-size
+    zero gradient for each period): a second full-size gradient of every
+    stacked leaf, 23 GB at chatglm3-6b, beside the accumulated ``.grad``."""
+
+    @staticmethod
+    def forward(ctx, leaf, i):
+        ctx.leaf, ctx.i = leaf, i
+        return leaf[i]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        leaf = ctx.leaf
+        if leaf.grad is None:
+            leaf.grad = torch.zeros_like(leaf)
+        leaf.grad[ctx.i] += g
+        return None, None
+
+
+def _periods(tree: Any, n: int):
+    """``i -> period i's tree`` of a stacked tree.  A leaf without a graph
+    is split once (``leaf.unbind(0)``, the views ``leaf[i]``).  A leaf
+    that requires grad gets its period's ``_PeriodSlice`` only when that
+    period runs: autograd's ready queue runs later-made nodes first, so a
+    slice made before the whole stack would wait until the end of the
+    backward, holding every period's gradient."""
     if isinstance(tree, dict):
-        return {k: _period(v, i) for k, v in tree.items()}
-    return tree[i]
+        subs = {k: _periods(v, n) for k, v in tree.items()}
+        return lambda i: {k: f(i) for k, f in subs.items()}
+    if torch.is_grad_enabled() and tree.requires_grad:
+        return lambda i: _PeriodSlice.apply(tree, i)
+    views = tree.unbind(0)
+    return lambda i: views[i]
 
 
 def apply_stack(cfg: ArchConfig, stacked: Dict[str, Any], x: torch.Tensor,
@@ -153,12 +193,16 @@ def apply_stack(cfg: ArchConfig, stacked: Dict[str, Any], x: torch.Tensor,
         raise ValueError(f"mode {mode!r}; have {MODES}")
     if (cache is None) != (mode == "causal"):
         raise ValueError(f"mode {mode!r} with cache={cache is not None}")
-    for i in range(stacked["i0"]["pre_norm"]["scale"].shape[0]):
-        p_params = _period(stacked, i)
+    n = stacked["i0"]["pre_norm"]["scale"].shape[0]
+    period = _periods(stacked, n)
+    cache_at = None if cache is None else _periods(cache, n)
+    for i in range(n):
+        p_params = period(i)
+        p_cache = None if cache_at is None else cache_at(i)
         for j, kind in enumerate(cfg.block_pattern):
             key = f"i{j}"
             x = apply_block(
                 cfg, kind, p_params[key], x, mode=mode, positions=positions,
-                cache=None if cache is None else _period(cache[key], i),
-                lens=lens, mm=mm)
+                cache=None if p_cache is None else p_cache[key], lens=lens,
+                mm=mm)
     return x

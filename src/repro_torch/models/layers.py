@@ -5,7 +5,7 @@ weights are passed explicitly and keep the reference's (in, out) storage.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -158,3 +158,20 @@ def unembed(params: Dict[str, Any], x: torch.Tensor,
     """x (B, S, d) -> logits (B, S, V) over the padded vocab, through the
     tied table."""
     return softcap(x @ params["table"].t(), final_cap)
+
+
+# --------------------------------------------------------------------------
+# Cross-entropy with z-loss
+# --------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_coef: float = 1e-4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (B, S, V), labels (B, S) int -> (mean nll, mean z-loss), in
+    fp32; the label's logit is picked by index (the reference's
+    take-along-axis path)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    zl = z_coef * torch.square(lse)
+    return nll.mean(), zl.mean()

@@ -1,11 +1,13 @@
 """LM: the decoder-only language model the serving engine runs.
 
 Counterpart of ``repro/models/model.py`` for token inputs (no patch or
-audio frontend, no encoder): ``spec``, ``_embed``, ``logits_causal``,
-``cache_shapes`` / ``init_cache``, ``prefill(..., last_pos)`` and
-``decode``.  The parameters' dotted names are the reference's parameter
-tree paths (``stack.i0.mixer.wq``), so ``repro_torch.bridge`` loads the
-reference's tree key for key.  The cache is a dict ``{"layers": {"i{j}":
+audio frontend, no encoder): ``spec``, ``_embed``, ``forward`` (the
+differentiable causal logits) and ``loss`` for training;
+``logits_causal``, ``cache_shapes`` / ``init_cache``,
+``prefill(..., last_pos)`` and ``decode`` without a graph, for serving.
+The parameters' dotted names are the reference's parameter tree paths
+(``stack.i0.mixer.wq``), so ``repro_torch.bridge`` loads the reference's
+tree key for key.  The cache is a dict ``{"layers": {"i{j}":
 {leaf: (n_periods, B, ...)}}}``, as the reference's; prefill and decode
 write it in place and return it.
 """
@@ -19,8 +21,9 @@ import torch
 from repro_torch.common.config import ArchConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as blk
-from repro_torch.models.layers import (embed_spec, embed_tokens, norm,
-                                       norm_spec, unembed)
+from repro_torch.models.layers import (cross_entropy, embed_spec,
+                                       embed_tokens, norm, norm_spec,
+                                       unembed)
 from repro_torch.models.param import ParamTree, init_params
 
 
@@ -65,14 +68,28 @@ class LM(ParamTree):
         x = norm(params["final_norm"], x, self.cfg.norm)
         return unembed(params["embed"], x, self.cfg.final_softcap)
 
-    @torch.no_grad()
-    def logits_causal(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, padded vocab), no cache."""
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, padded vocab), no cache;
+        differentiable in the parameters that require grad (training)."""
         params = self.tree()
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)[None]
         x = blk.apply_stack(self.cfg, params["stack"], x, positions)
         return self._head(params, x)
+
+    @torch.no_grad()
+    def logits_causal(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``forward`` without a graph, for serving."""
+        return self(tokens)
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Next-token loss of ``{"tokens", "labels"}`` (B, S): mean nll +
+        z-loss (+ the MoE aux loss, 0 for the families the port runs);
+        labels below 0 are read as 0, as the reference does."""
+        logits = self(batch["tokens"])
+        labels = batch["labels"].to(self.device).long().clamp_min(0)
+        nll, zl = cross_entropy(logits, labels)
+        return nll + zl
 
     # ------------------------------------------------------------------
     def cache_shapes(self, batch: int, s_max: int) -> Dict[str, Any]:

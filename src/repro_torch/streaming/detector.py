@@ -60,3 +60,11 @@ class TinyDet(ParamTree):
         grid = (x @ self.head_grid)[..., 0]
         present = x.mean(dim=(1, 2)) @ self.head_present
         return {"present": present, "grid": grid}
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean cross-entropy of the car-present head."""
+        logits = self(batch["frames"].to(self.device))["present"]
+        labels = batch["present"].to(self.device).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[:, None])[:, 0]
+        return torch.mean(lse - ll)

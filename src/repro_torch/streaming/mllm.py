@@ -5,12 +5,13 @@ the ``("attn+dense",)`` decoder backbone and per-task readout heads: frames
 (B, C, h, w) -> one logits tensor per task.  The parameters keep the
 reference's shapes and init scheme, and their dotted names are the
 reference's parameter-tree paths (the unused token-embedding table of the
-reference's LM backbone is left out).  Conv kernels are stored OIHW here
+reference's LM backbone is left out).  ``loss`` is the supervised
+multi-task loss pretraining minimizes.  Conv kernels are stored OIHW here
 (HWIO in the reference); ``repro_torch.bridge`` converts.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -144,6 +145,48 @@ class StreamMLLM(ParamTree):
             [frame_matmul(task_h[:, t0 + j:t0 + j + 1], heads["plate"])[:, 0]
              for j in range(PLATE_LEN)], dim=1)
         return out                                   # plate (B, 6, 36)
+
+    def loss(self, batch: Dict[str, torch.Tensor],
+             out: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Supervised multi-task loss on labeled frames: the mean
+        cross-entropy of each head whose labels the batch holds, colour,
+        brand and plate over the frames with ``mask_car`` only, the plate
+        weighted 2.  ``out`` is this model's output on ``batch["frames"]``
+        where the caller already has it (the forward is then not run)."""
+        if out is None:
+            out = self(batch["frames"].to(self.device))
+        labels = {k: v.to(self.device) for k, v in batch.items()
+                  if k != "frames"}
+        mask_car = labels.get("mask_car")
+        total = torch.zeros((), device=self.device)
+        if "present" in labels:
+            total = total + _ce(out["present"], labels["present"])
+        for key in ("color", "brand"):
+            if key in labels:
+                total = total + _ce(out[key], labels[key], mask_car)
+        if "plate" in labels:
+            total = total + 2.0 * _ce(out["plate"], labels["plate"],
+                                      mask_car)
+        for key in ("action", "n_jumping", "team"):
+            if key in labels:
+                total = total + _ce(out[key], labels[key])
+        return total
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor,
+        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy over the leading axes, or its mean over the rows
+    ``mask`` keeps (broadcast over the trailing axes; 0 when none)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    m = mask.to(torch.float32)
+    while m.dim() < nll.dim():
+        m = m[..., None]
+    m = m.expand(nll.shape)
+    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
 
 
 def variant_models(ctx) -> Dict[str, StreamMLLM]:

@@ -537,3 +537,149 @@ def test_lm_serving_card_equals_cpu(dev, arch):
         eng = ServingEngine(lm, max_slots=2, s_max=64, eos_id=-1)
         outs.append([r.output for r in eng.run(make_requests(cfg, 4, 6))])
     assert outs[0] == outs[1]
+
+
+#: the backward's cases: the stream MLLM's frame sizes (G 2), chatglm3's
+#: group of 16 at D 128, each head dim, G 64, ragged S, bidirectional,
+#: capped and windowed
+BWD_CASES = [(4, s, 8, 4, 32, dict(causal=True)) for s in (140, 76, 28)] + [
+    (2, 64, 32, 2, 128, dict(causal=True)),
+    (1, 33, 64, 1, 16, dict(causal=True)),
+    (2, 45, 4, 2, 64, dict(causal=False)),
+    (2, 45, 4, 2, 96, dict(causal=True, cap=20.0)),
+    (2, 45, 4, 2, 256, dict(causal=True, window=7)),
+    (1, 1, 2, 1, 32, dict(causal=True))]
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,kw", BWD_CASES)
+def test_flash_attention_backward_kernel(dev, b, s, h, hk, d, kw):
+    """``flash_attention`` on CUDA inputs that require grad: one launch of
+    the forward with its log-sum-exp and one of the backward; the output
+    and dQ, dK, dV against the plain version's autograd on the card
+    (2e-5 of each gradient's largest magnitude, the forward's tolerance:
+    fp32 sums in another order); a second backward equal bit for bit."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    gen = torch.Generator().manual_seed(s + d)
+    q = torch.randn(b, s, h, d, generator=gen).to(dev)
+    k = torch.randn(b, s, hk, d, generator=gen).to(dev)
+    v = torch.randn(b, s, hk, d, generator=gen).to(dev)
+    dout = torch.randn(b, s, h, d, generator=gen).to(dev)
+    grads = []
+    for fn in (flash_attention, flash_attention_plain, flash_attention):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        reset_launch_counts()
+        out = fn(*leaves, **kw)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if fn is flash_attention:
+            assert counts["flash_attention_lse_f32"] == 1
+            assert counts["flash_attention_bwd_f32"] == 1
+            assert counts["flash_attention_f32"] == 0
+        else:
+            assert not any(counts.values())
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    for got, want in zip(grads[0], grads[1]):
+        err = (got - want).abs().max().item()
+        assert err <= 2e-5 * max(want.abs().max().item(), 1.0), err
+    for a, c in zip(grads[0], grads[2]):
+        assert torch.equal(a, c)
+
+
+def test_flash_attention_lse_forward_equals_serving_forward(dev):
+    """The training entry point writes the serving entry point's output
+    bit for bit, and each row's log-sum-exp within 2e-5 of the plain one."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_lse_plain
+
+    gen = torch.Generator().manual_seed(8)
+    q = torch.randn(2, 77, 8, 32, generator=gen).to(dev)
+    k = torch.randn(2, 77, 4, 32, generator=gen).to(dev)
+    v = torch.randn(2, 77, 4, 32, generator=gen).to(dev)
+    out, lse = flash_attention_cuda(q, k, v, cap=30.0, lse=True)
+    assert torch.equal(out, flash_attention_cuda(q, k, v, cap=30.0))
+    torch.testing.assert_close(
+        lse, flash_attention_lse_plain(q, k, v, cap=30.0)[1], atol=2e-5,
+        rtol=2e-5)
+
+
+def test_ssd_on_inputs_that_require_grad_still_raises(dev):
+    """ssd_scan has no backward: the public SSD op on a CUDA input that
+    requires grad raises before any launch (mamba2 training waits for
+    it)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd
+
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn(1, 16, 2, 8, generator=gen).to(dev).requires_grad_(True)
+    dt = torch.rand(1, 16, 2, generator=gen).to(dev)
+    a = -torch.rand(2, generator=gen).to(dev)
+    bm = torch.randn(1, 16, 1, 8, generator=gen).to(dev)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="requires grad"):
+        ssd(x, dt, a, bm, bm.clone(), torch.ones(2, device=dev), chunk=16)
+    assert not any(launch_counts().values())
+
+
+def test_stream_mllm_gradients_card_equals_cpu(dev):
+    """The small stream MLLM's loss and gradients on a booth batch, on
+    the card (the flash kernels), on the card with the plain attention
+    (the witness) and on the CPU, same weights: the loss within 1e-4
+    relative; each gradient leaf within 1e-4 of its largest |g| of the
+    CPU's, or no farther than twice the witness (fp32 sums in other
+    orders move gradients further than logits; ``chip_smoke.py`` phase
+    18 (c) holds the big MLLM the same way)."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    # fp32 throughout: cuDNN runs fp32 convolutions in TF32 by default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _stream_mllm_card_vs_cpu(dev)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def _stream_mllm_card_vs_cpu(dev):
+    from repro_torch.configs.samsara_stream import STREAM_MLLM_SMALL_CONFIG
+    from repro_torch.data import TollBoothStream
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.models import attention
+    from repro_torch.streaming.mllm import StreamMLLM
+    from repro_torch.streaming.pretrain import (CROP, encode_tollbooth_labels,
+                                                preprocess_np)
+
+    frames, labels = TollBoothStream(seed=4).booth_batch(4)
+    batch = {"frames": preprocess_np(frames, CROP, 2),
+             **encode_tollbooth_labels(labels)}
+    cpu = StreamMLLM(STREAM_MLLM_SMALL_CONFIG, patch=16, device="cpu").init(
+        torch.Generator().manual_seed(1))
+    card = StreamMLLM(STREAM_MLLM_SMALL_CONFIG, patch=16, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    results = []
+    for model, plain in ((cpu, False), (card, False), (card, True)):
+        for p in model.parameters():
+            p.requires_grad_(True)
+            p.grad = None
+        kernel = attention.flash_attention
+        if plain:
+            attention.flash_attention = flash_attention_plain
+        try:
+            loss = model.loss({k: torch.from_numpy(v)
+                               for k, v in batch.items()})
+            loss.backward()
+        finally:
+            attention.flash_attention = kernel
+        results.append((loss.item(), {n: p.grad.cpu() for n, p in
+                                      model.named_parameters()
+                                      if p.grad is not None}))
+    (loss_c, g_c), (loss_k, g_k), (_, g_p) = results
+    assert abs(loss_k - loss_c) <= 1e-4 * abs(loss_c)
+    assert g_c.keys() == g_k.keys() == g_p.keys()
+    for n, g in g_c.items():
+        scale = g.abs().max().item()
+        err = (g_k[n] - g).abs().max().item()
+        witness = (g_p[n] - g).abs().max().item()
+        assert err <= max(1e-4 * scale, 2 * witness), (n, err, witness)

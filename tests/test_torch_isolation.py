@@ -39,7 +39,8 @@ def test_port_modules_were_found():
             "tracer.py", "metrics.py", "slo.py", "report.py", "audit.py",
             "injector.py", "breaker.py", "chip_smoke.py",
             "sharing_tree.py", "extract_server.py", "multistream.py",
-            "fleet.py"} <= names
+            "fleet.py", "optimizer.py", "checkpoint.py", "data.py",
+            "trainer.py", "train.py", "pretrain.py"} <= names
     kernels = {p.parent.name for p in FILES if p.name == "kernel.py"}
     assert {"decode_attention", "ssd_scan", "flash_attention",
             "int8_matmul"} <= kernels

@@ -219,6 +219,7 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     q = torch.from_numpy(randn(6, (1, 28, 8, 32)))
     k = torch.from_numpy(randn(7, (1, 28, 4, 32)))
     flash_attention(q, k, k)
+    flash_attention(q.clone().requires_grad_(True), k, k).sum().backward()
     fused_prefix(f, f, spec=(("diff", (4, 8)), ("crop", (0, 0, 64, 64))))
     decode_attention(q[:, :1], k, k, torch.tensor([[28]], dtype=torch.int32))
     x = torch.from_numpy(randn(10, (1, 16, 2, 8)))
@@ -228,7 +229,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
                         torch.ones(1, 8))
     assert launch_counts() == before
     assert set(before) == {"frame_diff_u8", "fused_preprocess_u8",
-                           "flash_attention_f32", "fused_prefix_launch",
+                           "flash_attention_f32", "flash_attention_lse_f32",
+                           "flash_attention_bwd_f32", "fused_prefix_launch",
                            "decode_attention_f32", "ssd_scan_f32",
                            "int8_transpose_kn", "int8_mma_f32"}
 
