@@ -266,8 +266,9 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
 #: count, made once with every launch of the kernel's entry above
 COMPANIONS = {"int8_matmul": ("int8_transpose_kn",)}
 #: the tensor-core instruction each built library must hold (phase 1)
-SASS_MMA = {"flash_attention": "HMMA", "decode_attention": "HMMA",
-            "ssd_scan": "HMMA", "int8_matmul": "IMMA"}
+SASS_MMA = {"flash_attention": "HMMA", "flash_attention_bwd": "HMMA",
+            "decode_attention": "HMMA", "ssd_scan": "HMMA",
+            "int8_matmul": "IMMA"}
 #: the paths driven end to end, by the name used in ``launches_by_path``
 PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
          "catalog", "mq_tollbooth", "mq_volleyball", "mq_reduced",
@@ -2826,17 +2827,11 @@ def bwd_timing(label, b, s, h, hk, d):
     return t, fwd
 
 
-def flash_bwd_checks(dev, rows):
-    """Phase 18 (a): the backward at the path shapes, every head dim with
-    groups 1, 2, 16 and 64, ragged S, bidirectional, capped and windowed;
-    then its times at the path shapes."""
+def bwd_cases():
+    """Phase 18 (a)'s cases, (label, (B, S, H, Hk, D), options): the path
+    shapes, every head dim with groups 1, 2, 16 and 64, ragged S,
+    bidirectional, capped and windowed."""
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
-
-    gen = torch.Generator().manual_seed(18)
-
-    def inputs(b, s, h, hk, d):
-        return [torch.randn(shape, generator=gen).to(dev) for shape in
-                ((b, s, h, d), (b, s, hk, d), (b, s, hk, d), (b, s, h, d))]
 
     cases = [(label, shape, dict(causal=True))
              for label, shape in BWD_PATH.items()]
@@ -2851,12 +2846,57 @@ def flash_bwd_checks(dev, rows):
                                ("window 7", dict(causal=True, window=7)),
                                ("bidirectional window 9",
                                 dict(causal=False, window=9)))]
-    for label, shape, kw in cases:
-        q, k, v, dout = inputs(*shape)
+    return cases
+
+
+def bwd_inputs(gen, dev, b, s, h, hk, d):
+    """q, k, v, dout of one backward case from the CPU generator ``gen``."""
+    return [torch.randn(shape, generator=gen).to(dev) for shape in
+            ((b, s, h, d), (b, s, hk, d), (b, s, hk, d), (b, s, h, d))]
+
+
+def bwd_tiles_match():
+    """The host plan's tiles (``kernel.py::bwd_tiles``) are the built
+    library's (``flash_attention_bwd_config``) at every head dim."""
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, bwd_tiles
+
+    fn = load_library("flash_attention_bwd").flash_attention_bwd_config
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    keys = ("rows", "cols", "smem", "per_sm")
+    for d in HEAD_DIMS:
+        got = (ctypes.c_int * len(keys))()
+        check(fn(d, got) == 0, f"flash_attention_bwd_config({d}) failed")
+        want = bwd_tiles(d)
+        check(list(got) == [want[k] for k in keys],
+              f"flash_attention_bwd D{d}: the library's tiles {list(got)}, "
+              f"the plan's {[want[k] for k in keys]}")
+    print(f"  flash_attention_bwd: the plan's tiles are the library's at D "
+          f"{HEAD_DIMS}")
+
+
+def flash_bwd_checks(dev, rows):
+    """Phase 18 (a): the plan's tiles against the library's; the backward
+    at ``bwd_cases()``; then its times at the path shapes, each printed
+    with the split count the wrapper's plan takes on this card."""
+    from repro_torch.kernels.flash_attention.kernel import bwd_plan, bwd_tiles
+
+    bwd_tiles_match()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator().manual_seed(18)
+    for label, shape, kw in bwd_cases():
+        q, k, v, dout = bwd_inputs(gen, dev, *shape)
         flash_bwd_check(f"{label} {kw}", q, k, v, dout, kw)
     bwd, lse = {}, {}
     for label, shape in BWD_PATH.items():
         bwd[label], lse[label] = bwd_timing(label, *shape)
+        b, s, h, hk, d = shape
+        splits = bwd_plan(*shape, sms=sms)["splits"]
+        tiles = -(-s // bwd_tiles(d)["rows"])
+        print(f"  flash_attention_bwd {label}: plan {splits} split(s) on "
+              f"{sms} SMs, {tiles * splits * hk * b} dK/dV and "
+              f"{tiles * h * b} dQ blocks")
     top = "mllm_s140"
     rows["flash_attention_bwd"] = {**bwd[top], **{
         k: v for k, v in bwd.items() if k != top}}

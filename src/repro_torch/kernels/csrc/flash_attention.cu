@@ -93,7 +93,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace {
+
+using namespace tf32;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -118,58 +122,6 @@ struct Cfg {
       sizeof(float) * ((size_t)(kRows + 2 * BK) * LQ +
                        (size_t)(VREST ? 2 : 3) * BK * LV);
 };
-
-// x = hi + lo exactly: hi is x rounded to 11 significant bits (a TF32
-// value), by Veltkamp's split with 2^13 + 1 in fp32 arithmetic (no
-// contraction: each step rounds); lo holds the other 13, of which the
-// tensor cores read the top 10 (TF32 drops the low 13 bits of a register)
-__device__ __forceinline__ void splitf(float x, float& hi, float& lo) {
-  const float c = __fmul_rn(x, 8193.0f);
-  hi = __fsub_rn(c, __fsub_rn(c, x));
-  lo = __fsub_rn(x, hi);
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  float h, l;
-  splitf(x, h, l);
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(l);
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void split2(float2 x, uint32_t& hi0, uint32_t& lo0,
-                                       uint32_t& hi1, uint32_t& lo1) {
-  split(x.x, hi0, lo0);
-  split(x.y, hi1, lo1);
-}
-
-// one 16-byte (vec) or 4-byte copy into shared memory; zeros if !valid
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool valid, bool vec) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  if (vec)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // keys k0 .. k0+BK-1 of kv head hk into s (zeros past S)
 template <int D, int LD>
@@ -201,14 +153,6 @@ __device__ __forceinline__ void split_tile(float* hi, float* lo) {
     *reinterpret_cast<float4*>(hi + e) = h;
     *reinterpret_cast<float4*>(lo + e) = l;
   }
-}
-
-// x = hi + mid + lo exactly, three TF32 values (lo holds x's last 2 bits)
-__device__ __forceinline__ void split3f(float x, float& hi, float& mid,
-                                       float& lo) {
-  float r;
-  splitf(x, hi, r);
-  splitf(r, mid, lo);
 }
 
 template <int N>

@@ -33,187 +33,477 @@
 // 3xTF32 rate (165 fp32 TFLOP/s), against 35.7 MB, 10.7 us at 3.35 TB/s;
 // at the stream MLLM's full frame (B 16, S 140, H 8/4, D 32: 1.26 M
 // pairs) 0.40 GFLOP, 2.5 us, against 13.8 MB, 4.1 us: bytes bound both.
-// This kernel runs its products on the CUDA cores (67 TFLOP/s) and reads
-// each K/V tile once per query tile, so neither bound is its own.
 //
-// Design (simple, right first): three launches on the caller's stream.
-//  1. flash_bwd_delta: delta_i = dO_i.o_i, a warp a (row, head), into a
-//     (B, H, S) scratch the wrapper allocates.
-//  2. flash_bwd_dkdv: a block of 256 threads per (tile of BN = 32 keys,
-//     kv head, batch row).  K and V of the tile stay in shared memory; the
-//     block loops over the G heads of the group and, for each, over the
-//     tiles of BM = 32 queries that can see a key of the tile (from the
-//     tile's first key on when causal, up to its last key + window - 1
-//     under a window), so dK and dV sum the whole group in registers
-//     without atomics.  For each query tile: Q, dO, lse and delta into
-//     shared memory; P and dS recomputed (a warp a query row, a lane a
-//     key: the lane's K and V rows read as float4 at a row stride of D+4
-//     floats, free of bank conflicts; q and dO broadcast) into shared
-//     tiles; then each thread adds P^T.dO and dS^T.Q for its (key, d)
-//     pairs (d = thread mod D where D divides 256, so one dO and one Q
-//     load serve all of the thread's keys).  The sums run in three levels,
-//     so that no chain of fp32 additions is long (one chain of G x S
-//     terms, 8320 at G 64, S 130, was 6x farther from float64 than the
-//     plain version's autograd): a fresh sum per query tile, added to the
-//     head's sum, added after each head to the group's total in shared
-//     memory (each thread its own slots).
-//  3. flash_bwd_dq: a block per (tile of BM queries, query head, batch
-//     row), looping over the key tiles the forward visits for those rows
-//     (the same range as flash_attention.cu's), dS recomputed the same
-//     way, dQ += dS.K in registers (a fresh sum per key tile, added to
-//     the total).  Each score and dO.v sums D products in four chains.
-// Every sum runs in a fixed order (fp32 FMA on the CUDA cores, no
-// atomics), so a launch repeats the last one bit for bit.  Rows and keys
-// past S load zeros and are masked (P = 0) and never stored.  Shared
-// memory is 4 (32 x (D+4)) + 2 (32 x 33) + 64 floats, and 2 (32 x D) more
-// for dK/dV's totals: 207,360 bytes at D = 256, above the 48 KB default,
-// so each launch raises the kernel's limit first.
+// What held the first kernel (fp32 FMA on the CUDA cores, a dK/dV block
+// per (32 keys, kv head, row)) at 27-36x that bound: (1) too few dK/dV
+// blocks where a group is large (32 for chatglm3's 132 SMs, each looping
+// over 16 heads); (2) no tensor cores, and every FMA of its inner loops
+// read shared memory; (3) no load in flight while a tile was computed.
+// This one runs 11-21x the bound: a tile is a chain of loads, barriers,
+// mma and the exp at 4 warps a scheduler, with no one part dominant
+// (timed with each removed in turn, PERF.md); more work a warp between
+// barriers needs registers the dK/dV sums hold at D 128.
+//
+// Design: three launches on the caller's stream, every sum in a fixed order
+// (no atomics), so a launch repeats the last one bit for bit.
+//  1. flash_bwd_delta: delta_i = dO_i.o_i, a few lanes a (row, head) with
+//     16-byte loads, into a (B, H, S) scratch the wrapper allocates.
+//  2. flash_bwd_main: the dK/dV blocks, then the dQ blocks, in one grid
+//     (a dQ block starts as soon as the card has room, beside the dK/dV
+//     blocks' tails).  A dK/dV block owns a tile of R = 32 keys (16 at D
+//     256), a kv head, a split of the group's heads and a batch row.  The
+//     host plan (kernels/flash_attention/kernel.py::bwd_plan) picks the
+//     number of splits from the shape: the group's heads are cut into that
+//     many consecutive runs (run sp holds heads sp G / splits .. (sp+1) G /
+//     splits - 1), as long as the dK/dV blocks still fit the card at once
+//     and the longest block's tiles plus the merge pass get fewer.  K and
+//     V of the tile stay in shared memory; the block walks its heads and,
+//     for each, the tiles of BC queries that can see a key of the tile
+//     (from the tile's first key on when causal, up to its last key +
+//     window - 1 under a window).  A block is 8 warps (6 at D 96): row
+//     groups of 16 keys x WD warps over D (32 columns each, 16 at D 16) x
+//     WQ column groups (the tile's queries shared out, 8 a warp).  A warp
+//     computes the transposed scores S^T = K.Q^T and dP^T = V.dO^T (rows =
+//     keys) over its columns of D and its 8 queries, the WD warps of a row
+//     and column group add their parts through shared memory in warp
+//     order, and P^T and dS^T then lie in accumulator fragments that are
+//     the A operands of dV += P^T.dO and dK += dS^T.Q as they are (the
+//     accumulator holds columns 2t and 2t+1 where the A fragment wants
+//     k-indices t and t+4, so k-index t stands for query 2t and t+4 for
+//     2t+1, and dO's and Q's B fragments are read from those rows), no trip
+//     through shared memory.  The sums run in three levels, so that no
+//     chain is long (one chain of G x S terms, 8320 at G 64, S 130, was 6x
+//     farther from float64 than the plain version's autograd): a fresh sum
+//     per query tile, added to its head's sum, added after each head to the
+//     split's total, all in registers (2 x 32 columns a warp, so that two
+//     blocks of 256 threads fit an SM's registers); after the last tile the
+//     column groups' totals are added in group order through shared
+//     memory.  With one split the total is dK (times the scale) and dV;
+//     with more, each split's total goes to an fp32 scratch (2, splits, B,
+//     S, Hk, D) that the wrapper allocates.  A dQ block owns a tile of R
+//     queries of one head in the same warp layout (its column groups share
+//     out the key tile), loops over the key tiles the forward visits for
+//     those rows (flash_attention.cu's range), recomputes S = Q.K^T and dP
+//     = dO.V^T the same way and sums dQ += dS.K in registers (a fresh sum
+//     per key tile, added to the total; the column groups' totals added in
+//     order at the end).
+//  3. flash_bwd_merge (only with splits > 1): dK = scale sum_sp, dV =
+//     sum_sp of the scratch, the splits added in split order.
+// Every product runs on the tensor cores as mma.sync.m16n8k8 on split TF32
+// operands (tf32.cuh): Q.K^T and dO.V^T 3xTF32 (hi*hi + hi*lo + lo*hi, as
+// the forward's Q.K^T), hi*hi and the cross terms each in a fresh
+// accumulator per two k steps added with fp32 adds (short chains of
+// dependent mma); P^T.dO, dS^T.Q and dS.K in BWD_PDO_TERMS, BWD_DSQ_TERMS
+// and BWD_DSK_TERMS terms (3 as above; 6: three-part operands down to
+// mid*mid, as the forward's P.V), hi*hi and the other terms each in a fresh
+// accumulator per tile, added to the sums with fp32 adds.  Three terms each
+// pass the float64 gate of chip_smoke.py's phase 18 (a) (no farther from
+// float64 than twice the plain version's autograd, plus 1e-6 of the
+// largest gradient): unlike the forward's output behind a dominant key,
+// every gradient element sums many products of both signs, whose fp32
+// rounding exceeds 3xTF32's 2^-22 a product (scripts/flash_bwd_compare.py
+// --variants builds and gates other counts).
+// Streamed tiles (Q, dO, lse and delta in dK/dV; K and V in dQ) run
+// through a ring of cp.async stages: two tiles in flight while one is
+// computed up to D 64, one from D 96 (shared memory for two blocks an SM,
+// and the faster of the two at D 128).  Once a tile lands, each thread
+// splits the elements it copied in place (hi over the value, the exact
+// rest beside it), before the one barrier of the tile, so the fragment
+// loads read ready TF32 operands.  The resident rows (K, V in dK/dV; Q, dO
+// in dQ) are split the same way once where D <= 64, and as they are read
+// above that.  Every row is padded by 4 floats (a stride of 4 mod 32
+// words), so both fragment patterns, (row g, column t) and (row 2t, column
+// g), are free of bank conflicts.  Rows and keys past S load zeros and are
+// masked (P = 0) and never stored; a warp skips the products of a tile
+// none of its rows sees (but keeps the block's barriers).  Shared memory
+// (Cfg<D>::smem) is at most 108,160 bytes (D 256: 16-key and 8-query
+// tiles), two blocks an SM at every D; above 48 KB each launch raises the
+// kernel's limit first.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
+// The split terms of the three products whose A operand is a P or dS just
+// computed: 3 (hi*hi, hi*lo, lo*hi) or 6 (three-part operands, down to
+// mid*mid)
+#ifndef BWD_PDO_TERMS
+#define BWD_PDO_TERMS 3
+#endif
+#ifndef BWD_DSQ_TERMS
+#define BWD_DSQ_TERMS 3
+#endif
+#ifndef BWD_DSK_TERMS
+#define BWD_DSK_TERMS 3
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int BM = 32;        // query rows per tile
-constexpr int BN = 32;        // keys per tile (a lane each in the P pass)
-constexpr int LP = BN + 1;    // row stride of the P and dS tiles
-constexpr int RPW = BM / kWarps;  // query rows per warp in the P pass
+using namespace tf32;
+
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kDeltaThreads = 256;
+constexpr int kMergeThreads = 256;
+constexpr int kSmemSM = 233472;  // shared memory of an H100 SM (228 KB)
 
 template <int D>
 struct Cfg {
-  static constexpr int LD = D + 4;  // row stride of the Q, dO, K, V tiles
-  // where D divides the block, a thread's pairs share one d
-  static constexpr bool DFIX = kThreads % D == 0;
-  static constexpr int NKV = BN * D / kThreads;  // (key, d) pairs a thread
-  static constexpr int NQ = BM * D / kThreads;   // (query, d) pairs a thread
-  // the tiles, then dK's and dV's group totals (flash_bwd_dkdv only)
-  static constexpr size_t smem_dq =
-      sizeof(float) *
-      ((size_t)2 * (BM + BN) * LD + (size_t)2 * BM * LP + 2 * BM);
-  static constexpr size_t smem_dkdv =
-      smem_dq + sizeof(float) * (size_t)2 * BN * D;
+  // warps over D in a row group, each taking DC = 32 columns (16 at D 16),
+  // so that a warp's dK/dV sums are 2 DC registers and two blocks of 256
+  // threads fit an SM's registers
+  static constexpr int WD = D <= 32 ? 1 : D / 32;
+  static constexpr int DC = D / WD;
+  static constexpr int KS = DC / 8;  // 8-wide k steps over DC (even)
+  static constexpr int DG = KS < 4 ? KS : 4;  // d tiles an output pass
+  static constexpr int WR = D == 256 ? 1 : 2;  // 16-row groups
+  static constexpr int R = 16 * WR;            // rows (keys, queries) a block
+  // column groups: the streamed tile's columns are shared out over WQ
+  // warps, each NTW 8-column tiles; their sums are added at the end
+  static constexpr int WQ = D <= 32 ? 4 : (D == 64 ? 2 : 1);
+  static constexpr int NTW = 1;
+  static constexpr int BC = 8 * NTW * WQ;      // streamed rows a tile
+  static constexpr int WARPS = WR * WD * WQ;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr bool XPRE = D <= 64;  // resident rows split once
+  static constexpr int XP = XPRE ? 2 : 1;
+  static constexpr int LD = D + 4;       // row stride (floats)
+  // streamed tiles in flight: a ring of STAGES, the next loading while one
+  // is computed, and a second up to D 64
+  static constexpr int STAGES = D <= 64 ? 3 : 2;
+  // resident rows: 2 tensors x XP planes; streamed: STAGES x 2 tensors x
+  // 2 planes (hi, rest), reused for the column groups' sums at the end;
+  // the columns' lse and delta, STAGES; the score parts where WD > 1
+  static constexpr int XF = 2 * XP * R * LD;
+  static constexpr int YF = STAGES * 2 * 2 * BC * LD;
+  static constexpr int SF = STAGES * 2 * BC;
+  static constexpr int GS = 2 * NTW * 4 * 32;  // one warp's score parts
+  static constexpr int CF = WD > 1 ? WARPS * GS : 0;
+  static constexpr size_t smem = sizeof(float) * (size_t)(XF + YF + SF + CF);
+  // blocks an SM holds by shared memory; the launch bounds ask for two
+  // where they fit (registers: 65536 / (2 THREADS) a thread)
+  static constexpr int FIT = (int)(kSmemSM / (smem + 1024));
+  static constexpr int MINB = FIT >= 2 ? 2 : 1;
+  static_assert(WARPS * 2 * KS * 4 * 32 <= YF, "column sums overlay tiles");
 };
 
-// rows p0 .. p0+R-1 of head h of a (B, S, NH, D) tensor into dst (row
-// stride D+4); zeros past S
-template <int D, int R>
+// rows p0 .. p0+n-1 of head h of a (B, S, NH, D) tensor into dst (row
+// stride D+4) with cp.async; zeros past S
+template <int D, int THREADS>
 __device__ __forceinline__ void load_rows(float* dst,
                                           const float* __restrict__ src,
                                           int b, int S, int NH, int h, int p0,
-                                          bool vec) {
-  constexpr int LD = Cfg<D>::LD;
-  if (vec) {
-    constexpr int W = D / 4;
-    for (int e = threadIdx.x; e < R * W; e += kThreads) {
-      const int r = e / W, c = (e % W) * 4, pos = p0 + r;
-      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (pos < S)
-        x = __ldg(reinterpret_cast<const float4*>(
-            src + (((size_t)b * S + pos) * NH + h) * D + c));
-      *reinterpret_cast<float4*>(dst + r * LD + c) = x;
-    }
-  } else {
-    for (int e = threadIdx.x; e < R * D; e += kThreads) {
-      const int r = e / D, c = e % D, pos = p0 + r;
-      dst[r * LD + c] =
-          pos < S ? __ldg(src + (((size_t)b * S + pos) * NH + h) * D + c)
-                  : 0.0f;
+                                          int n, bool vec) {
+  constexpr int LD = D + 4;
+  const int w = vec ? 4 : 1, per_row = D / w;
+  for (int e = threadIdx.x; e < n * per_row; e += THREADS) {
+    const int r = e / per_row, c = (e % per_row) * w, pos = p0 + r;
+    const bool ok = pos < S;
+    cp_async(dst + r * LD + c,
+             ok ? src + (((size_t)b * S + pos) * NH + h) * D + c : src, ok,
+             vec);
+  }
+}
+
+// the elements this thread copied with load_rows, once landed, split in
+// place: hi over the value, the exact rest into lo (read by the tensor
+// cores as its TF32 part)
+template <int D, int THREADS>
+__device__ __forceinline__ void split_rows(float* hi, float* lo, int n,
+                                           bool vec) {
+  constexpr int LD = D + 4;
+  const int w = vec ? 4 : 1, per_row = D / w;
+  for (int e = threadIdx.x; e < n * per_row; e += THREADS) {
+    const int at = (e / per_row) * LD + (e % per_row) * w;
+    if (vec) {
+      const float4 x = *reinterpret_cast<const float4*>(hi + at);
+      float4 h, l;
+      splitf(x.x, h.x, l.x);
+      splitf(x.y, h.y, l.y);
+      splitf(x.z, h.z, l.z);
+      splitf(x.w, h.w, l.w);
+      *reinterpret_cast<float4*>(hi + at) = h;
+      *reinterpret_cast<float4*>(lo + at) = l;
+    } else {
+      float h, l;
+      splitf(hi[at], h, l);
+      hi[at] = h;
+      lo[at] = l;
     }
   }
 }
 
-// lse and delta of rows q0 .. q0+BM-1 of head h (0 past S)
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* dl_s,
-                                               const float* __restrict__ lse,
-                                               const float* __restrict__ delta,
-                                               int b, int S, int H, int h,
-                                               int q0) {
-  if (threadIdx.x < BM) {
-    const int pos = q0 + threadIdx.x;
-    const size_t at = ((size_t)b * H + h) * S + pos;
-    lse_s[threadIdx.x] = pos < S ? lse[at] : 0.0f;
-    dl_s[threadIdx.x] = pos < S ? delta[at] : 0.0f;
+// out[nt] = X . Y^T over this warp's DC columns: 16 rows of X (offset xo
+// of row g, column dc0 + t) against 8 rows of Y a column tile (planes yh,
+// yl; offset yo of row g, column dc0 + t), 3xTF32.  For each two k steps,
+// hi*hi in one fresh accumulator and the cross terms in another, added to
+// out and to the cross terms' sum with fp32 adds (short chains of
+// dependent mma); the cross terms are added last.  X is read from its
+// planes xh/xl where it was split once (XPRE), else split as it is read
+// from xh.
+template <class C>
+__device__ __forceinline__ void scores(const float* xh, const float* xl,
+                                       const float* yh, const float* yl,
+                                       int xo, int yo,
+                                       float (&out)[C::NTW][4]) {
+  constexpr int LD = C::LD, NT = C::NTW, KS = C::KS;
+  float cr[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[nt][e] = cr[nt][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < KS; kk += 2) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = xo + (kk + h) * 8;
+      const int at[4] = {o, o + 8 * LD, o + 4, o + 8 * LD + 4};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (C::XPRE) {
+          ah[h][i] = __float_as_uint(xh[at[i]]);
+          al[h][i] = __float_as_uint(xl[at[i]]);
+        } else {
+          split(xh[at[i]], ah[h][i], al[h][i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = yo + nt * 8 * LD + (kk + h) * 8;
+        const uint32_t bh0 = __float_as_uint(yh[o]);
+        const uint32_t bh1 = __float_as_uint(yh[o + 4]);
+        const uint32_t bl0 = __float_as_uint(yl[o]);
+        const uint32_t bl1 = __float_as_uint(yl[o + 4]);
+        mma(x, al[h], bh0, bh1);
+        mma(x, ah[h], bl0, bl1);
+        mma(t, ah[h], bh0, bh1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        out[nt][e] += t[e];
+        cr[nt][e] += x[e];
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[nt][e] += cr[nt][e];
+}
+
+// The WD warps that share a row group and a column group add their score
+// parts in warp order (through shared memory, one block barrier), so that
+// each holds the scores over all of D.  Called by every thread; warps
+// that skip the tile (work false, the same for all WD) write and read
+// nothing.  grp: the first warp of the WD (its index over the block).
+template <class C>
+__device__ __forceinline__ void gather_parts(float* xc, int grp, int dg,
+                                             bool work,
+                                             float (&sc)[C::NTW][4],
+                                             float (&dp)[C::NTW][4]) {
+  if constexpr (C::WD > 1) {
+    constexpr int NT = C::NTW;
+    const int lane = threadIdx.x & 31;
+    float* base = xc + grp * C::GS;
+    if (work) {
+      float* mine = base + dg * C::GS;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          mine[(nt * 4 + e) * 32 + lane] = sc[nt][e];
+          mine[(NT * 4 + nt * 4 + e) * 32 + lane] = dp[nt][e];
+        }
+    }
+    __syncthreads();
+    if (work) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int js = (nt * 4 + e) * 32 + lane;
+          const int jp = (NT * 4 + nt * 4 + e) * 32 + lane;
+          float a = base[js], c = base[jp];
+#pragma unroll
+          for (int g = 1; g < C::WD; ++g) {
+            a += base[g * C::GS + js];
+            c += base[g * C::GS + jp];
+          }
+          sc[nt][e] = a;
+          dp[nt][e] = c;
+        }
+    }
   }
 }
 
-// The P pass: for query rows q0 + i (i = warp + kWarps r) and key k0 +
-// lane, P and dS (the gradient of the raw score s, before the scale) into
-// the shared tiles (P only when p_s is not null).
+template <int TERMS>
+struct Parts {
+  static constexpr int N = TERMS == 6 ? 3 : 2;
+};
+
+// accumulator fragments x (16 rows x 8 NT columns) as the A operand of the
+// next product: k-index t of each 8-column tile is column 2t, t+4 is
+// column 2t+1; split in two parts (hi, rest) or three (hi, mid, lo)
+template <int TERMS, int NT>
+__device__ __forceinline__ void a_parts(const float (&x)[NT][4],
+                                        uint32_t (&a)[Parts<TERMS>::N][NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = (e == 1) ? 2 : (e == 2) ? 1 : e;
+      if constexpr (TERMS == 6) {
+        float h, m, l;
+        split3f(x[nt][e], h, m, l);
+        a[0][nt][i] = __float_as_uint(h);
+        a[1][nt][i] = __float_as_uint(m);
+        a[2][nt][i] = __float_as_uint(l);
+      } else {
+        split(x[nt][e], a[0][nt][i], a[1][nt][i]);
+      }
+    }
+}
+
+// acc[dt] += A . Y over this warp's DC columns: A (16 x 8 NTW, its parts in
+// A-fragment order) against the warp's 8 NTW rows of the tile's Y (planes
+// yh, yl; offset yo of row 2t, column dc0 + g).  For DG d tiles at a time,
+// hi*hi in a fresh accumulator and the other terms in another, then acc +=
+// tb + tx (fp32 adds).  Six terms take Y's rest apart into mid and lo as
+// it is read.
+template <class C, int TERMS>
+__device__ __forceinline__ void accumulate(
+    float (&acc)[C::KS][4], const uint32_t (&a)[Parts<TERMS>::N][C::NTW][4],
+    const float* yh, const float* yl, int yo) {
+  constexpr int LD = C::LD, NT = C::NTW, KS = C::KS, DG = C::DG;
+#pragma unroll
+  for (int d0 = 0; d0 < KS; d0 += DG) {
+    float tb[DG][4], tx[DG][4];
+#pragma unroll
+    for (int j = 0; j < DG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tb[j][e] = tx[j][e] = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int o = yo + nt * 8 * LD + d0 * 8;
+#pragma unroll
+      for (int j = 0; j < DG; ++j) {
+        const uint32_t bh0 = __float_as_uint(yh[o + j * 8]);
+        const uint32_t bh1 = __float_as_uint(yh[o + j * 8 + LD]);
+        const float r0 = yl[o + j * 8], r1 = yl[o + j * 8 + LD];
+        if constexpr (TERMS == 6) {
+          float m0, l0, m1, l1;
+          splitf(r0, m0, l0);
+          splitf(r1, m1, l1);
+          const uint32_t bm0 = __float_as_uint(m0), bm1 = __float_as_uint(m1);
+          const uint32_t bl0 = __float_as_uint(l0), bl1 = __float_as_uint(l1);
+          mma(tx[j], a[2][nt], bh0, bh1);
+          mma(tx[j], a[0][nt], bl0, bl1);
+          mma(tx[j], a[1][nt], bm0, bm1);
+          mma(tx[j], a[1][nt], bh0, bh1);
+          mma(tx[j], a[0][nt], bm0, bm1);
+        } else {
+          mma(tx[j], a[1][nt], bh0, bh1);
+          mma(tx[j], a[0][nt], __float_as_uint(r0), __float_as_uint(r1));
+        }
+        mma(tb[j], a[0][nt], bh0, bh1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < DG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d0 + j][e] += tb[j][e] + tx[j][e];
+  }
+}
+
+// The column groups' sums are added in group order: after the tile loop
+// (red overlays the streamed tiles), groups 1 .. WQ-1 put each of their N
+// sums in their own slots of red (put_sums), and group 0 adds them to its
+// own (add_sums), with a block barrier between.
+template <class C, int N>
+__device__ __forceinline__ void put_sums(float* red, int warp, int n,
+                                         const float (&arr)[C::KS][4]) {
+  const int lane = threadIdx.x & 31;
+  float* mine = red + (warp * N + n) * C::KS * 4 * 32;
+#pragma unroll
+  for (int dt = 0; dt < C::KS; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mine[(dt * 4 + e) * 32 + lane] = arr[dt][e];
+}
+
+template <class C, int N>
+__device__ __forceinline__ void add_sums(const float* red, int warp, int n,
+                                         float (&arr)[C::KS][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int c = 1; c < C::WQ; ++c) {
+    // the same row group and columns of D in column group c
+    const float* other = red + ((warp + c * C::WD) * N + n) * C::KS * 4 * 32;
+#pragma unroll
+    for (int dt = 0; dt < C::KS; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) arr[dt][e] += other[(dt * 4 + e) * 32 + lane];
+  }
+}
+
+// the capped (or plain) scaled logit, P and dS (the gradient of the raw
+// score s, before the scale) of one visible or masked pair
+__device__ __forceinline__ void grad_pair(float s, float dpv, float lse,
+                                          float dl, bool vis, float cap,
+                                          float scale, float& p, float& ds) {
+  float x = s * scale;
+  if (cap > 0.0f) x = cap * tanhf(x / cap);
+  p = vis ? expf(x - lse) : 0.0f;
+  ds = p * (dpv - dl);
+  if (cap > 0.0f) {
+    const float t = x / cap;
+    ds *= 1.0f - t * t;
+  }
+}
+
+// delta_i = dO_i.o_i of the (B, S, H, D) layout's (position, head) rows,
+// TPR threads a row (four consecutive elements at a time, 16-byte loads
+// where vec), into delta (B, H, S)
 template <int D>
-__device__ __forceinline__ void p_pass(const float* q_s, const float* do_s,
-                                       const float* k_s, const float* v_s,
-                                       const float* lse_s, const float* dl_s,
-                                       float* p_s, float* ds_s, int q0, int k0,
-                                       int S, int causal, float cap,
-                                       int window, float scale) {
-  constexpr int LD = Cfg<D>::LD;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // four partial sums per dot product (d mod 4), added pairwise at the
-  // end: chains of D/4 products, not D
-  float s[RPW][4], dp[RPW][4];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    const float4 kk = *reinterpret_cast<const float4*>(k_s + lane * LD + d);
-    const float4 vv = *reinterpret_cast<const float4*>(v_s + lane * LD + d);
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int i = warp + kWarps * r;
-      const float4 qq = *reinterpret_cast<const float4*>(q_s + i * LD + d);
-      const float4 oo = *reinterpret_cast<const float4*>(do_s + i * LD + d);
-      s[r][0] = fmaf(qq.x, kk.x, s[r][0]);
-      s[r][1] = fmaf(qq.y, kk.y, s[r][1]);
-      s[r][2] = fmaf(qq.z, kk.z, s[r][2]);
-      s[r][3] = fmaf(qq.w, kk.w, s[r][3]);
-      dp[r][0] = fmaf(oo.x, vv.x, dp[r][0]);
-      dp[r][1] = fmaf(oo.y, vv.y, dp[r][1]);
-      dp[r][2] = fmaf(oo.z, vv.z, dp[r][2]);
-      dp[r][3] = fmaf(oo.w, vv.w, dp[r][3]);
-    }
-  }
-  const int kpos = k0 + lane;
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int i = warp + kWarps * r, qpos = q0 + i;
-    const bool vis = qpos < S && kpos < S && (!causal || kpos <= qpos) &&
-                     (window <= 0 || kpos > qpos - window);
-    float x = ((s[r][0] + s[r][1]) + (s[r][2] + s[r][3])) * scale;
-    if (cap > 0.0f) x = cap * tanhf(x / cap);
-    const float p = vis ? expf(x - lse_s[i]) : 0.0f;
-    const float dpr = (dp[r][0] + dp[r][1]) + (dp[r][2] + dp[r][3]);
-    float ds = p * (dpr - dl_s[i]);
-    if (cap > 0.0f) {
-      const float t = x / cap;
-      ds *= 1.0f - t * t;
-    }
-    if (p_s != nullptr) p_s[i * LP + lane] = p;
-    ds_s[i * LP + lane] = ds;
-  }
-}
-
-// delta_i = dO_i.o_i, a warp a (position, head) row of the (B, S, H, D)
-// layout, into delta (B, H, S)
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
                 float* __restrict__ delta, long long rows, int S, int H,
-                int D) {
-  const long long row = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const float* orow = o + row * D;
-  const float* drow = dout + row * D;
+                bool vec) {
+  constexpr int Q = D / 4;  // four-element chunks a row
+  constexpr int TPR = Q >= 32 ? 32 : (Q >= 16 ? 16 : (Q >= 8 ? 8 : 4));
+  const long long row =
+      (long long)blockIdx.x * (kDeltaThreads / TPR) + threadIdx.x / TPR;
+  const int sub = threadIdx.x % TPR;
   float acc = 0.0f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(drow[d], orow[d], acc);
+  if (row < rows) {
+    const float* orow = o + row * D;
+    const float* drow = dout + row * D;
+    for (int c = sub; c < Q; c += TPR) {
+      float4 a, b;
+      if (vec) {
+        a = __ldg(reinterpret_cast<const float4*>(orow) + c);
+        b = __ldg(reinterpret_cast<const float4*>(drow) + c);
+      } else {
+        a = make_float4(orow[4 * c], orow[4 * c + 1], orow[4 * c + 2],
+                        orow[4 * c + 3]);
+        b = make_float4(drow[4 * c], drow[4 * c + 1], drow[4 * c + 2],
+                        drow[4 * c + 3]);
+      }
+      acc = fmaf(b.x, a.x, acc);
+      acc = fmaf(b.y, a.y, acc);
+      acc = fmaf(b.z, a.z, acc);
+      acc = fmaf(b.w, a.w, acc);
+    }
+  }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = TPR / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(kFull, acc, off);
-  if (lane == 0) {
+  if (row < rows && sub == 0) {
     const int h = (int)(row % H);
     const long long bs = row / H;
     const int s = (int)(bs % S), b = (int)(bs / S);
@@ -221,238 +511,476 @@ flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
   }
 }
 
+// the problem a launch solves, as flash_bwd_main's blocks read it
+struct Args {
+  const float *q, *k, *v, *dout, *lse, *delta;
+  float *dq, *dk, *dv, *part;
+  int B, S, H, Hk, G, splits, causal, window;
+  float cap, scale;
+  bool vec;
+};
+
+// dK and dV of key tile kt, split sp, kv head hk, batch row b
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dk, float* __restrict__ dv, int S, int H,
-               int Hk, int G, int causal, float cap, int window, float scale,
-               bool vec) {
+__device__ __forceinline__ void dkdv_block(const Args& A, float* smem, int kt,
+                                           int sp, int hk, int b) {
   using C = Cfg<D>;
-  constexpr int LD = C::LD, NKV = C::NKV;
-  extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;              // [BN][LD]
-  float* v_s = k_s + BN * LD;     // [BN][LD]
-  float* q_s = v_s + BN * LD;     // [BM][LD]
-  float* do_s = q_s + BM * LD;    // [BM][LD]
-  float* p_s = do_s + BM * LD;    // [BM][LP]
-  float* ds_s = p_s + BM * LP;    // [BM][LP]
-  float* lse_s = ds_s + BM * LP;  // [BM]
-  float* dl_s = lse_s + BM;       // [BM]
+  constexpr int LD = C::LD, R = C::R, BC = C::BC, NT = C::NTW, KS = C::KS,
+                XP = C::XP, TH = C::THREADS, NS = C::STAGES;
+  const float* __restrict__ q = A.q;
+  const float* __restrict__ k = A.k;
+  const float* __restrict__ v = A.v;
+  const float* __restrict__ dout = A.dout;
+  const float* __restrict__ lse = A.lse;
+  const float* __restrict__ delta = A.delta;
+  const int S = A.S, H = A.H, Hk = A.Hk, G = A.G, splits = A.splits;
+  const int causal = A.causal, window = A.window;
+  const float cap = A.cap, scale = A.scale;
+  const bool vec = A.vec;
+  float* x_s = smem;            // [K, V][XP][R][LD]
+  float* y_s = x_s + C::XF;     // [stage][Q, dO][hi, rest][BC][LD]
+  float* st_s = y_s + C::YF;    // [stage][lse, delta][BC]
+  float* xc = st_s + C::SF;     // the score parts
 
-  const int k0 = blockIdx.x * BN, hk = blockIdx.y, b = blockIdx.z;
-  const int t = threadIdx.x;
-  load_rows<D, BN>(k_s, k, b, S, Hk, hk, k0, vec);
-  load_rows<D, BN>(v_s, v, b, S, Hk, hk, k0, vec);
-
-  // dK and dV sum up to G x S terms, in three levels so that no chain is
-  // long: a fresh sum per query tile (BM terms), added to the head's sum,
-  // added after each head to the group's total, which each thread keeps
-  // in its own slots of shared memory
-  float* tot_k = dl_s + BM;                 // [NKV][kThreads]
-  float* tot_v = tot_k + NKV * kThreads;    // [NKV][kThreads]
-#pragma unroll
-  for (int n = 0; n < NKV; ++n)
-    tot_k[n * kThreads + t] = tot_v[n * kThreads + t] = 0.0f;
+  const int k0 = kt * R;
+  const int g0 = sp * G / splits, g1 = (sp + 1) * G / splits;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;  // fragment row, column group
+  const int dg = warp % C::WD, cg = (warp / C::WD) % C::WQ;
+  const int rg = warp / (C::WD * C::WQ);
+  const int dc0 = dg * C::DC, c0 = cg * NT * 8;
+  const int kw = k0 + rg * 16;  // the warp's first key
 
   // the queries that can see a key of the tile
-  const int klast = min(S, k0 + BN) - 1;
+  const int klast = min(S, k0 + R) - 1;
   const int qbeg = causal ? k0 : 0;
   const int qend = window > 0 ? min(S, klast + window) : S;
+  const int nq = (qend - qbeg + BC - 1) / BC;
+  const int T = (g1 - g0) * nq;  // tiles: the split's heads x query tiles
 
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    float hsum_k[NKV], hsum_v[NKV];
+  auto load_y = [&](int stage, int h, int q0) {
+    float* base = y_s + stage * 4 * BC * LD;
+    load_rows<D, TH>(base, q, b, S, H, h, q0, BC, vec);
+    load_rows<D, TH>(base + 2 * BC * LD, dout, b, S, H, h, q0, BC, vec);
+    if (threadIdx.x < 2 * BC) {
+      const int pos = q0 + threadIdx.x % BC;
+      const float* src = threadIdx.x < BC ? lse : delta;
+      const bool ok = pos < S;
+      cp_async(st_s + stage * 2 * BC + threadIdx.x,
+               ok ? src + ((size_t)b * H + h) * S + pos : src, ok, false);
+    }
+  };
+  // the ring: tile j in stage j % NS; groups 0 .. NS-2 hold K and V and
+  // the first NS-1 tiles, then one group a tile (empty past the last)
+  load_rows<D, TH>(x_s, k, b, S, Hk, hk, k0, R, vec);
+  load_rows<D, TH>(x_s + XP * R * LD, v, b, S, Hk, hk, k0, R, vec);
 #pragma unroll
-    for (int n = 0; n < NKV; ++n) hsum_k[n] = hsum_v[n] = 0.0f;
-    for (int q0 = qbeg; q0 < qend; q0 += BM) {
-      __syncthreads();  // the last tile's readers are done
-      load_rows<D, BM>(q_s, q, b, S, H, h, q0, vec);
-      load_rows<D, BM>(do_s, dout, b, S, H, h, q0, vec);
-      load_row_stats(lse_s, dl_s, lse, delta, b, S, H, h, q0);
-      __syncthreads();
-      p_pass<D>(q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s, q0, k0, S,
-                causal, cap, window, scale);
-      __syncthreads();
-      // dV += P^T.dO, dK += dS^T.Q over the tile's queries
-      float tk[NKV], tv[NKV];
+  for (int j = 0; j < NS - 1; ++j) {
+    if (j < T) load_y(j, hk * G + g0 + j / nq, qbeg + (j % nq) * BC);
+    cp_commit();
+  }
+
+  // dK's and dV's sums: the head's (hs_*) and the split's (tot_*), each a
+  // 16 x DC tile of accumulator fragments (row g + 8 (e >> 1), column
+  // dc0 + 8 dt + 2t + (e & 1))
+  float hs_k[KS][4], hs_v[KS][4], tot_k[KS][4], tot_v[KS][4];
 #pragma unroll
-      for (int n = 0; n < NKV; ++n) tk[n] = tv[n] = 0.0f;
-      if constexpr (C::DFIX) {
-        constexpr int J = kThreads / D;
-        const int d = t % D, j0 = t / D;
-        for (int i = 0; i < BM; ++i) {
-          const float od = do_s[i * LD + d], qd = q_s[i * LD + d];
+  for (int dt = 0; dt < KS; ++dt)
 #pragma unroll
-          for (int n = 0; n < NKV; ++n) {
-            const int j = j0 + J * n;
-            tv[n] = fmaf(p_s[i * LP + j], od, tv[n]);
-            tk[n] = fmaf(ds_s[i * LP + j], qd, tk[n]);
-          }
-        }
-      } else {
-        for (int i = 0; i < BM; ++i) {
-#pragma unroll
-          for (int n = 0; n < NKV; ++n) {
-            const int e = t + kThreads * n, j = e / D, d = e % D;
-            tv[n] = fmaf(p_s[i * LP + j], do_s[i * LD + d], tv[n]);
-            tk[n] = fmaf(ds_s[i * LP + j], q_s[i * LD + d], tk[n]);
-          }
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NKV; ++n) {
-        hsum_k[n] += tk[n];
-        hsum_v[n] += tv[n];
+    for (int e = 0; e < 4; ++e)
+      hs_k[dt][e] = hs_v[dt][e] = tot_k[dt][e] = tot_v[dt][e] = 0.0f;
+
+  const float* kx = x_s + rg * 16 * LD;  // the warp's K rows, then V's
+  const float* vx = kx + XP * R * LD;
+  const int xo = gq * LD + dc0 + tq;
+  const int yo = (c0 + gq) * LD + dc0 + tq;
+  const int yo2 = (c0 + 2 * tq) * LD + dc0 + gq;
+
+  for (int t = 0; t < T; ++t) {
+    const int st = t % NS, q0 = qbeg + (t % nq) * BC;
+    float* qh = y_s + st * 4 * BC * LD;
+    float* ql = qh + BC * LD;
+    float* oh = ql + BC * LD;
+    float* ol = oh + BC * LD;
+    const float* lse_c = st_s + st * 2 * BC + c0;
+    const float* dl_c = lse_c + BC;
+    cp_wait<NS - 2>();  // this thread's copies of tile t (first: K and V)
+    if constexpr (C::XPRE) {
+      if (t == 0) {
+        split_rows<D, TH>(x_s, x_s + R * LD, R, vec);
+        split_rows<D, TH>(x_s + 2 * R * LD, x_s + 3 * R * LD, R, vec);
       }
     }
+    split_rows<D, TH>(qh, ql, BC, vec);
+    split_rows<D, TH>(oh, ol, BC, vec);
+    __syncthreads();  // tile t is split; every warp is done with tile t-1
+    {
+      const int tn = t + NS - 1;  // into the stage tile t-1 held
+      if (tn < T) load_y(tn % NS, hk * G + g0 + tn / nq, qbeg + (tn % nq) * BC);
+      cp_commit();
+    }
+    // does any key of this warp see one of its queries of the tile?
+    const int qlo = q0 + c0, qhi = min(qlo + NT * 8, S) - 1;
+    const bool work = kw < S && qlo < S && (!causal || kw <= qhi) &&
+                      (window <= 0 || min(kw + 15, S - 1) > qlo - window);
+    float sc[NT][4], dp[NT][4];
+    if (work) {
+      scores<C>(kx, kx + R * LD, qh, ql, xo, yo, sc);
+      scores<C>(vx, vx + R * LD, oh, ol, xo, yo, dp);
+    }
+    gather_parts<C>(xc, warp - dg, dg, work, sc, dp);
+    if (work) {
+      float pt[NT][4], dst[NT][4];
 #pragma unroll
-    for (int n = 0; n < NKV; ++n) {
-      tot_k[n * kThreads + t] += hsum_k[n];
-      tot_v[n * kThreads + t] += hsum_v[n];
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kw + gq + 8 * (e >> 1);
+          const int jc = nt * 8 + 2 * tq + (e & 1), qpos = qlo + jc;
+          const bool vis = key < S && qpos < S &&
+                           (!causal || key <= qpos) &&
+                           (window <= 0 || key > qpos - window);
+          grad_pair(sc[nt][e], dp[nt][e], lse_c[jc], dl_c[jc], vis, cap,
+                    scale, pt[nt][e], dst[nt][e]);
+        }
+      {
+        uint32_t a[Parts<BWD_PDO_TERMS>::N][NT][4];
+        a_parts<BWD_PDO_TERMS, NT>(pt, a);
+        accumulate<C, BWD_PDO_TERMS>(hs_v, a, oh, ol, yo2);
+      }
+      {
+        uint32_t a[Parts<BWD_DSQ_TERMS>::N][NT][4];
+        a_parts<BWD_DSQ_TERMS, NT>(dst, a);
+        accumulate<C, BWD_DSQ_TERMS>(hs_k, a, qh, ql, yo2);
+      }
+    }
+    if (t % nq == nq - 1) {  // the head's last tile
+#pragma unroll
+      for (int dt = 0; dt < KS; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          tot_k[dt][e] += hs_k[dt][e];
+          tot_v[dt][e] += hs_v[dt][e];
+          hs_k[dt][e] = hs_v[dt][e] = 0.0f;
+        }
     }
   }
+  cp_wait<0>();
+  if constexpr (C::WQ > 1) {
+    __syncthreads();  // every warp is done with the streamed tiles
+    if (cg > 0) {
+      put_sums<C, 2>(y_s, warp, 0, tot_k);
+      put_sums<C, 2>(y_s, warp, 1, tot_v);
+    }
+    __syncthreads();
+    if (cg > 0) return;
+    add_sums<C, 2>(y_s, warp, 0, tot_k);
+    add_sums<C, 2>(y_s, warp, 1, tot_v);
+  }
+
+  const size_t n = (size_t)A.B * S * Hk * D;  // one split's elements
 #pragma unroll
-  for (int n = 0; n < NKV; ++n) {
-    const int e = C::DFIX ? (t % D) + D * (t / D + (kThreads / D) * n)
-                          : t + kThreads * n;
-    const int j = e / D, d = e % D, pos = k0 + j;
-    if (pos < S) {
-      const size_t at = (((size_t)b * S + pos) * Hk + hk) * D + d;
-      dk[at] = tot_k[n * kThreads + t] * scale;
-      dv[at] = tot_v[n * kThreads + t];
+  for (int i = 0; i < 2; ++i) {
+    const int key = kw + gq + 8 * i;
+    if (key >= S) continue;
+    const size_t row = (((size_t)b * S + key) * Hk + hk) * D;
+#pragma unroll
+    for (int dt = 0; dt < KS; ++dt) {
+      const int d = dc0 + dt * 8 + 2 * tq;
+      const float2 tk = make_float2(tot_k[dt][2 * i], tot_k[dt][2 * i + 1]);
+      const float2 tv = make_float2(tot_v[dt][2 * i], tot_v[dt][2 * i + 1]);
+      if (splits == 1) {
+        *reinterpret_cast<float2*>(A.dk + row + d) =
+            make_float2(tk.x * scale, tk.y * scale);
+        *reinterpret_cast<float2*>(A.dv + row + d) = tv;
+      } else {
+        *reinterpret_cast<float2*>(A.part + sp * n + row + d) = tk;
+        *reinterpret_cast<float2*>(A.part + (splits + sp) * n + row + d) =
+            tv;
+      }
     }
   }
 }
 
+// dK = scale x the splits' dK totals, dV = their dV totals, added in split
+// order, four elements a thread
+__global__ void __launch_bounds__(kMergeThreads)
+flash_bwd_merge(const float* __restrict__ part, float* __restrict__ dk,
+                float* __restrict__ dv, long long n4, int splits,
+                float scale) {
+  const long long i = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
+  if (i >= n4) return;
+  const float4* pk = reinterpret_cast<const float4*>(part) + i;
+  const float4* pv = pk + (long long)splits * n4;
+  float4 a = pk[0], c = pv[0];
+  for (int s = 1; s < splits; ++s) {
+    const float4 x = pk[s * n4], y = pv[s * n4];
+    a.x += x.x;
+    a.y += x.y;
+    a.z += x.z;
+    a.w += x.w;
+    c.x += y.x;
+    c.y += y.y;
+    c.z += y.z;
+    c.w += y.w;
+  }
+  reinterpret_cast<float4*>(dk)[i] =
+      make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale);
+  reinterpret_cast<float4*>(dv)[i] = c;
+}
+
+// dQ of the query tile at q0, query head h, batch row b
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dq, int S, int H, int Hk, int G, int causal,
-             float cap, int window, float scale, bool vec) {
+__device__ __forceinline__ void dq_block(const Args& A, float* smem, int q0,
+                                         int h, int b) {
   using C = Cfg<D>;
-  constexpr int LD = C::LD, NQ = C::NQ;
-  extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;              // [BN][LD]
-  float* v_s = k_s + BN * LD;     // [BN][LD]
-  float* q_s = v_s + BN * LD;     // [BM][LD]
-  float* do_s = q_s + BM * LD;    // [BM][LD]
-  float* ds_s = do_s + BM * LD + BM * LP;  // [BM][LP] (the layout's P tile
-                                          // is unused here)
-  float* lse_s = ds_s + BM * LP;  // [BM]
-  float* dl_s = lse_s + BM;       // [BM]
-
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / G, t = threadIdx.x;
-  load_rows<D, BM>(q_s, q, b, S, H, h, q0, vec);
-  load_rows<D, BM>(do_s, dout, b, S, H, h, q0, vec);
-  load_row_stats(lse_s, dl_s, lse, delta, b, S, H, h, q0);
-
-  float aq[NQ];
-#pragma unroll
-  for (int n = 0; n < NQ; ++n) aq[n] = 0.0f;
+  constexpr int LD = C::LD, R = C::R, BC = C::BC, NT = C::NTW, KS = C::KS,
+                XP = C::XP, TH = C::THREADS, NS = C::STAGES;
+  const float* __restrict__ q = A.q;
+  const float* __restrict__ k = A.k;
+  const float* __restrict__ v = A.v;
+  const float* __restrict__ dout = A.dout;
+  const int S = A.S, H = A.H, Hk = A.Hk, G = A.G;
+  const int causal = A.causal, window = A.window;
+  const float cap = A.cap, scale = A.scale;
+  const bool vec = A.vec;
+  float* x_s = smem;                  // [Q, dO][XP][R][LD]
+  float* y_s = x_s + C::XF;           // [stage][K, V][hi, rest][BC][LD]
+  float* xc = y_s + C::YF + C::SF;    // the score parts
+  const int hk = h / G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int dg = warp % C::WD, cg = (warp / C::WD) % C::WQ;
+  const int rg = warp / (C::WD * C::WQ);
+  const int dc0 = dg * C::DC, c0 = cg * NT * 8;
+  const int qw = q0 + rg * 16;  // the warp's first query
 
   // the keys any row of the tile sees (flash_attention.cu's range)
-  const int kend = causal ? min(S, q0 + BM) : S;
+  const int kend = causal ? min(S, q0 + R) : S;
   const int kbeg = window > 0 ? max(0, q0 - window + 1) : 0;
-  for (int k0 = kbeg; k0 < kend; k0 += BN) {
-    __syncthreads();  // the last tile's readers are done
-    load_rows<D, BN>(k_s, k, b, S, Hk, hk, k0, vec);
-    load_rows<D, BN>(v_s, v, b, S, Hk, hk, k0, vec);
-    __syncthreads();
-    p_pass<D>(q_s, do_s, k_s, v_s, lse_s, dl_s, nullptr, ds_s, q0, k0, S,
-              causal, cap, window, scale);
-    __syncthreads();
-    // dQ += dS.K over the tile's keys: a fresh sum per key tile, added to
-    // the total (no chain longer than BN or the count of tiles)
-    float tq[NQ];
+  const int T = (kend - kbeg + BC - 1) / BC;
+
+  auto load_y = [&](int stage, int kk0) {
+    float* base = y_s + stage * 4 * BC * LD;
+    load_rows<D, TH>(base, k, b, S, Hk, hk, kk0, BC, vec);
+    load_rows<D, TH>(base + 2 * BC * LD, v, b, S, Hk, hk, kk0, BC, vec);
+  };
+  load_rows<D, TH>(x_s, q, b, S, H, h, q0, R, vec);
+  load_rows<D, TH>(x_s + XP * R * LD, dout, b, S, H, h, q0, R, vec);
 #pragma unroll
-    for (int n = 0; n < NQ; ++n) tq[n] = 0.0f;
-    if constexpr (C::DFIX) {
-      constexpr int I = kThreads / D;
-      const int d = t % D, i0 = t / D;
-      for (int j = 0; j < BN; ++j) {
-        const float kd = k_s[j * LD + d];
+  for (int j = 0; j < NS - 1; ++j) {
+    if (j < T) load_y(j, kbeg + j * BC);
+    cp_commit();
+  }
+
+  // this thread's two rows' lse and delta (0 past S)
+  float lr[2], dr[2];
 #pragma unroll
-        for (int n = 0; n < NQ; ++n)
-          tq[n] = fmaf(ds_s[(i0 + I * n) * LP + j], kd, tq[n]);
-      }
-    } else {
-      for (int j = 0; j < BN; ++j) {
+  for (int i = 0; i < 2; ++i) {
+    const int pos = qw + gq + 8 * i;
+    const size_t at = ((size_t)b * H + h) * S + pos;
+    lr[i] = pos < S ? __ldg(A.lse + at) : 0.0f;
+    dr[i] = pos < S ? __ldg(A.delta + at) : 0.0f;
+  }
+
+  float acc[KS][4];
 #pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          const int e = t + kThreads * n, i = e / D, d = e % D;
-          tq[n] = fmaf(ds_s[i * LP + j], k_s[j * LD + d], tq[n]);
-        }
+  for (int dt = 0; dt < KS; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
+
+  const float* qx = x_s + rg * 16 * LD;  // the warp's Q rows, then dO's
+  const float* ox = qx + XP * R * LD;
+  const int xo = gq * LD + dc0 + tq;
+  const int yo = (c0 + gq) * LD + dc0 + tq;
+  const int yo2 = (c0 + 2 * tq) * LD + dc0 + gq;
+
+  for (int t = 0; t < T; ++t) {
+    const int st = t % NS, k0 = kbeg + t * BC;
+    float* kh = y_s + st * 4 * BC * LD;
+    float* kl = kh + BC * LD;
+    float* vh = kl + BC * LD;
+    float* vl = vh + BC * LD;
+    cp_wait<NS - 2>();  // this thread's copies of tile t (first: Q and dO)
+    if constexpr (C::XPRE) {
+      if (t == 0) {
+        split_rows<D, TH>(x_s, x_s + R * LD, R, vec);
+        split_rows<D, TH>(x_s + 2 * R * LD, x_s + 3 * R * LD, R, vec);
       }
     }
+    split_rows<D, TH>(kh, kl, BC, vec);
+    split_rows<D, TH>(vh, vl, BC, vec);
+    __syncthreads();  // tile t is split; every warp is done with tile t-1
+    {
+      const int tn = t + NS - 1;  // into the stage tile t-1 held
+      if (tn < T) load_y(tn % NS, kbeg + tn * BC);
+      cp_commit();
+    }
+    // does any row of this warp see one of its keys of the tile?
+    const int klo = k0 + c0, khi = min(klo + NT * 8, S) - 1;
+    const int qmax = min(qw + 15, S - 1);
+    const bool work = qw < S && klo < S && (!causal || klo <= qmax) &&
+                      (window <= 0 || khi > qw - window);
+    float sc[NT][4], dp[NT][4];
+    if (work) {
+      scores<C>(qx, qx + R * LD, kh, kl, xo, yo, sc);
+      scores<C>(ox, ox + R * LD, vh, vl, xo, yo, dp);
+    }
+    gather_parts<C>(xc, warp - dg, dg, work, sc, dp);
+    if (work) {
+      float pr[NT][4], dsr[NT][4];
 #pragma unroll
-    for (int n = 0; n < NQ; ++n) aq[n] += tq[n];
-  }
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-  for (int n = 0; n < NQ; ++n) {
-    const int e = C::DFIX ? (t % D) + D * (t / D + (kThreads / D) * n)
-                          : t + kThreads * n;
-    const int i = e / D, d = e % D, pos = q0 + i;
-    if (pos < S) dq[(((size_t)b * S + pos) * H + h) * D + d] = aq[n] * scale;
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, qpos = qw + gq + 8 * i;
+          const int key = klo + nt * 8 + 2 * tq + (e & 1);
+          const bool vis = qpos < S && key < S &&
+                           (!causal || key <= qpos) &&
+                           (window <= 0 || key > qpos - window);
+          grad_pair(sc[nt][e], dp[nt][e], lr[i], dr[i], vis, cap, scale,
+                    pr[nt][e], dsr[nt][e]);
+        }
+      uint32_t a[Parts<BWD_DSK_TERMS>::N][NT][4];
+      a_parts<BWD_DSK_TERMS, NT>(dsr, a);
+      accumulate<C, BWD_DSK_TERMS>(acc, a, kh, kl, yo2);
+    }
   }
+  cp_wait<0>();
+  if constexpr (C::WQ > 1) {
+    __syncthreads();  // every warp is done with the streamed tiles
+    if (cg > 0) put_sums<C, 1>(y_s, warp, 0, acc);
+    __syncthreads();
+    if (cg > 0) return;
+    add_sums<C, 1>(y_s, warp, 0, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = qw + gq + 8 * i;
+    if (pos >= S) continue;
+    float* row = A.dq + (((size_t)b * S + pos) * H + h) * D;
+#pragma unroll
+    for (int dt = 0; dt < KS; ++dt)
+      *reinterpret_cast<float2*>(row + dc0 + dt * 8 + 2 * tq) =
+          make_float2(acc[dt][2 * i] * scale, acc[dt][2 * i + 1] * scale);
+  }
+}
+
+// One launch of both kinds of block: first the dK/dV blocks (key tile
+// fastest, then split, kv head, batch row: the longest causal tiles start
+// first), then the dQ blocks (query tiles in reverse order, then head,
+// batch row).  They share nothing but the launch: a dQ block runs as soon
+// as the card has room, beside the dK/dV blocks' tails.
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MINB)
+flash_bwd_main(const Args A, long long n_dkdv) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int R = Cfg<D>::R;
+  const int nt = (A.S + R - 1) / R;
+  long long i = blockIdx.x;
+  if (i < n_dkdv) {
+    const int x = (int)(i % ((long long)nt * A.splits));
+    i /= (long long)nt * A.splits;
+    dkdv_block<D>(A, smem, x % nt, x / nt, (int)(i % A.Hk),
+                  (int)(i / A.Hk));
+  } else {
+    i -= n_dkdv;
+    const int x = (int)(i % nt);
+    i /= nt;
+    dq_block<D>(A, smem, (nt - 1 - x) * R, (int)(i % A.H), (int)(i / A.H));
+  }
+}
+
+template <int D>
+int config(int* out) {
+  using C = Cfg<D>;
+  out[0] = C::R;
+  out[1] = C::BC;
+  out[2] = (int)C::smem;
+  out[3] = C::MINB;
+  return 0;
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* o,
-           const float* dout, const float* lse, float* delta, float* dq,
-           float* dk, float* dv, int B, int S, int H, int Hk, int causal,
-           float cap, int window, cudaStream_t stream) {
-  const size_t smem_kv = Cfg<D>::smem_dkdv, smem_q = Cfg<D>::smem_dq;
-  if (smem_kv > 48 * 1024) {
+           const float* dout, const float* lse, float* delta, float* part,
+           float* dq, float* dk, float* dv, int B, int S, int H, int Hk,
+           int causal, float cap, int window, int splits,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  const int G = H / Hk;
+  const int nkt = (S + C::R - 1) / C::R;
+  if (splits < 1 || splits > G || (splits > 1 && part == nullptr) ||
+      (long long)nkt * (splits * Hk + H) * B > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (C::smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkdv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_kv);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (smem_q > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_q);
+        flash_bwd_main<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)C::smem);
     if (err != cudaSuccess) return (int)err;
   }
   const bool vec = (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                      (uintptr_t)dout) & 15u) == 0;
-  const int G = H / Hk;
   const float scale = (float)(1.0 / sqrt((double)D));
-  const long long rows = (long long)B * S * H;
-  flash_bwd_delta<<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
-                    stream>>>(o, dout, delta, rows, S, H, D);
+  const long long rows_bsh = (long long)B * S * H;
+  constexpr int kRowsDelta = kDeltaThreads / (D / 4 >= 32 ? 32
+                                              : D / 4 >= 16 ? 16
+                                              : D / 4 >= 8 ? 8 : 4);
+  const bool vec_o = (((uintptr_t)o | (uintptr_t)dout) & 15u) == 0;
+  flash_bwd_delta<D><<<(unsigned)((rows_bsh + kRowsDelta - 1) / kRowsDelta),
+                       kDeltaThreads, 0, stream>>>(o, dout, delta, rows_bsh,
+                                                   S, H, vec_o);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv<D><<<dim3((S + BN - 1) / BN, Hk, B), kThreads, smem_kv,
-                      stream>>>(q, k, v, dout, lse, delta, dk, dv, S, H, Hk,
-                                G, causal, cap, window, scale, vec);
+  const Args A{q,  k,     v,  dout,   lse,    delta,  dq,     dk,
+               dv, part,  B,  S,      H,      Hk,     G,      splits,
+               causal, window, cap, scale, vec};
+  const long long n_dkdv = (long long)nkt * splits * Hk * B;
+  const long long n_dq = (long long)nkt * H * B;
+  flash_bwd_main<D><<<(unsigned)(n_dkdv + n_dq), C::THREADS, C::smem,
+                      stream>>>(A, n_dkdv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq<D><<<dim3((S + BM - 1) / BM, H, B), kThreads, smem_q,
-                    stream>>>(
-      q, k, v, dout, lse, delta, dq, S, H, Hk, G, causal, cap, window, scale,
-      vec);
-  return (int)cudaGetLastError();
+  if (splits > 1) {
+    const long long n4 = (long long)B * S * Hk * D / 4;
+    flash_bwd_merge<<<(unsigned)((n4 + kMergeThreads - 1) / kMergeThreads),
+                      kMergeThreads, 0, stream>>>(part, dk, dv, n4, splits,
+                                                  scale);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 }  // namespace
 
+// The tiles of the backward at head dim D that kernel.py::bwd_tiles mirrors
+// to choose the split count: out[0..3] = rows a block, streamed rows a
+// tile, shared memory bytes, blocks an SM (launch bounds).
+extern "C" int flash_attention_bwd_config(int D, int* out) {
+  switch (D) {
+    case 16: return config<16>(out);
+    case 32: return config<32>(out);
+    case 64: return config<64>(out);
+    case 96: return config<96>(out);
+    case 128: return config<128>(out);
+    case 256: return config<256>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // q, o, dout, dq (B, S, H, D); k, v, dk, dv (B, S, Hk, D); lse and the
-// scratch delta (B, H, S); all float32 contiguous.  lse is
+// scratch delta (B, H, S); part, the splits' scratch (2, splits, B, S, Hk,
+// D) or null with one split; all float32 contiguous.  lse is
 // flash_attention_lse_f32's for the same q, k, v and options.  cap <= 0
-// means no soft-cap, window <= 0 no sliding window.
-extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
-                                       const void* v, const void* o,
-                                       const void* dout, const void* lse,
-                                       void* delta, void* dq, void* dk,
-                                       void* dv, int B, int S, int H, int Hk,
-                                       int D, int causal, float cap,
-                                       int window, void* stream) {
+// means no soft-cap, window <= 0 no sliding window.  splits (1 .. H/Hk)
+// is the host plan's (kernel.py::bwd_plan); the tiles and grids are this
+// source's.
+extern "C" int flash_attention_bwd_f32(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* part, void* dq,
+    void* dk, void* dv, int B, int S, int H, int Hk, int D, int causal,
+    float cap, int window, int splits, void* stream) {
   if (B <= 0 || S <= 0 || Hk <= 0 || H % Hk || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const float* qf = (const float*)q;
@@ -462,14 +990,15 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
   const float* gf = (const float*)dout;
   const float* lf = (const float*)lse;
   float* df = (float*)delta;
+  float* pf = (float*)part;
   float* dqf = (float*)dq;
   float* dkf = (float*)dk;
   float* dvf = (float*)dv;
   cudaStream_t st = (cudaStream_t)stream;
 #define FLASH_BWD_CASE(DIM)                                                  \
   case DIM:                                                                  \
-    return launch<DIM>(qf, kf, vf, of, gf, lf, df, dqf, dkf, dvf, B, S, H,   \
-                       Hk, causal, cap, window, st);
+    return launch<DIM>(qf, kf, vf, of, gf, lf, df, pf, dqf, dkf, dvf, B, S,  \
+                       H, Hk, causal, cap, window, splits, st);
   switch (D) {
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(32)

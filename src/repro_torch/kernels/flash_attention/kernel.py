@@ -4,7 +4,8 @@ see the sources for the design notes."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, Optional
 
 import torch
 
@@ -16,11 +17,90 @@ KERNEL = CudaKernel("flash_attention", "flash_attention_f32",
 #: the training forward: the output and each row's log-sum-exp
 KERNEL_LSE = CudaKernel("flash_attention", "flash_attention_lse_f32",
                         [_P] * 5 + [_I] * 6 + [_F, _I])
-#: the backward: dQ, dK, dV (three launches: delta, dK/dV, dQ)
+#: the backward: dQ, dK, dV (delta, dK/dV and dQ in one launch, the splits'
+#: merge where the plan splits the group); its last int is ``bwd_plan``'s
+#: split count
 KERNEL_BWD = CudaKernel("flash_attention_bwd", "flash_attention_bwd_f32",
-                        [_P] * 10 + [_I] * 6 + [_F, _I])
+                        [_P] * 11 + [_I] * 6 + [_F, _I, _I])
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 MAX_GROUP = 64
+H100_SMS = 132
+#: shared memory of an SM, and the most a block may take (bytes)
+SMEM_SM, SMEM_BLOCK = 233472, 232448
+#: the merge pass of a split group, counted in dK/dV query tiles (a launch
+#: and a read of the splits' scratch, ~3-4 us, against ~1 us a tile)
+MERGE_TILES = 4
+
+
+def bwd_tiles(d: int) -> Dict[str, int]:
+    """What the split count depends on of ``Cfg<D>`` in
+    ``csrc/flash_attention_bwd.cu``, which owns the tiles and grids: rows a
+    block (16 a row group: keys in dK/dV, queries in dQ), streamed rows a
+    tile (8 a column group), shared memory bytes (the resident rows, split
+    once where D <= 64; a ring of ``stages`` tiles of two streamed tensors
+    in hi and rest planes, with the columns' lse and delta; the score
+    parts where warps over D share a row group; rows padded to D + 4
+    floats), and the blocks an SM holds (two where shared memory allows).
+    The card checks them against the library's
+    ``flash_attention_bwd_config``."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {d} (takes "
+                         f"{HEAD_DIMS})")
+    warps_d = 1 if d <= 32 else d // 32
+    groups = 1 if d == 256 else 2
+    col_groups = 4 if d <= 32 else 2 if d == 64 else 1
+    rows, cols = 16 * groups, 8 * col_groups
+    warps = groups * warps_d * col_groups
+    ld, planes = d + 4, 2 if d <= 64 else 1
+    stages = 3 if d <= 64 else 2
+    parts = warps * 2 * 4 * 32 if warps_d > 1 else 0
+    smem = 4 * (2 * planes * rows * ld + stages * 4 * cols * ld
+                + stages * 2 * cols + parts)
+    per_sm = 2 if SMEM_SM // (smem + 1024) >= 2 else 1
+    return dict(rows=rows, cols=cols, smem=smem, per_sm=per_sm)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_plan(b: int, s: int, h: int, hk: int, d: int, *,
+             sms: int = H100_SMS) -> Dict[str, int]:
+    """The backward's split count and scratch at one shape, from the shape
+    alone.
+
+    The dK/dV blocks are one per (tile of ``rows`` keys, kv head, split of
+    the group's heads, batch row); split ``sp`` takes heads ``sp G /
+    splits .. (sp + 1) G / splits - 1`` (the C source's ranges).  One
+    split where its blocks already fill the card; else the split count
+    that makes the longest block's work least, in query tiles (its heads
+    x the query tiles of key tile 0, plus ``MERGE_TILES`` for the merge
+    pass), among those whose blocks the card holds at once (``sms`` x the
+    blocks an SM holds).  With more than one split, each writes its totals
+    to an fp32 scratch (2, splits, B, S, Hk, D) of ``scratch`` elements,
+    which the merge pass adds in split order."""
+    if h % hk or not 0 < h // hk <= MAX_GROUP:
+        raise ValueError(f"flash_attention_bwd: {h} q heads over {hk} kv "
+                         f"heads (groups up to {MAX_GROUP})")
+    t = bwd_tiles(d)
+    g = h // hk
+    blocks = _cdiv(s, t["rows"]) * hk * b
+    nq = _cdiv(s, t["cols"])
+    splits, cost = 1, g * nq
+    if blocks < sms:
+        for sp in range(2, g + 1):
+            if blocks * sp > sms * t["per_sm"]:
+                break
+            c = _cdiv(g, sp) * nq + MERGE_TILES
+            if c < cost:
+                splits, cost = sp, c
+    return dict(splits=splits,
+                scratch=2 * splits * b * s * hk * d if splits > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,11 +174,15 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          "float32")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    delta = torch.empty((b, h, s), device=dev)          # scratch
     if b and s:
+        plan = bwd_plan(b, s, h, k.shape[2], d, sms=_sms(dev.index))
+        delta = torch.empty((b, h, s), device=dev)      # scratch
+        part = torch.empty(plan["scratch"], device=dev)  # the splits' totals
         KERNEL_BWD.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                          delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                          dv.data_ptr(), b, s, h, k.shape[2], d,
-                          *_options(causal, cap, window))
+                          delta.data_ptr(),
+                          part.data_ptr() if plan["scratch"] else None,
+                          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s,
+                          h, k.shape[2], d, *_options(causal, cap, window),
+                          plan["splits"])
     return dq, dk, dv

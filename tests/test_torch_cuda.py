@@ -539,16 +539,35 @@ def test_lm_serving_card_equals_cpu(dev, arch):
     assert outs[0] == outs[1]
 
 
+def _bwd_case(b, s, h, hk, d, kw):
+    """A backward case, its id naming the plan's split count (pure Python:
+    the same ids on every worker, card or not)."""
+    from repro_torch.kernels.flash_attention.kernel import bwd_plan
+
+    splits = bwd_plan(b, s, h, hk, d)["splits"]
+    opts = "-".join(f"{k}{v}" for k, v in kw.items())
+    return pytest.param(b, s, h, hk, d, kw,
+                        id=f"B{b}-S{s}-H{h}-Hk{hk}-D{d}-{opts}-splits{splits}")
+
+
 #: the backward's cases: the stream MLLM's frame sizes (G 2), chatglm3's
 #: group of 16 at D 128, each head dim, G 64, ragged S, bidirectional,
-#: capped and windowed
-BWD_CASES = [(4, s, 8, 4, 32, dict(causal=True)) for s in (140, 76, 28)] + [
+#: capped and windowed; and the split's edges: a group of 7 in two splits
+#: (3 and 4 heads: the plan never leaves a group of 6 unevenly split, a
+#: smaller even split being as short), G 64 at S 130 (64 splits), D 256
+#: windowed at S 129 (two splits, 16-key tiles)
+BWD_CASES = [_bwd_case(*c) for c in [
+    *[(4, s, 8, 4, 32, dict(causal=True)) for s in (140, 76, 28)],
     (2, 64, 32, 2, 128, dict(causal=True)),
     (1, 33, 64, 1, 16, dict(causal=True)),
     (2, 45, 4, 2, 64, dict(causal=False)),
     (2, 45, 4, 2, 96, dict(causal=True, cap=20.0)),
     (2, 45, 4, 2, 256, dict(causal=True, window=7)),
-    (1, 1, 2, 1, 32, dict(causal=True))]
+    (1, 1, 2, 1, 32, dict(causal=True)),
+    (32, 64, 14, 2, 128, dict(causal=True)),
+    (2, 64, 12, 2, 128, dict(causal=True)),
+    (1, 130, 64, 1, 64, dict(causal=True)),
+    (2, 129, 8, 2, 256, dict(causal=True, window=7))]]
 
 
 @pytest.mark.parametrize("b,s,h,hk,d,kw", BWD_CASES)
