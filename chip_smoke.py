@@ -174,7 +174,28 @@ Phases (any failure exits non-zero and prints no result line):
      largest |g| or no farther than twice the plain attention on the
      card; ``mllm_train_vs_cpu``); (e) a stream-MLLM ``Trainer`` saved
      and restored on the card replays the next five losses
-     (``mllm_resume``).  cuDNN runs deterministic algorithms in phase 18.
+     (``mllm_resume``); (f) ssd_scan's backward kernel
+     (``csrc/ssd_scan_bwd.cu``, through ``SSDScanFn``) at
+     ``SSD_BWD_SHAPES`` (mamba2-130m's training micro-batch and one of 8
+     sequences, jamba's full-width SSM, a chunk of 64, a ragged 13) under
+     mamba2's init decay (seg past exp's range: finite) and a slow one:
+     dx, dB, dC, dcs, ddt within TOL of the repaired plain version's
+     autograd and within the float64 gate, two launches equal bit for
+     bit, timed alone and with its forward; (g) ``launch/train.py --arch
+     mamba2-130m --steps 3 --batch 8 --seq 512 --grad-accum 2`` at full
+     width and depth (``mamba2_train``: ssd_scan's forward and backward
+     launched 24 x 2 x 3 times), then card == CPU at depth 2 on three
+     steps (``mamba2_train_vs_cpu``; the witness runs the plain SSD).
+     cuDNN runs deterministic algorithms in phase 18.
+ 19. the MoE family (after 18): (a) moonshot-v1-16b-a3b at full width
+     and MOONSHOT_SERVE_DEPTH layers through ``ServingEngine`` as phase 9
+     (``moonshot_serve``), its decode ticks profiled as phase 6 does; (b) card == CPU: moonshot and qwen3-moe at full
+     width, depth 1, jamba at smoke width (one period): tokens, routing
+     indices (the smallest top-k margin printed), logits within LM_TOL;
+     (c) moonshot through ``Trainer`` at full width and
+     MOONSHOT_TRAIN_DEPTH layers, int8 moments, 3 steps
+     (``moonshot_train``: finite losses, aux > 0, peak under 80 GB); (d)
+     jamba-smoke trained card == CPU as 18 (g) (``jamba_train``).
 
 Each phase that drives a plan zeroes the kernels' launch counts first and
 reads them after; a kernel of the plan that was never launched fails the
@@ -228,7 +249,7 @@ FLASH_OPS_S = TF32_OPS_S / 3
 TOL = {"frame_diff": 1e-6, "fused_preprocess": 1e-5, "flash_attention": 2e-5,
        "fused_prefix": 1e-5, "decode_attention": 2e-5, "ssd_scan": 1e-4,
        "int8_matmul": 0.0, "flash_attention_lse": 2e-5,
-       "flash_attention_bwd": 2e-5}
+       "flash_attention_bwd": 2e-5, "ssd_scan_bwd": 1e-4}
 KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
     "frame_diff": ("frame_diff_u8",
                    "src/repro_torch/kernels/csrc/frame_diff.cu",
@@ -261,6 +282,12 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
                             "src/repro_torch/kernels/csrc/"
                             "flash_attention_bwd.cu",
                             "src/repro/kernels/flash_attention/kernel.py:94"),
+    # training (phase 18 (f)-(g), 19 (d)): ssd_scan's backward (the TPU
+    # package differentiates plain jnp; it is the gradient of the kernel at
+    # kernel.py:55)
+    "ssd_scan_bwd": ("ssd_scan_bwd_f32",
+                     "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                     "src/repro/kernels/ssd_scan/kernel.py:55"),
 }
 #: a kernel's other launches, each its own C entry point with its own
 #: count, made once with every launch of the kernel's entry above
@@ -268,7 +295,7 @@ COMPANIONS = {"int8_matmul": ("int8_transpose_kn",)}
 #: the tensor-core instruction each built library must hold (phase 1)
 SASS_MMA = {"flash_attention": "HMMA", "flash_attention_bwd": "HMMA",
             "decode_attention": "HMMA", "ssd_scan": "HMMA",
-            "int8_matmul": "IMMA"}
+            "ssd_scan_bwd": "HMMA", "int8_matmul": "IMMA"}
 #: the paths driven end to end, by the name used in ``launches_by_path``
 PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
          "catalog", "mq_tollbooth", "mq_volleyball", "mq_reduced",
@@ -278,7 +305,9 @@ PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
          "mamba2_serve",
          "chatglm3_serve", "chatglm3_int8", "chatglm3_dequant_serve",
          "chatglm3_train", "stream_pretrain", "q8_trained",
-         "mllm_train_vs_cpu", "mllm_resume")
+         "mllm_train_vs_cpu", "mllm_resume", "mamba2_train",
+         "mamba2_train_vs_cpu", "moonshot_serve", "moonshot_train",
+         "jamba_train")
 #: the volleyball stream's seed (Q10-Q13); TollBooth's is STREAM_SEED
 VOLLEYBALL_SEED = 3
 #: the semantic gate's threshold on the card (phase 15)
@@ -288,7 +317,8 @@ SLO_TARGET_MS = 100.0
 #: the serving phases: 8 requests of the launcher's generator plus a long
 #: one; s_max and slots as a deployment of gemma2-2b on one card would
 SERVE_SLOTS, SERVE_S_MAX, SERVE_NEW = 4, 8192, 12
-LONG_PROMPT = {"gemma2-2b": 4200, "mamba2-130m": 512, "chatglm3-6b": 4200}
+LONG_PROMPT = {"gemma2-2b": 4200, "mamba2-130m": 512, "chatglm3-6b": 4200,
+               "moonshot-v1-16b-a3b": 4200}
 #: decode_attention's two shape classes (phase 2), the ticks the served
 #: paths give: the long request's slot (4200 prompt tokens and up to 12
 #: new) beside three short ones, and four short slots (the launcher's
@@ -2229,8 +2259,10 @@ def serve_requests(cfg, long_len):
     return reqs
 
 
-def serve_phase(name, arch, dev, per_prefill=(), per_decode=(), lm=None):
-    """One LM at full width through ``ServingEngine``: seeded random
+def serve_phase(name, arch, dev, per_prefill=(), per_decode=(), lm=None,
+                depth=None):
+    """One LM at full width (at ``depth`` layers where given, else the
+    config's) through ``ServingEngine``: seeded random
     weights drawn on the card and a warm-up run (a short and a long
     request), or the given ``lm``, already warm; then the measured run of
     ``serve_requests`` with the launch counts zeroed just before and read
@@ -2244,6 +2276,8 @@ def serve_phase(name, arch, dev, per_prefill=(), per_decode=(), lm=None):
     from repro_torch.serving.engine import Request
 
     cfg = get_config(arch)
+    if depth is not None:
+        cfg = cfg.replace(n_layers=depth)
     kw = dict(max_slots=SERVE_SLOTS, s_max=SERVE_S_MAX, eos_id=-1)
     if lm is None:
         t0 = time.perf_counter()
@@ -2904,6 +2938,176 @@ def flash_bwd_checks(dev, rows):
         k: v for k, v in lse.items() if k != top}}
 
 
+#: (f) the ssd_scan backward's shapes, (BC, H, G, Q, P, N): mamba2-130m's
+#: training micro-batch (``MAMBA2_TRAIN``: 4 sequences of two chunks of
+#: 256) and a micro-batch of 8 sequences, jamba-1.5-large's full-width SSM
+#: (one sequence of two chunks: 128 heads in 8 groups, P 128, N 16), a
+#: chunk of 64 and a ragged one of 13
+SSD_BWD_SHAPES = {"mamba2_train": (8, 24, 1, 256, 64, 128),
+                  "mamba2_bc16": (16, 24, 1, 256, 64, 128),
+                  "jamba_full": (2, 128, 8, 256, 128, 16),
+                  "q64": (4, 8, 2, 64, 64, 32),
+                  "q13": (2, 4, 2, 13, 16, 8)}
+#: (f) the decay: dt·A as mamba2's init gives it (A_log 0: A = -1, dt =
+#: softplus(~N(0, 1)) ~0.7, so cs falls ~180 over a chunk of 256 and seg
+#: passes exp's range of 88), and a slow one (A = -0.01) under which every
+#: tile of the triangle carries weight
+SSD_BWD_DECAY = {"init": 1.0, "slow": 0.01}
+SSD_GRADS = ("dx", "dB", "dC", "dcs", "ddt")
+
+
+def ssd_bwd_inputs(gen, dev, bc, h, g, q, p, n, decay):
+    """x, B, C, cs, dt (kernel layout) and dy, ds of one backward case from
+    the CPU generator ``gen``: cs the cumsum of dt·A, A = -decay per head
+    (times e^N(0, 0.2))."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    dt = torch.nn.functional.softplus(randn(bc, h, 1, q))
+    a = -decay * torch.exp(0.2 * randn(h))
+    cs = torch.cumsum(dt * a[None, :, None, None], dim=-1)
+    args = [randn(bc, h, q, p), 0.3 * randn(bc, g, q, n),
+            0.3 * randn(bc, g, q, n), cs, dt]
+    return ([t.contiguous().to(dev) for t in args],
+            randn(bc, h, q, p).to(dev), randn(bc, h, n, p).to(dev))
+
+
+def ssd_grads(fn, args, dy, ds):
+    """(y_diag, s_local, dx, dB, dC, dcs, ddt) of ``fn`` by autograd."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in args]
+    y, s = fn(*leaves)
+    torch.autograd.backward((y, s), (dy.to(y.dtype), ds.to(s.dtype)))
+    return [y.detach(), s.detach()] + [t.grad for t in leaves]
+
+
+def ssd_bwd_check(label, args, dy, ds):
+    """The kernels' gradient (``ops.ssd_scan`` under autograd:
+    ``SSDScanFn``) against the repaired plain version's autograd in fp32 on
+    the card and in float64: within ``TOL`` of the plain one (relative to
+    its largest gradient) and within the float64 gate; finite; a second
+    launch equal bit for bit.  Returns the largest ratio to the plain
+    version's distance from float64."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    got = ssd_grads(ssd_scan, args, dy, ds)
+    again = ssd_grads(ssd_scan, args, dy, ds)
+    plain = ssd_grads(ssd_scan_ref, args, dy, ds)
+    f64 = ssd_grads(ssd64, [a.double() for a in args], dy, ds)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"ssd_scan_bwd {label}: two launches differ")
+    worst, errs = 0.0, []
+    for name, g, p, w in zip(("y_diag", "s_local") + SSD_GRADS, got, plain,
+                             f64):
+        check(bool(torch.isfinite(g).all()),
+              f"ssd_scan_bwd {label} {name}: not finite")
+        check(bool(torch.isfinite(p).all()),
+              f"ssd_scan_bwd {label} {name}: the plain version's is not "
+              "finite")
+        if name in ("y_diag", "s_local"):
+            continue
+        scale = max(w.abs().max().item(), 1e-30)
+        err_k = (g.double() - w).abs().max().item()
+        err_p = (p.double() - w).abs().max().item()
+        vs_plain = (g - p).abs().max().item()
+        tol = TOL["ssd_scan_bwd"] * max(p.abs().max().item(), 1.0)
+        check(vs_plain <= tol, f"ssd_scan_bwd {label} {name}: "
+              f"{vs_plain:.3e} from the plain version (tol {tol:.3e})")
+        check(err_k <= BWD_WITNESS * err_p + BWD_FLOOR * scale,
+              f"ssd_scan_bwd {label} {name}: {err_k:.3e} from float64 "
+              f"against the plain version's {err_p:.3e}")
+        ratio = err_k / max(err_p, BWD_FLOOR * scale)
+        worst = max(worst, ratio)
+        errs.append(f"{name} {vs_plain:.2e}/{ratio:.2f}x")
+        ERRS["ssd_scan_bwd"] = max(ERRS["ssd_scan_bwd"], vs_plain)
+    print(f"  ssd_scan_bwd {label:40s} vs plain / vs float64 against the "
+          f"plain version's: {', '.join(errs)} (gate {BWD_WITNESS:g}x + "
+          f"{BWD_FLOOR:g} max|g|)")
+    return worst
+
+
+def ssd_bwd_bound(bc, h, g, q, p, n):
+    """(bytes, operations) the backward needs: each input (x, B, C, cs,
+    dt, dy, ds) read once, each gradient written once; C.B^T once a
+    (chunk, group) over the causal pairs, per head dy.x^T and W^T.dy, the
+    head-summed dCB against B and C (once a group), and B.ds and ds.x^T
+    per key and head."""
+    pairs = q * (q + 1) // 2
+    nbytes = 4 * (3 * bc * h * q * p + 4 * bc * g * q * n + 4 * bc * h * q
+                  + bc * h * n * p)
+    ops = bc * (g * 2 * n * pairs + h * 4 * p * pairs + g * 4 * n * pairs
+                + h * 4 * q * n * p)
+    return nbytes, ops
+
+
+def ssd_bwd_timing(label, args, dy, ds):
+    """Device ms at one shape: the backward alone (``autograd.grad`` of a
+    retained graph) and forward + backward, of the kernels and of the plain
+    version's autograd, with the bound (bytes at the card's memory rate,
+    operations at 3xTF32's, a third of the TF32 rate); no single PyTorch
+    call computes this gradient."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    t = {"library_ms": None}
+    for name, fn in (("ms", ssd_scan), ("plain_ms", ssd_scan_ref)):
+        leaves = [x.clone().requires_grad_(True) for x in args]
+        outs = fn(*leaves)
+        t[name] = device_ms(lambda: torch.autograd.grad(
+            outs, leaves, (dy, ds), retain_graph=True), n=10)
+
+        def both():
+            ls = [x.clone().requires_grad_(True) for x in args]
+            torch.autograd.grad(fn(*ls), ls, (dy, ds))
+
+        t[f"fwd_bwd_{name}"] = device_ms(both, n=8)
+    bc, h, q, p = args[0].shape
+    g, n = args[1].shape[1], args[1].shape[3]
+    t["bound"] = bound(*ssd_bwd_bound(bc, h, g, q, p, n), FLASH_OPS_S)
+    print(f"  ssd_scan_bwd {label} BC{bc} H{h} G{g} Q{q} P{p} N{n}: "
+          f"backward kernel {t['ms']:.4f} ms, plain autograd "
+          f"{t['plain_ms']:.4f} ms, no library call, bound "
+          f"{t['bound'][0]:.5f} ms ({t['bound'][1]}); forward + backward "
+          f"{t['fwd_bwd_ms']:.4f} ms, plain {t['fwd_bwd_plain_ms']:.4f} ms")
+    return t
+
+
+def ssd_bwd_checks(dev, rows):
+    """Phase 18 (f): the ssd_scan backward at ``SSD_BWD_SHAPES`` under each
+    decay of ``SSD_BWD_DECAY`` (``init`` passes exp's range in seg: the
+    gradients must stay finite), then timed at each shape under the init
+    decay."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    gen = torch.Generator().manual_seed(23)
+    worst = 0.0
+    reset_launch_counts()
+    for label, shape in SSD_BWD_SHAPES.items():
+        for decay_name, decay in SSD_BWD_DECAY.items():
+            args, dy, ds = ssd_bwd_inputs(gen, dev, *shape, decay)
+            if decay_name == "init":
+                cs = args[3][:, :, 0]
+                print(f"  ssd_scan_bwd {label}: the largest seg above the "
+                      f"diagonal {(cs[..., 0] - cs[..., -1]).max().item():.1f}")
+            worst = max(worst, ssd_bwd_check(f"{label} {decay_name}", args,
+                                             dy, ds))
+            del args, dy, ds
+    torch.cuda.synchronize()
+    n_cases = len(SSD_BWD_SHAPES) * len(SSD_BWD_DECAY)
+    check(launch_counts()["ssd_scan_bwd_f32"] == 2 * n_cases,
+          f"ssd_scan_bwd: {launch_counts()['ssd_scan_bwd_f32']} launches "
+          f"for {n_cases} cases checked twice")
+    print(f"  ssd_scan_bwd: {n_cases} cases, vs float64 at most "
+          f"{worst:.2f}x the plain version's")
+    timed = {}
+    for label, shape in SSD_BWD_SHAPES.items():
+        args, dy, ds = ssd_bwd_inputs(gen, dev, *shape, 1.0)
+        timed[label] = ssd_bwd_timing(label, args, dy, ds)
+    top = "mamba2_train"
+    rows["ssd_scan_bwd"] = {**timed[top], **{
+        k: v for k, v in timed.items() if k != top}}
+
+
 class IndexedBatches:
     """A fixed list of batches read in order; the index is the state, so a
     restored trainer replays exactly (``Trainer``'s data interface)."""
@@ -2989,131 +3193,124 @@ def pretrain_phase(dev, q8_random_score):
     return {"stream_pretrain": counts, "q8_trained": q8_counts}, summary
 
 
-def mllm_card_vs_cpu(dev):
-    """Phase 18 (c): the big MLLM's first CARD_CPU_STEPS steps of
-    ``_train`` (AdamW at its settings, ``_make_mllm_batches``' batches) on
-    the card; before each, the CPU and a third copy on the card that runs
-    the plain attention (the witness) take the card's parameters, and the
-    step's loss and gradients are compared on the same parameters.  The
-    loss within CARD_CPU_TOL; each gradient leaf within CARD_CPU_TOL of its
-    largest |g|, or no farther from the CPU than BWD_WITNESS times the
-    witness is: fp32 sums in another order, through the big MLLM's residual
-    stream of ~200 at its random init and its norms, move a leaf's
-    gradient further than its logits (the plain attention on the card
-    misses 1e-3 as well).  A trajectory is not compared over several
-    steps: AdamW's first steps are near sign steps, so leaves with near-
-    zero gradients step either way on either device."""
-    from repro_torch.configs.samsara_stream import STREAM_MLLM_CONFIG
+def train_vs_cpu(label, card, make, batches, witness_ctx, opt):
+    """The first CARD_CPU_STEPS AdamW steps (``opt``) of ``card`` (a model
+    on the card whose ``loss(batch)`` trains it) on ``batches(t)`` (CPU
+    tensors); before each, a CPU copy and a second card copy that runs
+    ``witness_ctx``'s plain versions (``make(device)`` builds both) take
+    the card's parameters, and the step's loss and gradients are compared
+    on the same parameters: the loss within CARD_CPU_TOL relative, each
+    gradient leaf within CARD_CPU_TOL of its largest |g| or no farther
+    from the CPU than BWD_WITNESS times the witness.  A trajectory is not
+    compared over several steps: AdamW's first steps are near sign steps,
+    so leaves with near-zero gradients step either way on either device.
+    Returns the launch counts of the card's steps and a summary."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.streaming.mllm import StreamMLLM
-    from repro_torch.streaming.pretrain import _make_mllm_batches
-    from repro_torch.training.optimizer import (OptimizerConfig, adamw_init,
-                                                adamw_update)
+    from repro_torch.training.optimizer import adamw_init, adamw_update
 
-    def model(device):
-        m = StreamMLLM(STREAM_MLLM_CONFIG, patch=16, device=device).init(
-            torch.Generator().manual_seed(5))
+    witness, cpu = make(card.device), make("cpu")
+    for m in (card, witness, cpu):
         for p in m.parameters():
             p.requires_grad_(True)
-        return m
 
     def loss_and_grads(m, batch):
         for p in m.parameters():
             p.grad = None
-        loss = m.loss(batch)
+        dev = next(m.parameters()).device
+        loss = m.loss({k: v.to(dev) for k, v in batch.items()})
         loss.backward()
         return loss.item(), {n: p.grad for n, p in m.named_parameters()}
 
-    card, witness, cpu = model(dev), model(dev), model("cpu")
     params = dict(card.named_parameters())
-    opt = OptimizerConfig(lr=1e-3, warmup_steps=20, total_steps=400,
-                          weight_decay=0.01)          # ``_train``'s
     state = adamw_init(params, opt)
-    gens = {"card": _make_mllm_batches(7, device=dev),
-            "cpu": _make_mllm_batches(7, device="cpu")}
-    steps = []
-    reset_launch_counts()
+    steps, counts = [], {}
     for t in range(CARD_CPU_STEPS):
-        batch = gens["card"](t)
-        cpu_batch = gens["cpu"](t)
+        batch = batches(t)
         state_dict = card.state_dict()
         witness.load_state_dict(state_dict)
         cpu.load_state_dict(state_dict)
+        reset_launch_counts()
         loss_k, g_k = loss_and_grads(card, batch)
-        with plain_attention():
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        with witness_ctx():
             loss_p, g_p = loss_and_grads(witness, batch)
-        loss_c, g_c = loss_and_grads(cpu, cpu_batch)
+        loss_c, g_c = loss_and_grads(cpu, batch)
+        check(math.isfinite(loss_k), f"{label} step {t + 1}: loss {loss_k}")
         rel = abs(loss_k - loss_c) / abs(loss_c)
-        check(rel <= CARD_CPU_TOL, f"card vs CPU step {t + 1}: loss "
-              f"{loss_k} against {loss_c}")
+        check(rel <= CARD_CPU_TOL, f"{label} card vs CPU step {t + 1}: "
+              f"loss {loss_k} against {loss_c}")
         errs = {}
         for n, g in g_c.items():
             if g is None:
-                check(g_k[n] is None, f"card vs CPU: {n} has a gradient "
-                      "on the card only")
+                check(g_k[n] is None, f"{label} card vs CPU: {n} has a "
+                      "gradient on the card only")
                 continue
+            check(bool(torch.isfinite(g_k[n]).all()),
+                  f"{label} step {t + 1}: the gradient of {n} is not finite")
             scale = max(g.abs().max().item(), 1e-30)
             errs[n] = ((g_k[n].cpu() - g).abs().max().item() / scale,
                        (g_p[n].cpu() - g).abs().max().item() / scale)
         for n, (e_k, e_p) in errs.items():
             check(e_k <= max(CARD_CPU_TOL, BWD_WITNESS * e_p),
-                  f"card vs CPU step {t + 1}: the gradient of {n} is "
-                  f"{e_k:.3e} of its largest |g| from the CPU's, the "
-                  f"plain attention's on the card {e_p:.3e}")
+                  f"{label} card vs CPU step {t + 1}: the gradient of {n} "
+                  f"is {e_k:.3e} of its largest |g| from the CPU's, the "
+                  f"plain versions' on the card {e_p:.3e}")
         worst = sorted(errs.items(), key=lambda kv: -kv[1][0])[:4]
-        print(f"  step {t + 1}: loss card {loss_k:.6f}, CPU {loss_c:.6f} "
-              f"(relative {rel:.2e}; the plain attention on the card "
-              f"{loss_p:.6f}); gradients from the CPU's, relative to each "
-              f"leaf's largest |g|, kernels | plain attention, the "
-              f"farthest: " + ", ".join(f"{n} {a:.2e} | {b:.2e}"
-                                        for n, (a, b) in worst))
+        print(f"  {label} step {t + 1}: loss card {loss_k:.6f}, CPU "
+              f"{loss_c:.6f} (relative {rel:.2e}; the plain versions on the "
+              f"card {loss_p:.6f}); gradients from the CPU's, relative to "
+              f"each leaf's largest |g|, kernels | plain, the farthest: "
+              + ", ".join(f"{n} {a:.2e} | {b:.2e}" for n, (a, b) in worst))
         steps.append({"loss_card": loss_k, "loss_cpu": loss_c,
                       "loss_plain_card": loss_p,
                       "grad_rel_err": max(a for a, _ in errs.values()),
                       "grad_rel_err_plain": max(b for _, b in errs.values())})
         adamw_update(params, g_k, state, opt)
-    torch.cuda.synchronize()
-    counts = launch_counts()
+    del witness, cpu
+    return counts, {"steps": steps}
+
+
+def mllm_card_vs_cpu(dev):
+    """Phase 18 (c): the big MLLM's first CARD_CPU_STEPS steps of
+    ``_train`` (AdamW at its settings, ``_make_mllm_batches``' batches),
+    card == CPU as ``train_vs_cpu`` holds them, the witness running the
+    plain attention on the card: fp32 sums in another order, through the
+    big MLLM's residual stream of ~200 at its random init and its norms,
+    move a leaf's gradient further than its logits (the plain attention on
+    the card misses 1e-3 as well)."""
+    from repro_torch.configs.samsara_stream import STREAM_MLLM_CONFIG
+    from repro_torch.streaming.mllm import StreamMLLM
+    from repro_torch.streaming.pretrain import _make_mllm_batches
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    def make(device):
+        return StreamMLLM(STREAM_MLLM_CONFIG, patch=16, device=device)
+
+    card = make(dev).init(torch.Generator().manual_seed(5))
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=20, total_steps=400,
+                          weight_decay=0.01)          # ``_train``'s
+    counts, summary = train_vs_cpu("big MLLM", card, make,
+                                   _make_mllm_batches(7, device="cpu"),
+                                   plain_attention, opt)
     check(counts["flash_attention_bwd_f32"] > 0,
           "card vs CPU: the backward kernel was never launched")
-    return counts, {"steps": steps}
+    return counts, summary
 
 
 def chatglm3_train(smi):
     """Phase 18 (d): ``launch/train.py`` on chatglm3-6b at full width and
-    depth in its own process (its last line is a JSON summary)."""
+    depth in its own process (66.7 GB peak)."""
     from repro_torch.configs import get_config
 
-    cmd = [sys.executable, "-m", "repro_torch.launch.train",
-           *CHATGLM3_TRAIN]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    for line in proc.stdout.splitlines()[:-1]:
-        print(f"    {line}")
-    if proc.returncode != 0:
-        print(proc.stderr[-4000:], file=sys.stderr)
-    check(proc.returncode == 0, f"train.py exited {proc.returncode}")
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
     cfg = get_config("chatglm3-6b")
-    check(out["n_layers"] == cfg.n_layers,
-          f"chatglm3-6b trained at depth {out['n_layers']}")
-    check(all(math.isfinite(x) for x in out["losses"]) and
-          len(out["losses"]) == 3, f"chatglm3-6b losses {out['losses']}")
-    launches = out["launches"]
     want = cfg.n_layers * 2 * 3       # layers x micro-batches x steps
-    for symbol in ("flash_attention_lse_f32", "flash_attention_bwd_f32"):
-        check(launches.get(symbol, 0) == want,
-              f"chatglm3-6b: {symbol} launched {launches.get(symbol, 0)} "
-              f"times, not {want}")
-    peak = out["max_memory_allocated"]
-    print(f"  chatglm3-6b, {cfg.n_layers} layers, int8 moments, batch 16 x "
-          f"64 in 2 micro-batches, 3 steps: losses {out['losses']}, step "
-          f"s {out['step_s']}, peak {peak / 1e9:.2f} GB "
-          f"(max_memory_allocated; reckoned ~65 GB), launches {launches}; "
-          f"{seconds:.1f} s with start-up; {smi}")
+    out = launcher_train("chatglm3_train", CHATGLM3_TRAIN, smi,
+                         {"flash_attention_lse_f32": want,
+                          "flash_attention_bwd_f32": want})
+    check(out["n_layers"] == cfg.n_layers and len(out["losses"]) == 3,
+          f"chatglm3-6b trained at depth {out['n_layers']}")
     return out
 
 
@@ -3163,11 +3360,350 @@ def mllm_resume(dev):
     return counts, {"losses": more, "replayed": replay}
 
 
+#: (g) the launcher's recipe for mamba2-130m at full width and depth:
+#: two chunks of 256 a sequence, micro-batches of 4 sequences
+MAMBA2_TRAIN = ("--arch", "mamba2-130m", "--steps", "3", "--batch", "8",
+                "--seq", "512", "--grad-accum", "2")
+#: (g) card == CPU at depth 2: one micro-batch of the recipe's shape
+MAMBA2_CPU_DEPTH, MAMBA2_CPU_BATCH = 2, (4, 512)
+
+
+def _lm_train_opt():
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    return OptimizerConfig(lr=1e-3, warmup_steps=5, total_steps=50)
+
+
+def launcher_train(label, args, smi, want_launches):
+    """``launch/train.py`` in its own process (its last line is a JSON
+    summary): exits 0, finite losses, and each symbol of
+    ``want_launches`` launched exactly as often.  Returns the summary."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    for line in proc.stdout.splitlines()[:-1]:
+        print(f"    {line}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"{label}: train.py exited {proc.returncode}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(all(math.isfinite(x) for x in out["losses"]),
+          f"{label}: losses {out['losses']}")
+    launches = out["launches"]
+    for symbol, n in want_launches.items():
+        check(launches.get(symbol, 0) == n, f"{label}: {symbol} launched "
+              f"{launches.get(symbol, 0)} times, not {n}")
+    peak = out["max_memory_allocated"]
+    print(f"  {label}: {out['n_layers']} layers, batch {out['batch']} x "
+          f"{out['seq']} in {out['grad_accum']} micro-batches, "
+          f"{len(out['losses'])} steps: losses {out['losses']}, step s "
+          f"{out['step_s']}, peak {peak / 1e9:.2f} GB "
+          f"(max_memory_allocated), launches {launches}; {seconds:.1f} s "
+          f"with start-up; {smi}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_ssd():
+    """The SSD's within-chunk terms take their plain version on the card
+    (autograd differentiates it) for the duration of the block."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    kernel = ops.ssd_scan
+    ops.ssd_scan = ssd_scan_ref
+    try:
+        yield
+    finally:
+        ops.ssd_scan = kernel
+
+
+def mamba2_train(dev, smi):
+    """Phase 18 (g): mamba2-130m trained by ``launch/train.py`` at full
+    width and depth (``mamba2_train``), then card == CPU at depth 2 on the
+    first three steps (``mamba2_train_vs_cpu``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.training import TokenStream
+
+    cfg = get_config("mamba2-130m")
+    want = cfg.n_layers * 2 * 3       # layers x micro-batches x steps
+    out = launcher_train("mamba2_train", MAMBA2_TRAIN, smi,
+                         {"ssd_scan_f32": want, "ssd_scan_bwd_f32": want})
+    check(out["n_layers"] == cfg.n_layers and len(out["losses"]) == 3,
+          f"mamba2-130m trained at depth {out['n_layers']}")
+    small = cfg.replace(n_layers=MAMBA2_CPU_DEPTH)
+    card = LM(small, device=dev).init(torch.Generator().manual_seed(4))
+    stream = TokenStream(cfg.vocab_size, *MAMBA2_CPU_BATCH, seed=4,
+                         device="cpu")
+    batches = [stream.next_batch() for _ in range(CARD_CPU_STEPS)]
+    counts, summary = train_vs_cpu(
+        f"mamba2-130m depth {MAMBA2_CPU_DEPTH}", card,
+        lambda device: LM(small, device=device), batches.__getitem__,
+        plain_ssd, _lm_train_opt())
+    n = MAMBA2_CPU_DEPTH * CARD_CPU_STEPS
+    for symbol in ("ssd_scan_f32", "ssd_scan_bwd_f32"):
+        check(counts[symbol] == n, f"mamba2 card vs CPU: {symbol} launched "
+              f"{counts[symbol]} times, not {n}")
+    del card
+    torch.cuda.empty_cache()
+    return out, counts, summary
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the MoE family served and trained
+# ---------------------------------------------------------------------------
+
+#: (a) moonshot-v1-16b-a3b's depth on the card: 2.35 GB of fp32 weights a
+#: layer (64 experts of 3 x 2048 x 1408, two shared, attention) and a 1.34
+#: GB table; 20 layers (48.4 GB) leave room for the init's largest draw
+#: (one stacked expert leaf, 14.8 GB), the 4 x 8192 cache (10.7 GB) and
+#: an 8192-token prefill (16 layers peaked at 52.29 GB on an H100 80GB
+#: HBM3 at 700 W: ~4.7 GB above weights and cache)
+MOONSHOT_SERVE_DEPTH = 20
+#: (c) the training depth: fp32 weights and gradients plus int8 moments,
+#: ~6.4 GB a layer; batch 8 x 128 in two micro-batches
+MOONSHOT_TRAIN_DEPTH, MOONSHOT_TRAIN_BATCH = 8, (8, 128)
+#: (b) card == CPU: the MoE models at full width and depth 1 (qwen3-moe's
+#: layer is 9.7 GB and its two tables 5 GB), jamba at its smoke width over
+#: one period (one full-width period does not fit the card)
+MOE_CARD_CPU = (("moonshot-v1-16b-a3b", 1), ("qwen3-moe-235b-a22b", 1),
+                ("jamba-1.5-large-398b", None))
+#: (d) jamba-smoke's training batch: 4 sequences of two SSD chunks of 32
+JAMBA_TRAIN_BATCH = (4, 64)
+
+
+@contextlib.contextmanager
+def routing_log(log):
+    """Every MoE routing of the block appended to ``log`` as (indices on
+    the CPU, the smallest gap between a token's k-th and (k+1)-th router
+    probability)."""
+    from repro_torch.models import moe
+
+    route = moe._route
+
+    def logged(router_w, x2d, cfg):
+        idx, w, aux = route(router_w, x2d, cfg)
+        with torch.no_grad():
+            probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+            margin = (top[:, -2] - top[:, -1]).min().item()
+        log.append((idx.cpu(), margin))
+        return idx, w, aux
+
+    moe._route = logged
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def moe_card_vs_cpu(dev):
+    """Phase 19 (b): ``MOE_CARD_CPU``, the same weights (drawn on the card,
+    copied to the CPU) on both: three requests through two slots give
+    equal tokens and equal routing indices at every MoE layer of every
+    prefill and decode step (the smallest top-k margin of the run printed
+    beside), and the prefill and three decode steps' logits agree within
+    LM_TOL."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.model import LM
+    from repro_torch.serving.engine import ServingEngine
+
+    summary = {}
+    for arch, depth in MOE_CARD_CPU:
+        cfg = smoke_config(arch) if depth is None else \
+            get_config(arch).replace(n_layers=depth)
+        card = LM(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(5))
+        cpu = LM(cfg, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        outs, logs = [], []
+        for lm in (cpu, card):
+            log = []
+            with routing_log(log):
+                outs.append([r.output for r in ServingEngine(
+                    lm, max_slots=2, s_max=64, eos_id=-1).run(
+                        make_requests(cfg, 3, 6))])
+            logs.append(log)
+        check(len(logs[0]) == len(logs[1]) > 0,
+              f"{arch}: {len(logs[0])} routings on the CPU, "
+              f"{len(logs[1])} on the card")
+        differ = sum(int((a != b).sum()) for (a, _), (b, _) in
+                     zip(logs[0], logs[1]))
+        margin = min(m for _, m in logs[1])
+        prompt = torch.tensor([make_requests(cfg, 1, 1)[0].prompt])
+
+        def steps(lm):
+            cache = lm.init_cache(1, 64)
+            lg, cache = lm.prefill(prompt, cache)
+            out = [lg]
+            for t in range(3):
+                lg, cache = lm.decode(torch.tensor([[outs[0][0][t]]]), cache,
+                                      torch.tensor(prompt.shape[1] + t))
+                out.append(lg)
+            return [x.cpu() for x in out]
+
+        errs = []
+        for a, b in zip(steps(card), steps(cpu)):
+            check(torch.isfinite(a).all() and a.shape == b.shape,
+                  f"{arch}: non-finite or misshapen logits on the card")
+            errs.append((a - b).abs().max().item())
+        width = "smoke width" if depth is None else "full width"
+        print(f"  {arch} {width}, {cfg.n_layers} layers: card == CPU tokens "
+              f"{outs[0] == outs[1]} ({outs[1]}); routing indices of "
+              f"{len(logs[1])} MoE calls: {differ} differ, smallest top-k "
+              f"margin {margin:.3e}; logits max_abs_err prefill "
+              f"{errs[0]:.3e}, decode " + ", ".join(f"{e:.3e}"
+                                                    for e in errs[1:])
+              + f" (tol {LM_TOL:g})")
+        check(differ == 0, f"{arch}: {differ} routing indices differ")
+        check(outs[0] == outs[1], f"{arch}: card and CPU tokens differ")
+        check(all(e < LM_TOL for e in errs),
+              f"{arch}: card vs CPU logits {errs} (tol {LM_TOL})")
+        summary[arch] = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                         "logit_err": errs, "min_topk_margin": margin,
+                         "routings": len(logs[1])}
+        del cpu, card
+        torch.cuda.empty_cache()
+    return summary
+
+
+def moonshot_train(dev, smi):
+    """Phase 19 (c): moonshot-v1-16b-a3b at full width and
+    MOONSHOT_TRAIN_DEPTH layers through ``Trainer`` (AdamW with int8
+    moments, the token stream), 3 steps: finite losses, the MoE aux loss
+    of the trained weights nonzero, the attention kernels launched once a
+    layer a micro-batch, peak memory under the card's 80 GB."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import LM
+    from repro_torch.training import (OptimizerConfig, TokenStream,
+                                      TrainConfig, Trainer)
+
+    cfg = get_config("moonshot-v1-16b-a3b").replace(
+        n_layers=MOONSHOT_TRAIN_DEPTH)
+    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(6))
+    data = TokenStream(cfg.vocab_size, *MOONSHOT_TRAIN_BATCH, seed=6,
+                       device=dev)
+    trainer = Trainer(lm.loss, dict(lm.named_parameters()),
+                      OptimizerConfig(lr=1e-3, warmup_steps=5, total_steps=3,
+                                      quantized_state=True),
+                      TrainConfig(steps=3, grad_accum=2, log_every=0), data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = trainer.train()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        _, aux = lm.logits_and_aux(data.next_batch()["tokens"])
+    aux = aux.item()
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"  moonshot_train: {cfg.n_layers} layers at full width "
+          f"({n_params / 1e9:.3f} G parameters), int8 moments, batch "
+          f"{MOONSHOT_TRAIN_BATCH[0]} x {MOONSHOT_TRAIN_BATCH[1]} in 2 "
+          f"micro-batches, 3 steps: losses {out['history']}, step s "
+          f"{out['step_times']}, MoE aux of the trained weights {aux:.5f}, "
+          f"peak {peak / 1e9:.2f} GB (max_memory_allocated); {smi}")
+    check(all(math.isfinite(x) for x in out["history"]) and
+          len(out["history"]) == 3, f"moonshot_train: losses "
+          f"{out['history']}")
+    check(aux > 0 and math.isfinite(aux), f"moonshot_train: aux {aux}")
+    check(peak < 80e9, f"moonshot_train: peak {peak / 1e9:.2f} GB")
+    want = cfg.n_layers * 2 * 3
+    for symbol in ("flash_attention_lse_f32", "flash_attention_bwd_f32"):
+        check(counts[symbol] == want, f"moonshot_train: {symbol} launched "
+              f"{counts[symbol]} times, not {want}")
+    del trainer, lm
+    torch.cuda.empty_cache()
+    return counts, {"n_layers": cfg.n_layers, "parameters": n_params,
+                    "losses": out["history"], "step_s": out["step_times"],
+                    "aux": aux, "max_memory_allocated": peak}
+
+
+def jamba_train(dev):
+    """Phase 19 (d): jamba at its smoke width (one period: 7 Mamba2 layers
+    of 8 heads in 2 groups, one attention layer, 4 MoE MLPs) trained on
+    the card, card == CPU on its first three steps as phase 18 (g) holds
+    mamba2, the witness running both the SSD's and the attention's plain
+    versions on the card."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import LM
+    from repro_torch.training import TokenStream
+
+    cfg = smoke_config("jamba-1.5-large-398b")
+    card = LM(cfg, device=dev).init(torch.Generator().manual_seed(7))
+    stream = TokenStream(cfg.vocab_size, *JAMBA_TRAIN_BATCH, seed=7,
+                         device="cpu")
+    batches = [stream.next_batch() for _ in range(CARD_CPU_STEPS)]
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        with plain_ssd(), plain_attention():
+            yield
+
+    counts, summary = train_vs_cpu(
+        "jamba-smoke", card, lambda device: LM(cfg, device=device),
+        batches.__getitem__, plain_kernels, _lm_train_opt())
+    n_mamba = sum(k.startswith("mamba") for k in cfg.block_pattern) \
+        * cfg.n_periods
+    n_attn = cfg.n_layers - n_mamba
+    for symbol, per in (("ssd_scan_f32", n_mamba),
+                        ("ssd_scan_bwd_f32", n_mamba),
+                        ("flash_attention_lse_f32", n_attn),
+                        ("flash_attention_bwd_f32", n_attn)):
+        check(counts[symbol] == per * CARD_CPU_STEPS, f"jamba_train: "
+              f"{symbol} launched {counts[symbol]} times, not "
+              f"{per} x {CARD_CPU_STEPS}")
+    del card
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def moe_phase(dev, smi):
+    """Phase 19: (a) moonshot served at full width (and its decode ticks
+    profiled, as phase 6 profiles the other LMs'), (b) card == CPU, (c)
+    moonshot trained, (d) jamba trained.  Returns the launch counts by
+    path, the serving numbers and a summary."""
+    t19 = time.perf_counter()
+    counts, summary = {}, {}
+    print(f"[19a] moonshot-v1-16b-a3b, full width, {MOONSHOT_SERVE_DEPTH} "
+          f"layers, through ServingEngine(max_slots={SERVE_SLOTS}, "
+          f"s_max={SERVE_S_MAX})")
+    serving, counts["moonshot_serve"], lm, eng, _ = serve_phase(
+        "moonshot_serve", "moonshot-v1-16b-a3b", dev,
+        per_prefill=["flash_attention"], per_decode=["decode_attention"],
+        depth=MOONSHOT_SERVE_DEPTH)
+    print("[6] device busy share of moonshot's decode ticks")
+    summary["moonshot_decode_busy_share"] = trace_decode(
+        "moonshot_decode", eng, lm.cfg)
+    del lm, eng
+    torch.cuda.empty_cache()
+    print("[19b] card vs CPU: moonshot and qwen3-moe at full width, depth "
+          "1; jamba at smoke width, one period")
+    summary["card_vs_cpu"] = moe_card_vs_cpu(dev)
+    print(f"[19c] moonshot-v1-16b-a3b trained at full width, "
+          f"{MOONSHOT_TRAIN_DEPTH} layers")
+    counts["moonshot_train"], summary["moonshot_train"] = \
+        moonshot_train(dev, smi)
+    print("[19d] jamba-smoke trained on the card, card vs CPU")
+    counts["jamba_train"], summary["jamba_train"] = jamba_train(dev)
+    summary["seconds"] = time.perf_counter() - t19
+    print(f"[19] {summary['seconds']:.1f} s; {smi}")
+    return counts, {"moonshot_serve": serving}, summary
+
+
 def training_phase(dev, rows, q8_random_score, smi):
-    """Phase 18: (a) the flash_attention backward, (b) the stream models
-    trained on the card, (c) card == CPU, (d) chatglm3-6b's training steps
-    at full width, (e) resume.  Returns the launch counts by path and a
-    summary."""
+    """Phase 18: (a) the flash_attention backward, (f) the ssd_scan
+    backward, (g) mamba2-130m's training steps at full width and card ==
+    CPU, (d) chatglm3-6b's training steps at full width, (b) the stream
+    models trained on the card, (c) card == CPU, (e) resume.  Returns the
+    launch counts by path and a summary."""
     t18 = time.perf_counter()
     # a restored trainer replays only if every kernel repeats: cuDNN's
     # default convolution backward sums with atomics
@@ -3175,12 +3711,24 @@ def training_phase(dev, rows, q8_random_score, smi):
     print("[18a] flash_attention's backward against its plain version and "
           "float64")
     flash_bwd_checks(dev, rows)
+    print("[18f] ssd_scan's backward against its plain version and float64")
+    ssd_bwd_checks(dev, rows)
     counts, summary = {}, {}
+    print("[18g] mamba2-130m: launch/train.py at full width and depth, then "
+          "card vs CPU at depth 2")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out, counts["mamba2_train_vs_cpu"], summary["mamba2_train_vs_cpu"] = \
+        mamba2_train(dev, smi)
+    from repro_torch.kernels import launch_counts
+    counts["mamba2_train"] = {k: out["launches"].get(k, 0)
+                              for k in launch_counts()}
+    summary["mamba2_train"] = {k: out[k] for k in (
+        "n_layers", "losses", "step_s", "max_memory_allocated")}
     print("[18d] chatglm3-6b: launch/train.py at full width and depth")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     out = chatglm3_train(smi)
-    from repro_torch.kernels import launch_counts
     counts["chatglm3_train"] = {k: out["launches"].get(k, 0)
                                 for k in launch_counts()}
     summary["chatglm3_train"] = {k: out[k] for k in (
@@ -3329,6 +3877,12 @@ def main() -> int:
         train_counts, train_summary = training_phase(
             dev, rows, QUERIES["Q8"].evaluate(runs["q8_naive"]), smi)
         counts.update(train_counts)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print("[19] the MoE family served and trained")
+        moe_counts, moe_serving, moe_summary = moe_phase(dev, smi)
+        counts.update(moe_counts)
+        serving.update(moe_serving)
     except (SmokeFailure, RuntimeError, ValueError, KeyError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
@@ -3378,9 +3932,11 @@ def main() -> int:
         "slots": SERVE_SLOTS, "s_max": SERVE_S_MAX,
         "new_tokens": SERVE_NEW}}))
     print(json.dumps({"training": train_summary}, default=str))
+    print(json.dumps({"moe": moe_summary}, default=str))
     print(f"[total] {time.perf_counter() - t_start:.1f} s (phase 17 "
           f"{serve_summary['seconds']:.1f} s, phase 18 "
-          f"{train_summary['seconds']:.1f} s)")
+          f"{train_summary['seconds']:.1f} s, phase 19 "
+          f"{moe_summary['seconds']:.1f} s)")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

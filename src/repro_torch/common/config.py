@@ -1,10 +1,10 @@
 """Architecture configuration: the fields the port's models read.
 
 Counterpart of ``repro/common/config.py``.  ``ArchConfig``,
-``AttentionConfig``, ``SSMConfig`` and ``BlockSpecEntry`` are ported with
-the fields the stream MLLM and the served LMs (dense attention and Mamba2
-stacks) use.  ``MoEConfig`` and the shape cells wait for the slices that
-run them.
+``AttentionConfig``, ``MoEConfig``, ``SSMConfig`` and ``BlockSpecEntry``
+are ported with the fields the stream MLLM and the LMs (dense attention,
+Mamba2 and MoE stacks) use.  The shape cells wait for the slice that runs
+them.
 
 Block kind strings are ``"<mixer>+<mlp>"``:
   mixer: ``attn`` | ``attn_local`` | ``attn_global`` | ``mamba``
@@ -34,6 +34,17 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_z_coef: float = 1e-3
+    aux_loss_coef: float = 1e-2
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     d_state: int = 128
     d_conv: int = 4
@@ -52,6 +63,7 @@ class ArchConfig:
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     block_pattern: Tuple[str, ...] = ("attn+dense",)
     encoder_decoder: bool = False

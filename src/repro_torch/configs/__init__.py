@@ -2,8 +2,10 @@
 ``get_config(name)`` and ``smoke_config(name)``.
 
 Counterpart of ``repro/configs/__init__.py`` over the archs the port serves
-(gemma2-2b, mamba2-130m, and the dense zoo: chatglm3-6b, glm4-9b,
-phi3-mini-3.8b) and the two stream MLLM backbones.  An arch of the
+and trains (gemma2-2b, mamba2-130m, the dense zoo: chatglm3-6b, glm4-9b,
+phi3-mini-3.8b, and the MoE family: moonshot-v1-16b-a3b,
+qwen3-moe-235b-a22b, jamba-1.5-large-398b) and the two stream MLLM
+backbones.  An arch of the
 reference's registry that the port does not run yet raises a ``KeyError``
 that names the slice it waits for.
 """
@@ -13,7 +15,9 @@ from typing import Callable, Dict
 
 from repro_torch.common.config import ArchConfig
 from repro_torch.configs import (chatglm3_6b, gemma2_2b, glm4_9b,
-                                 mamba2_130m, phi3_mini_3_8b, samsara_stream)
+                                 jamba_1_5_large_398b, mamba2_130m,
+                                 moonshot_v1_16b_a3b, phi3_mini_3_8b,
+                                 qwen3_moe_235b_a22b, samsara_stream)
 
 REGISTRY: Dict[str, ArchConfig] = {
     c.name: c for c in (
@@ -22,6 +26,9 @@ REGISTRY: Dict[str, ArchConfig] = {
         chatglm3_6b.CONFIG,
         glm4_9b.CONFIG,
         phi3_mini_3_8b.CONFIG,
+        moonshot_v1_16b_a3b.CONFIG,
+        qwen3_moe_235b_a22b.CONFIG,
+        jamba_1_5_large_398b.CONFIG,
         samsara_stream.STREAM_MLLM_CONFIG,
         samsara_stream.STREAM_MLLM_SMALL_CONFIG,
     )
@@ -33,6 +40,9 @@ _SMOKE: Dict[str, Callable[[], ArchConfig]] = {
     "chatglm3-6b": chatglm3_6b.smoke,
     "glm4-9b": glm4_9b.smoke,
     "phi3-mini-3.8b": phi3_mini_3_8b.smoke,
+    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.smoke,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b.smoke,
+    "jamba-1.5-large-398b": jamba_1_5_large_398b.smoke,
     "samsara-stream-mllm": samsara_stream.smoke,
     "samsara-stream-mllm-small": samsara_stream.smoke,
 }
@@ -40,9 +50,6 @@ _SMOKE: Dict[str, Callable[[], ArchConfig]] = {
 #: archs of the reference's registry the port does not run yet -> the
 #: slice that ports what they need
 NOT_PORTED = {
-    "moonshot-v1-16b-a3b": "the MoE slice",
-    "qwen3-moe-235b-a22b": "the MoE slice",
-    "jamba-1.5-large-398b": "the MoE slice (its MLPs are experts)",
     "seamless-m4t-medium": "the encoder-decoder slice",
     "pixtral-12b": "the patch-frontend slice",
 }

@@ -21,7 +21,9 @@ Every Pallas kernel of the JAX package has its counterpart here:
                      (splits of the live keys merged by logsumexp in
                      one launch; the served LMs' decode step)
   ssd_scan         — Mamba2's within-chunk SSD terms (the served SSMs'
-                     prefill)
+                     prefill), and their backward (``csrc/ssd_scan_bwd.cu``,
+                     no Pallas counterpart: the Mamba2 layers' training
+                     gradient)
   int8_matmul      — int8 x int8 product with int32 accumulation and row /
                      column scales (``serving/quantize.py``'s int8 weights)
 
@@ -29,8 +31,8 @@ Dispatch rule (every ops.py wrapper follows it): the device of the input
 tensor decides.  A CPU tensor takes the plain version in ``ref.py``; a CUDA
 tensor launches the kernel or raises.  Nothing falls back from one to the
 other, and nothing looks at which hardware the host has.  Only
-flash_attention takes inputs that require grad on the card (its
-``autograd.Function``); every other kernel refuses them.
+flash_attention and ssd_scan take inputs that require grad on the card
+(their ``autograd.Function``s); every other kernel refuses them.
 """
 from __future__ import annotations
 

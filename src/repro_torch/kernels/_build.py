@@ -144,10 +144,11 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     that autograd would differentiate: a kernel writes a fresh tensor
     through ``ctypes``, so its output would be cut from the graph without
     a word.  Callers run under ``torch.no_grad()`` or
-    ``torch.inference_mode()``; the one kernel with a backward,
-    flash_attention, is differentiated through its ``autograd.Function``
-    (``kernels/flash_attention/ops.py``), which calls the bindings with
-    grad mode off."""
+    ``torch.inference_mode()``; the kernels with a backward,
+    flash_attention and ssd_scan, are differentiated through their
+    ``autograd.Function``s (``kernels/flash_attention/ops.py``,
+    ``kernels/ssd_scan/ops.py``), which call the bindings with grad mode
+    off."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise ValueError(f"{name}: an input requires grad and the CUDA "
                          "kernel has no backward; call it under "

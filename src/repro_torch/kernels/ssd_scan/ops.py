@@ -3,23 +3,48 @@ the kernel (CUDA tensors) or its plain version (CPU tensors).
 
 Counterpart of ``repro/kernels/ssd_scan/ops.py::ssd``: the cumsum of
 dt·A, the kernel layout, the within-chunk terms, then the inter-chunk
-recurrence and the cross-chunk term in PyTorch.
+recurrence and the cross-chunk term in PyTorch.  Under autograd on CUDA
+tensors the within-chunk terms are ``SSDScanFn`` (the forward kernel, then
+the hand-written backward); autograd differentiates the rest.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_bwd_cuda,
+                                                 ssd_scan_cuda)
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 
+class SSDScanFn(torch.autograd.Function):
+    """The within-chunk terms' forward kernel and its hand-written backward
+    (``csrc/ssd_scan_bwd.cu``) as one autograd node."""
+
+    @staticmethod
+    def forward(ctx, x, bmat, cmat, cs, dt):
+        y, s = ssd_scan_cuda(x, bmat, cmat, cs, dt)
+        ctx.save_for_backward(x, bmat, cmat, cs, dt)
+        return y, s
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, ds):
+        return ssd_scan_bwd_cuda(*ctx.saved_tensors, dy.contiguous(),
+                                 ds.contiguous())
+
+
 def ssd_scan(x, bmat, cmat, cs, dt):
-    """The within-chunk terms in kernel layout; the device picks."""
-    if x.device.type != "cpu":
-        return ssd_scan_cuda(x, bmat, cmat, cs, dt)
-    return ssd_scan_ref(x, bmat, cmat, cs, dt)
+    """The within-chunk terms in kernel layout; the device picks, and on
+    CUDA autograd picks the forward kernel or ``SSDScanFn``."""
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, bmat, cmat, cs, dt)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, bmat, cmat, cs, dt)):
+        return SSDScanFn.apply(x, bmat, cmat, cs, dt)
+    return ssd_scan_cuda(x, bmat, cmat, cs, dt)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -2,8 +2,9 @@
 through the decode-attention kernel.
 
 Counterpart of ``repro/models/attention.py`` for the paths the port runs:
-``attention_spec``, ``_project_qkv``, ``_out_proj``, ``attend_prefill``
-(causal, sliding-window for ``attn_local``) and ``attend_decode``.  Head
+``attention_spec``, ``_project_qkv`` (with qk-norm), ``_out_proj``,
+``attend_prefill`` (causal, sliding-window for ``attn_local``) and
+``attend_decode``.  Head
 counts come from the weights (``wq`` (d, H, Dh), ``wk``/``wv`` (d, Hk, Dh),
 ``wo`` (H, Dh, d)), so a pruned variant with other shapes runs unchanged.
 There is no tensor-parallel head padding: the port runs on one card, which
@@ -21,30 +22,39 @@ import torch
 from repro_torch.common.config import AttentionConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rms_norm_simple
 from repro_torch.models.param import ParamSpec
 
 
 def attention_spec(d_model: int, att: AttentionConfig) -> Dict[str, ParamSpec]:
     d = att.head_dim
-    return {
+    spec = {
         "wq": ParamSpec((d_model, att.n_heads, d)),
         "wk": ParamSpec((d_model, att.n_kv_heads, d)),
         "wv": ParamSpec((d_model, att.n_kv_heads, d)),
         "wo": ParamSpec((att.n_heads, d, d_model)),
     }
+    if att.qk_norm:
+        spec["q_norm"] = ParamSpec((d,), "ones")
+        spec["k_norm"] = ParamSpec((d,), "ones")
+    return spec
 
 
 def _project_qkv(params: Dict[str, torch.Tensor], xq: torch.Tensor,
                  xkv: torch.Tensor, mm=torch.matmul
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """xq (B, Sq, d), xkv (B, Skv, d) -> q (B,Sq,H,Dh), k/v (B,Skv,Hk,Dh)."""
+    """xq (B, Sq, d), xkv (B, Skv, d) -> q (B,Sq,H,Dh), k/v (B,Skv,Hk,Dh);
+    q and k RMS-normed per head (qk-norm) when the weights hold their
+    scales, before the rotary embedding, as in the reference."""
     def proj(x, w):
         d, h, dh = w.shape
         return mm(x, w.reshape(d, h * dh)).reshape(*x.shape[:-1], h, dh)
 
-    return (proj(xq, params["wq"]), proj(xkv, params["wk"]),
-            proj(xkv, params["wv"]))
+    q, k = proj(xq, params["wq"]), proj(xkv, params["wk"])
+    if "q_norm" in params:
+        q = rms_norm_simple(q, params["q_norm"])
+        k = rms_norm_simple(k, params["k_norm"])
+    return q, k, proj(xkv, params["wv"])
 
 
 def _out_proj(params: Dict[str, torch.Tensor],

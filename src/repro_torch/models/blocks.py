@@ -1,7 +1,8 @@
 """Pre-norm residual blocks and their stacked periods.
 
 Counterpart of ``repro/models/blocks.py`` for the mixers ``attn``,
-``attn_local``, ``attn_global`` and ``mamba`` with a ``dense`` or no MLP.
+``attn_local``, ``attn_global`` and ``mamba`` with a ``dense``, ``moe`` or
+no MLP.
 A *period* is one repetition of ``cfg.block_pattern`` (gemma2's (local,
 global) pair); every weight and cache leaf of the stack keeps its leading
 per-period axis, as the reference's scanned stack does, and
@@ -12,17 +13,20 @@ only in its ``.grad`` after ``loss.backward()``: ``torch.autograd.grad``,
 ``backward(inputs=...)``, hooks on the leaf and double backward see none
 for it.  Modes: ``causal`` (no cache),
 ``prefill_cache`` (fills the cache) and ``decode`` (one token against it).
-The port writes caches in place; the reference returns new ones.
+The port writes caches in place; the reference returns new ones.  The MoE
+blocks' aux losses are summed period by period, as the reference's scan
+carries them (``apply_stack(..., return_aux=True)``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.common.config import ArchConfig, BlockSpecEntry
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, mlp_spec, norm, norm_spec
 from repro_torch.models.param import stack
@@ -33,12 +37,9 @@ MODES = ("causal", "prefill_cache", "decode")
 
 def _entry(kind: str) -> BlockSpecEntry:
     ent = BlockSpecEntry.parse(kind)
-    if ent.mlp == "moe":
-        raise NotImplementedError(
-            f"block {kind!r}: MoE MLPs wait for the port's MoE slice")
-    if ent.mixer not in MIXERS or ent.mlp not in ("dense", "none"):
+    if ent.mixer not in MIXERS or ent.mlp not in ("dense", "moe", "none"):
         raise NotImplementedError(f"block {kind!r}: the port runs mixers "
-                                  f"{MIXERS} with a dense or no MLP")
+                                  f"{MIXERS} with a dense, MoE or no MLP")
     return ent
 
 
@@ -47,10 +48,6 @@ def _check(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: cross attention waits for the port's "
             "encoder-decoder slice")
-    if cfg.attention is not None and cfg.attention.qk_norm:
-        raise NotImplementedError(
-            f"{cfg.name}: qk-norm waits for the slice of a model that "
-            "uses it")
     for kind in cfg.block_pattern:
         _entry(kind)
 
@@ -67,7 +64,10 @@ def block_spec(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
         spec["post_mixer_norm"] = norm_spec(d, cfg.norm)
     if ent.mlp != "none":
         spec["pre_mlp_norm"] = norm_spec(d, cfg.norm)
-        spec["mlp"] = mlp_spec(d, cfg.d_ff, cfg.mlp_gated)
+        if ent.mlp == "moe":
+            spec["mlp"] = moe_mod.moe_spec(d, cfg.moe)
+        else:
+            spec["mlp"] = mlp_spec(d, cfg.d_ff, cfg.mlp_gated)
         if cfg.post_block_norm:
             spec["post_mlp_norm"] = norm_spec(d, cfg.norm)
     return spec
@@ -94,12 +94,14 @@ def apply_block(cfg: ArchConfig, kind: str, params: Dict[str, Any],
                 x: torch.Tensor, *, mode: str, positions: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 lens: Optional[torch.Tensor] = None,
-                mm=torch.matmul) -> torch.Tensor:
+                mm=torch.matmul,
+                aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """One block: x + mixer(norm(x)) (sandwiched by a post norm when the
     config says so), then the same with the MLP.  ``cache`` (this block's
     leaves for this period) is filled or advanced in place.  ``mm``
-    computes the MLP's products and, in ``causal`` mode, the attention's
-    projections (``layers.frame_matmul`` for the stream MLLM)."""
+    computes the dense MLP's products and, in ``causal`` mode, the
+    attention's projections (``layers.frame_matmul`` for the stream MLLM).
+    An MoE block appends its aux loss to ``aux`` when given."""
     ent = _entry(kind)
     h = norm(params["pre_norm"], x, cfg.norm)
     mix = params["mixer"]
@@ -129,10 +131,15 @@ def apply_block(cfg: ArchConfig, kind: str, params: Dict[str, Any],
     if ent.mlp != "none":
         h = norm(params["pre_mlp_norm"], x, cfg.norm)
         mlp = params["mlp"]
-        # the reference picks GeLU by the config's name
-        act = "gelu" if cfg.name.startswith("gemma") else "silu"
-        y = apply_mlp(mlp["w_in"], mlp.get("w_gate"), mlp["w_out"], h, act,
-                      mm=mm)
+        if ent.mlp == "moe":
+            y, a = moe_mod.apply_moe(mlp, h, cfg.moe)
+            if aux is not None:
+                aux.append(a)
+        else:
+            # the reference picks GeLU by the config's name
+            act = "gelu" if cfg.name.startswith("gemma") else "silu"
+            y = apply_mlp(mlp["w_in"], mlp.get("w_gate"), mlp["w_out"], h,
+                          act, mm=mm)
         if cfg.post_block_norm:
             y = norm(params["post_mlp_norm"], y, cfg.norm)
         x = x + y
@@ -183,11 +190,13 @@ def apply_stack(cfg: ArchConfig, stacked: Dict[str, Any], x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str = "causal",
                 cache: Optional[Dict[str, Any]] = None,
                 lens: Optional[torch.Tensor] = None,
-                mm=torch.matmul) -> torch.Tensor:
+                mm=torch.matmul, return_aux: bool = False):
     """Run every period of the stacked weights in order.  ``cache`` is a
     dict per block key ``i{j}`` of (n_periods, B, ...) tensors, filled
     (``prefill_cache``) or advanced (``decode``) in place.  ``mm`` is
-    ``apply_block``'s."""
+    ``apply_block``'s.  Returns x, or with ``return_aux`` (x, the MoE aux
+    loss): each period's blocks summed in order, then the periods, from a
+    float32 zero, as the reference's scan carries it."""
     _check(cfg)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; have {MODES}")
@@ -196,13 +205,20 @@ def apply_stack(cfg: ArchConfig, stacked: Dict[str, Any], x: torch.Tensor,
     n = stacked["i0"]["pre_norm"]["scale"].shape[0]
     period = _periods(stacked, n)
     cache_at = None if cache is None else _periods(cache, n)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
         p_params = period(i)
         p_cache = None if cache_at is None else cache_at(i)
+        p_aux: List[torch.Tensor] = []
         for j, kind in enumerate(cfg.block_pattern):
             key = f"i{j}"
             x = apply_block(
                 cfg, kind, p_params[key], x, mode=mode, positions=positions,
                 cache=None if p_cache is None else p_cache[key], lens=lens,
-                mm=mm)
-    return x
+                mm=mm, aux=p_aux)
+        if p_aux:
+            a = torch.zeros((), dtype=torch.float32, device=x.device)
+            for one in p_aux:
+                a = a + one
+            total = total + a
+    return (x, total) if return_aux else x

@@ -139,9 +139,14 @@ def apply_mlp(w_in: torch.Tensor, w_gate: Optional[torch.Tensor],
 # Embedding / unembedding
 # --------------------------------------------------------------------------
 
-def embed_spec(vocab: int, d_model: int) -> Dict[str, ParamSpec]:
-    """The token table, tied to the unembedding."""
-    return {"table": ParamSpec((vocab, d_model), "small")}
+def embed_spec(vocab: int, d_model: int,
+               tie: bool = True) -> Dict[str, ParamSpec]:
+    """The token table, tied to the unembedding, or with an unembedding
+    (d_model, vocab) of its own."""
+    spec = {"table": ParamSpec((vocab, d_model), "small")}
+    if not tie:
+        spec["unembed"] = ParamSpec((d_model, vocab))
+    return spec
 
 
 def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor,
@@ -156,7 +161,9 @@ def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor,
 def unembed(params: Dict[str, Any], x: torch.Tensor,
             final_cap: Optional[float] = None) -> torch.Tensor:
     """x (B, S, d) -> logits (B, S, V) over the padded vocab, through the
-    tied table."""
+    unembedding where there is one, else the tied table."""
+    if "unembed" in params:
+        return softcap(x @ params["unembed"], final_cap)
     return softcap(x @ params["table"].t(), final_cap)
 
 

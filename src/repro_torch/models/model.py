@@ -1,8 +1,9 @@
 """LM: the decoder-only language model the serving engine runs.
 
 Counterpart of ``repro/models/model.py`` for token inputs (no patch or
-audio frontend, no encoder): ``spec``, ``_embed``, ``forward`` (the
-differentiable causal logits) and ``loss`` for training;
+audio frontend, no encoder), with a tied or untied unembedding: ``spec``,
+``_embed``, ``forward`` / ``logits_and_aux`` (the differentiable causal
+logits and the MoE aux loss) and ``loss`` for training;
 ``logits_causal``, ``cache_shapes`` / ``init_cache``,
 ``prefill(..., last_pos)`` and ``decode`` without a graph, for serving.
 The parameters' dotted names are the reference's parameter tree paths
@@ -35,10 +36,6 @@ class LM(ParamTree):
             raise NotImplementedError(
                 f"{cfg.name}: the port's LM takes tokens only; frontends "
                 "and encoders wait for their slices")
-        if not cfg.tie_embeddings:
-            raise NotImplementedError(
-                f"{cfg.name}: an unembedding apart from the token table "
-                "waits for the slice of a model that has one")
         dev = resolve_device(device)
         super().__init__(self.spec(cfg), dev)
         self.cfg = cfg
@@ -47,7 +44,8 @@ class LM(ParamTree):
     @staticmethod
     def spec(cfg: ArchConfig) -> Dict[str, Any]:
         return {
-            "embed": embed_spec(cfg.padded_vocab, cfg.d_model),
+            "embed": embed_spec(cfg.padded_vocab, cfg.d_model,
+                                cfg.tie_embeddings),
             "stack": blk.stack_spec(cfg),
             "final_norm": norm_spec(cfg.d_model, cfg.norm),
         }
@@ -68,14 +66,22 @@ class LM(ParamTree):
         x = norm(params["final_norm"], x, self.cfg.norm)
         return unembed(params["embed"], x, self.cfg.final_softcap)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, padded vocab), no cache;
-        differentiable in the parameters that require grad (training)."""
+    def logits_and_aux(self, tokens: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, S) -> (logits (B, S, padded vocab), the MoE aux loss
+        (0 without MoE blocks)), no cache; differentiable in the parameters
+        that require grad (training)."""
         params = self.tree()
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)[None]
-        x = blk.apply_stack(self.cfg, params["stack"], x, positions)
-        return self._head(params, x)
+        x, aux = blk.apply_stack(self.cfg, params["stack"], x, positions,
+                                 return_aux=True)
+        return self._head(params, x), aux
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, padded vocab), no cache;
+        differentiable in the parameters that require grad (training)."""
+        return self.logits_and_aux(tokens)[0]
 
     @torch.no_grad()
     def logits_causal(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -84,12 +90,13 @@ class LM(ParamTree):
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Next-token loss of ``{"tokens", "labels"}`` (B, S): mean nll +
-        z-loss (+ the MoE aux loss, 0 for the families the port runs);
-        labels below 0 are read as 0, as the reference does."""
-        logits = self(batch["tokens"])
+        z-loss + the MoE aux loss (router z-loss and load balance, 0
+        without MoE blocks); labels below 0 are read as 0, as the reference
+        does."""
+        logits, aux = self.logits_and_aux(batch["tokens"])
         labels = batch["labels"].to(self.device).long().clamp_min(0)
         nll, zl = cross_entropy(logits, labels)
-        return nll + zl
+        return nll + zl + aux
 
     # ------------------------------------------------------------------
     def cache_shapes(self, batch: int, s_max: int) -> Dict[str, Any]:

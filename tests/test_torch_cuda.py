@@ -519,7 +519,9 @@ def test_int8_quantization_card_equals_cpu(dev):
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m", "chatglm3-6b",
-                                  "glm4-9b", "phi3-mini-3.8b"])
+                                  "glm4-9b", "phi3-mini-3.8b",
+                                  "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
+                                  "jamba-1.5-large-398b"])
 def test_lm_serving_card_equals_cpu(dev, arch):
     """The smoke LMs through the engine on the card and on the CPU, same
     weights: the same tokens."""
@@ -624,21 +626,42 @@ def test_flash_attention_lse_forward_equals_serving_forward(dev):
         rtol=2e-5)
 
 
-def test_ssd_on_inputs_that_require_grad_still_raises(dev):
-    """ssd_scan has no backward: the public SSD op on a CUDA input that
-    requires grad raises before any launch (mamba2 training waits for
-    it)."""
+def test_ssd_on_inputs_that_require_grad_runs_the_backward(dev):
+    """The public SSD op on CUDA inputs that require grad goes through
+    ``SSDScanFn``: one forward and one backward launch a chunk batch, and
+    every gradient (x, dt, A, B, C, D; two chunks of 64, 8 heads in 2
+    groups) within 1e-4 of its largest magnitude of the repaired plain
+    version's autograd on the CPU; a second run equal bit for bit."""
     from repro_torch.kernels.ssd_scan.ops import ssd
 
     gen = torch.Generator().manual_seed(16)
-    x = torch.randn(1, 16, 2, 8, generator=gen).to(dev).requires_grad_(True)
-    dt = torch.rand(1, 16, 2, generator=gen).to(dev)
-    a = -torch.rand(2, generator=gen).to(dev)
-    bm = torch.randn(1, 16, 1, 8, generator=gen).to(dev)
+    b, l, h, p, g, n = 2, 128, 8, 32, 2, 16
+    cpu = [torch.randn(b, l, h, p, generator=gen),
+           torch.nn.functional.softplus(torch.randn(b, l, h, generator=gen)),
+           -torch.rand(h, generator=gen) - 0.5,
+           0.3 * torch.randn(b, l, g, n, generator=gen),
+           0.3 * torch.randn(b, l, g, n, generator=gen),
+           torch.ones(h) + 0.1 * torch.randn(h, generator=gen)]
+    wy = torch.randn(b, l, h, p, generator=gen)
+    ws = torch.randn(b, h, p, n, generator=gen)
+
+    def grads(device):
+        leaves = [t.to(device).requires_grad_(True) for t in cpu]
+        y, s = ssd(*leaves, chunk=64)
+        ((y * wy.to(device)).sum() + (s * ws.to(device)).sum()).backward()
+        return [t.grad.cpu() for t in leaves]
+
     reset_launch_counts()
-    with pytest.raises(ValueError, match="requires grad"):
-        ssd(x, dt, a, bm, bm.clone(), torch.ones(2, device=dev), chunk=16)
-    assert not any(launch_counts().values())
+    got = grads(dev)
+    counts = launch_counts()
+    assert counts["ssd_scan_f32"] == 1 and counts["ssd_scan_bwd_f32"] == 1
+    again = grads(dev)
+    want = grads("cpu")
+    for a, c, w in zip(got, again, want):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, c)
+        err = (a - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), err
 
 
 def test_stream_mllm_gradients_card_equals_cpu(dev):

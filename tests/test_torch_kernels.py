@@ -225,6 +225,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     x = torch.from_numpy(randn(10, (1, 16, 2, 8)))
     ssd(x, torch.ones(1, 16, 2), -torch.ones(2), x[:, :, :1], x[:, :, :1],
         torch.ones(2), chunk=16)
+    ssd(x.clone().requires_grad_(True), torch.ones(1, 16, 2), -torch.ones(2),
+        x[:, :, :1], x[:, :, :1], torch.ones(2), chunk=16)[0].sum().backward()
     matmul_int8_dynamic(q[0, :, 0], torch.ones(32, 8, dtype=torch.int8),
                         torch.ones(1, 8))
     assert launch_counts() == before
@@ -232,7 +234,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
                            "flash_attention_f32", "flash_attention_lse_f32",
                            "flash_attention_bwd_f32", "fused_prefix_launch",
                            "decode_attention_f32", "ssd_scan_f32",
-                           "int8_transpose_kn", "int8_mma_f32"}
+                           "ssd_scan_bwd_f32", "int8_transpose_kn",
+                           "int8_mma_f32"}
 
 
 @pytest.mark.parametrize("call", ["frame_diff", "fused_preprocess", "flash",
