@@ -177,7 +177,8 @@ Phases (any failure exits non-zero and prints no result line):
      (``mllm_resume``); (f) ssd_scan's backward kernel
      (``csrc/ssd_scan_bwd.cu``, through ``SSDScanFn``) at
      ``SSD_BWD_SHAPES`` (mamba2-130m's training micro-batch and one of 8
-     sequences, jamba's full-width SSM, a chunk of 64, a ragged 13) under
+     sequences, jamba's full-width SSM, a chunk of 64, a ragged 13,
+     jamba-smoke's as (d) of phase 19 trains it) under
      mamba2's init decay (seg past exp's range: finite) and a slow one:
      dx, dB, dC, dcs, ddt within TOL of the repaired plain version's
      autograd and within the float64 gate, two launches equal bit for
@@ -2942,12 +2943,14 @@ def flash_bwd_checks(dev, rows):
 #: training micro-batch (``MAMBA2_TRAIN``: 4 sequences of two chunks of
 #: 256) and a micro-batch of 8 sequences, jamba-1.5-large's full-width SSM
 #: (one sequence of two chunks: 128 heads in 8 groups, P 128, N 16), a
-#: chunk of 64 and a ragged one of 13
+#: chunk of 64, a ragged one of 13, and jamba-smoke's as phase 19 (d)
+#: trains it (``JAMBA_TRAIN_BATCH``: 4 sequences of two chunks of 32)
 SSD_BWD_SHAPES = {"mamba2_train": (8, 24, 1, 256, 64, 128),
                   "mamba2_bc16": (16, 24, 1, 256, 64, 128),
                   "jamba_full": (2, 128, 8, 256, 128, 16),
                   "q64": (4, 8, 2, 64, 64, 32),
-                  "q13": (2, 4, 2, 13, 16, 8)}
+                  "q13": (2, 4, 2, 13, 16, 8),
+                  "jamba_smoke": (8, 8, 2, 32, 16, 16)}
 #: (f) the decay: dt·A as mamba2's init gives it (A_log 0: A = -1, dt =
 #: softplus(~N(0, 1)) ~0.7, so cs falls ~180 over a chunk of 256 and seg
 #: passes exp's range of 88), and a slow one (A = -0.01) under which every
@@ -3072,13 +3075,37 @@ def ssd_bwd_timing(label, args, dy, ds):
     return t
 
 
-def ssd_bwd_checks(dev, rows):
-    """Phase 18 (f): the ssd_scan backward at ``SSD_BWD_SHAPES`` under each
-    decay of ``SSD_BWD_DECAY`` (``init`` passes exp's range in seg: the
-    gradients must stay finite), then timed at each shape under the init
-    decay."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+def ssd_bwd_smem_match():
+    """The plan's shared memory (``kernel.py::bwd_smem``) against the
+    library's (``ssd_scan_bwd_smem``) at every P and N the port runs and a
+    few more, for 1-4 heads a split."""
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.ssd_scan.kernel import bwd_smem
 
+    fn = load_library("ssd_scan_bwd").ssd_scan_bwd_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    for p in (8, 13, 16, 24, 32, 64, 96, 128):
+        for n in (8, 13, 16, 128, 256):
+            for hs in (1, 2, 3, 4):
+                check(fn(p, n, hs) == bwd_smem(p, n, hs),
+                      f"ssd_scan_bwd P{p} N{n} {hs} heads: the library's "
+                      f"shared memory {fn(p, n, hs)}, the plan's "
+                      f"{bwd_smem(p, n, hs)}")
+    print("  ssd_scan_bwd: the plan's shared memory is the library's")
+
+
+def ssd_bwd_checks(dev, rows):
+    """Phase 18 (f): the plan's shared memory against the library's; the
+    ssd_scan backward at ``SSD_BWD_SHAPES`` under each decay of
+    ``SSD_BWD_DECAY`` (``init`` passes exp's range in seg: the gradients
+    must stay finite), then timed at each shape under the init decay, each
+    printed with the plan the wrapper takes on this card."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ssd_scan.kernel import bwd_plan
+
+    ssd_bwd_smem_match()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator().manual_seed(23)
     worst = 0.0
     reset_launch_counts()
@@ -3103,6 +3130,10 @@ def ssd_bwd_checks(dev, rows):
     for label, shape in SSD_BWD_SHAPES.items():
         args, dy, ds = ssd_bwd_inputs(gen, dev, *shape, 1.0)
         timed[label] = ssd_bwd_timing(label, args, dy, ds)
+        plan = bwd_plan(*shape, sms=sms)
+        print(f"  ssd_scan_bwd {label}: plan on {sms} SMs " + str(
+            {k: plan[k] for k in ("splits", "blocks", "per_sm", "smem",
+                                  "fused", "parts")}))
     top = "mamba2_train"
     rows["ssd_scan_bwd"] = {**timed[top], **{
         k: v for k, v in timed.items() if k != top}}

@@ -2,14 +2,16 @@
 """chip_smoke.py's phase 18 (training on the card), part by part, without
 phases 1-17: a quicker check of the training path on a CUDA host.
 
-    python scripts/training_phase.py            # (a) (d) (b) (c) (e)
-    python scripts/training_phase.py d b        # only those parts
+    python scripts/training_phase.py            # (a) (f) (g) (d) (b) (c) (e)
+    python scripts/training_phase.py f g        # only those parts
 
 Builds the kernels, then runs each named part of ``chip_smoke.py``'s
 phase 18 with its own gates: (a) the flash_attention backward against its
-plain version and float64, with its times; (d) chatglm3-6b's training
-steps at full width; (b) the stream models trained on the card and Q8's
-naive plan with them; (c) card == CPU; (e) resume.  A failed part is
+plain version and float64, with its times; (f) the ssd_scan backward the
+same way; (g) mamba2-130m's training steps at full width, then card == CPU
+at depth 2; (d) chatglm3-6b's training steps at full width; (b) the stream
+models trained on the card and Q8's naive plan with them; (c) card == CPU;
+(e) resume.  A failed part is
 reported and the next one runs; the exit code is 1 if any failed.
 """
 import json
@@ -24,6 +26,13 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+
+
+def mamba2(dev, smi):
+    """(g)'s steps and its card == CPU summary."""
+    out, _, vs_cpu = cs.mamba2_train(dev, smi)
+    return {"losses": out["losses"], "step_s": out["step_s"],
+            "launches": out["launches"], "vs_cpu": vs_cpu}
 
 
 def main(names) -> int:
@@ -43,6 +52,8 @@ def main(names) -> int:
     dev = torch.device("cuda")
     rows = {}
     parts = {"a": lambda: cs.flash_bwd_checks(dev, rows),
+             "f": lambda: cs.ssd_bwd_checks(dev, rows),
+             "g": lambda: mamba2(dev, smi),
              "d": lambda: cs.chatglm3_train(smi),
              "b": lambda: cs.pretrain_phase(dev, float("nan"))[1],
              "c": lambda: cs.mllm_card_vs_cpu(dev)[1],

@@ -7,18 +7,20 @@ import torch
 
 
 def ssd_scan_ref(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
-                 cs: torch.Tensor, dt: torch.Tensor
+                 cs: torch.Tensor, dt: torch.Tensor, *,
+                 dtype: torch.dtype = torch.float32
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (BC, H, Q, P); bmat/cmat (BC, G, Q, N); cs/dt (BC, H, 1, Q).
 
     Returns y_diag (BC, H, Q, P) = ((C·Bᵀ) ∘ L)·diag(dt)·X with
     L[i, j] = exp(cs_i − cs_j)·1[i ≥ j], and s_local (BC, H, N, P) =
-    Bᵀ·diag(exp(cs_Q − cs)·dt)·X, in fp32.  Head h reads group
+    Bᵀ·diag(exp(cs_Q − cs)·dt)·X, in fp32 (``dtype``: float64 for a
+    witness of the arithmetic).  Head h reads group
     h // (H / G).  Only i ≥ j is exponentiated, so autograd's gradients
     stay finite where cs_j − cs_i passes exp's range (about 88)."""
     bc, h, q, p = x.shape
     rep = h // bmat.shape[1]
-    f32 = torch.float32
+    f32 = dtype
     bh = torch.repeat_interleave(bmat, rep, dim=1).to(f32)  # (BC, H, Q, N)
     ch = torch.repeat_interleave(cmat, rep, dim=1).to(f32)
     cs2 = cs[:, :, 0, :].to(f32)                             # (BC, H, Q)

@@ -664,6 +664,86 @@ def test_ssd_on_inputs_that_require_grad_runs_the_backward(dev):
         assert err <= 1e-4 * w.abs().max().item(), err
 
 
+def _ssd_bwd_case(bc, h, g, q, p, n, splits=None):
+    """A backward case; its id carries the split count it runs (the plan's,
+    or ``splits`` forced) and whether one launch of clusters does the sums
+    (``fused``) or a second launch."""
+    from repro_torch.kernels.ssd_scan.kernel import bwd_plan
+
+    plan = bwd_plan(bc, h, g, q, p, n, splits=splits)
+    how = "fused" if plan["fused"] else "two"
+    return pytest.param(
+        bc, h, g, q, p, n, splits,
+        id=f"BC{bc}-H{h}-G{g}-Q{q}-P{p}-N{n}-splits{plan['splits']}-{how}")
+
+
+#: (BC, H, G, Q, P, N[, splits forced]): a chunk of 13 and a ragged one of
+#: 129 (N off 4: 4-byte copies), one head a group, 24 heads in one group
+#: (mamba2-130m's chunk, the plan's and 8 splits of 3 heads), groups the
+#: split count does not divide, and in one launch of clusters: more sums
+#: tasks than a cluster's blocks (N 256) and fewer (8 splits of one tile)
+SSD_BWD_CASES = [_ssd_bwd_case(*c) for c in [
+    (2, 4, 2, 13, 16, 8), (2, 8, 2, 129, 32, 22), (2, 6, 6, 64, 32, 16),
+    (2, 24, 1, 256, 64, 128), (2, 24, 1, 256, 64, 128, 8),
+    (2, 5, 1, 96, 32, 24, 2), (1, 24, 1, 256, 64, 128, 5),
+    (2, 16, 2, 256, 128, 16, 3), (2, 8, 2, 129, 32, 22, 3),
+    (2, 2, 2, 64, 16, 256), (1, 8, 1, 32, 16, 8, 8)]]
+
+
+@pytest.mark.parametrize("bc,h,g,q,p,n,splits", SSD_BWD_CASES)
+def test_ssd_scan_backward_kernel(dev, monkeypatch, bc, h, g, q, p, n,
+                                  splits):
+    """``ssd_scan`` on CUDA inputs that require grad: one forward and one
+    backward launch; every gradient within 1e-4 of its largest magnitude
+    (at least 1) of the plain version's autograd on the card (fp32 sums in
+    another order, ``chip_smoke.TOL``); a second backward equal bit for
+    bit; the plan's shared memory the library's."""
+    import ctypes
+
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.ssd_scan import kernel as kmod
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    if splits is not None:
+        real = kmod.bwd_plan
+        monkeypatch.setattr(kmod, "bwd_plan", lambda *a, **kw: real(
+            *a, **{**kw, "splits": splits}))
+    plan = kmod.bwd_plan(bc, h, g, q, p, n)
+    fn = load_library("ssd_scan_bwd").ssd_scan_bwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    assert fn(p, n, plan["hs"]) == plan["smem"]
+    gen = torch.Generator().manual_seed(q + n)
+    dt = torch.nn.functional.softplus(torch.randn(bc, h, 1, q, generator=gen))
+    a = -0.05 * torch.exp(0.2 * torch.randn(h, generator=gen))
+    cs = torch.cumsum(dt * a[None, :, None, None], dim=-1)
+    args = [t.to(dev) for t in (
+        torch.randn(bc, h, q, p, generator=gen),
+        0.3 * torch.randn(bc, g, q, n, generator=gen),
+        0.3 * torch.randn(bc, g, q, n, generator=gen), cs, dt)]
+    dy = torch.randn(bc, h, q, p, generator=gen).to(dev)
+    ds = torch.randn(bc, h, n, p, generator=gen).to(dev)
+    grads = []
+    for fn_ in (ssd_scan, ssd_scan_ref, ssd_scan):
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        reset_launch_counts()
+        y, s = fn_(*leaves)
+        torch.autograd.backward((y, s), (dy, ds))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if fn_ is ssd_scan:
+            assert counts["ssd_scan_f32"] == 1
+            assert counts["ssd_scan_bwd_f32"] == 1
+        else:
+            assert not any(counts.values())
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(grads[0], grads[1]):
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * max(want.abs().max().item(), 1.0), err
+    for a_, c in zip(grads[0], grads[2]):
+        assert torch.equal(a_, c)
+
+
 def test_stream_mllm_gradients_card_equals_cpu(dev):
     """The small stream MLLM's loss and gradients on a booth batch, on
     the card (the flash kernels), on the card with the plain attention
