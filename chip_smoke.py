@@ -197,6 +197,29 @@ Phases (any failure exits non-zero and prints no result line):
      MOONSHOT_TRAIN_DEPTH layers, int8 moments, 3 steps
      (``moonshot_train``: finite losses, aux > 0, peak under 80 GB); (d)
      jamba-smoke trained card == CPU as 18 (g) (``jamba_train``).
+ 20. the encoder-decoder and patch-frontend families (after 19): (a)
+     seamless-m4t-medium at full width and depth (``seamless_serve``):
+     one ``prefill(frames=...)`` of 4 requests' 1024 stub frames and
+     16-token prompts, 32 greedy decode steps; encode, prefill and
+     decode-step ms, peak memory, launches by step class (a prefill:
+     flash_attention once an encoder layer, a decoder layer and its cross
+     attention; a decode step: decode_attention twice a decoder layer);
+     (b) pixtral-12b at full width, all 40 layers, through the engine as
+     phase 9 (``pixtral_serve``), then one prefill of 1024 patch
+     embeddings at seeded positions in a 2048-token prompt and 12 decode
+     steps; peak under 80 GB; (c) card == CPU at full width, depth 2:
+     the CPU's greedy tokens fed to both, the card's logits no farther
+     from a float64 run of the model than ENCDEC_WITNESS times the CPU's
+     fp32 ones (seamless at 64 frames; at 1024 printed); (d) seamless
+     trained at full width and depth (batch 8 x 128, 512 frames a
+     sample) and pixtral at PIXTRAL_TRAIN_DEPTH layers with int8 moments
+     (64 patches a sample), 3 steps each (``seamless_train``,
+     ``pixtral_train``), then one step of each at depth 2 card == CPU as
+     18 (c) holds it.  Phase 2 and phase 18 (a) also hold the
+     rectangular flash kernels (``CROSS_SHAPES``: Sq queries against Sk
+     keys, no mask) to their plain versions and float64, and time the
+     seamless shapes beside SDPA; phase 2 times decode_attention at the
+     seamless cross decode (G 1, D 64, 1024 keys).
 
 Each phase that drives a plan zeroes the kernels' launch counts first and
 reads them after; a kernel of the plan that was never launched fails the
@@ -308,7 +331,8 @@ PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
          "chatglm3_train", "stream_pretrain", "q8_trained",
          "mllm_train_vs_cpu", "mllm_resume", "mamba2_train",
          "mamba2_train_vs_cpu", "moonshot_serve", "moonshot_train",
-         "jamba_train")
+         "jamba_train", "seamless_serve", "pixtral_serve", "seamless_train",
+         "pixtral_train")
 #: the volleyball stream's seed (Q10-Q13); TollBooth's is STREAM_SEED
 VOLLEYBALL_SEED = 3
 #: the semantic gate's threshold on the card (phase 15)
@@ -319,7 +343,7 @@ SLO_TARGET_MS = 100.0
 #: one; s_max and slots as a deployment of gemma2-2b on one card would
 SERVE_SLOTS, SERVE_S_MAX, SERVE_NEW = 4, 8192, 12
 LONG_PROMPT = {"gemma2-2b": 4200, "mamba2-130m": 512, "chatglm3-6b": 4200,
-               "moonshot-v1-16b-a3b": 4200}
+               "moonshot-v1-16b-a3b": 4200, "pixtral-12b": 4200}
 #: decode_attention's two shape classes (phase 2), the ticks the served
 #: paths give: the long request's slot (4200 prompt tokens and up to 12
 #: new) beside three short ones, and four short slots (the launcher's
@@ -656,6 +680,7 @@ def kernel_checks(dev):
     rows["flash_attention"] = {**shapes[140], **coalesced}
     rows["fused_prefix"] = prefix_checks(compare, frames)
     lm_kernel_checks(compare, gen, dev, rows)
+    cross_kernel_checks(compare, gen, dev, rows)
     magnitude_checks(gen, dev)
     rows.update(int8_checks(dev))
     t = rows["frame_diff"]
@@ -1060,6 +1085,93 @@ def lm_kernel_checks(compare, gen, dev, rows):
         flash_line(f"{which} B1 S{s} H{h}/{hk} D{d} causal", t, nbytes, ops)
         del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
+
+
+#: the rectangular flash kernel's shapes (Sq queries against Sk keys, no
+#: mask: cross attention), phase 2's forward and phase 18 (a)'s backward,
+#: label -> (B, Sq, Sk, H, Hk, D, options): seamless-m4t-medium's prefill
+#: cross attention (4 requests' 16-token prompts against 1024 frames) and
+#: its training micro-batch's (4 x 128 tokens against 512 frames), then a
+#: ragged, a capped and a shorter key side
+CROSS_SHAPES = {"seamless_prefill_cross": (4, 16, 1024, 16, 16, 64, {}),
+                "seamless_train_cross": (4, 128, 512, 16, 16, 64, {}),
+                "ragged": (2, 45, 130, 8, 4, 32, {}),
+                "capped": (2, 33, 257, 4, 2, 128, dict(cap=20.0)),
+                "sk_below_sq": (2, 200, 77, 8, 8, 64, {})}
+#: the timed ones (the kernels line's rows)
+CROSS_TIMED = ("seamless_prefill_cross", "seamless_train_cross")
+#: seamless-m4t-medium's cross attention at a decode step: 4 requests'
+#: one token against 1024 frames, 16 heads of 64 over 16 (G 1)
+CROSS_DECODE = (4, 1024, 16, 16, 64)
+
+
+def cross_kernel_checks(compare, gen, dev, rows):
+    """The rectangular flash kernel (``CROSS_SHAPES``, ``causal=False``)
+    against its plain version, with ``causal=True`` at Sq != Sk refused;
+    its times at ``CROSS_TIMED`` beside the plain version and SDPA (one
+    ``enable_gqa`` call, no mask); and decode_attention at the seamless
+    cross decode (``CROSS_DECODE``, kv_len the whole 1024 frames) timed.
+    Adds rows["flash_attention"][label] and
+    rows["decode_attention"]["seamless_cross_decode"]."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_plain
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    for label, (b, sq, sk, h, hk, d, kw) in CROSS_SHAPES.items():
+        q, k, v = randn(b, sq, h, d), randn(b, sk, hk, d), randn(b, sk, hk, d)
+        kw = dict(causal=False, **kw)
+        compare("flash_attention", flash_attention_cuda(q, k, v, **kw),
+                flash_attention_plain(q, k, v, **kw),
+                f"{label} B{b} Sq{sq} Sk{sk} H{h}/{hk} D{d}")
+        try:
+            flash_attention_cuda(q, k, v, causal=True)
+        except ValueError:
+            pass
+        else:
+            raise SmokeFailure(f"flash_attention {label}: causal at Sq {sq} "
+                               f"!= Sk {sk} was not refused")
+        if label not in CROSS_TIMED:
+            continue
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+        ops = 4 * d * sq * sk * h * b
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        t = dict(ms=device_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
+                 plain_ms=device_ms(lambda: flash_attention_plain(
+                     q, k, v, **kw), n=8),
+                 library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, enable_gqa=True)),
+                 bound=bound(nbytes, ops, FLASH_OPS_S))
+        rows["flash_attention"][label] = t
+        flash_line(f"{label} B{b} Sq{sq} Sk{sk} H{h}/{hk} D{d}", t, nbytes,
+                   ops)
+    b, s, h, hk, d = CROSS_DECODE
+    q, k, v = randn(b, 1, h, d), randn(b, s, hk, d), randn(b, s, hk, d)
+    kv_len = torch.full((b, 1), s, dtype=torch.int32, device=dev)
+    compare("decode_attention", decode_attention_cuda(q, k, v, kv_len),
+            decode_attention_plain(q, k, v, kv_len),
+            f"seamless cross B{b} S{s} H{h}/{hk} D{d} len {s}")
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel() + b)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    t = dict(ms=device_ms(lambda: decode_attention_cuda(q, k, v, kv_len)),
+             plain_ms=device_ms(lambda: decode_attention_plain(
+                 q, k, v, kv_len), n=8),
+             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                 qh, kh, vh, enable_gqa=True)),
+             bound=bound(nbytes, 4 * d * h * s * b), live_keys=s * b,
+             bytes=nbytes)
+    rows["decode_attention"]["seamless_cross_decode"] = t
+    print(f"  decode_attention seamless cross decode B{b} S{s} H{h}/{hk} "
+          f"D{d} (G 1: fp64 scores): kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, bound "
+          f"{t['bound'][0]:.5f} ms ({t['bound'][1]}, {nbytes} B)")
 
 
 def attention64(q, k, v, mask):
@@ -2726,7 +2838,9 @@ def flash64(q, k, v, causal=True, cap=None, window=None):
                                  causal=causal, cap=cap, window=window)
 
 
-def visible_pairs(s, causal=True, window=None):
+def visible_pairs(s, causal=True, window=None, sk=None):
+    if sk is not None and sk != s:     # rectangular: no mask
+        return s * sk
     qpos = torch.arange(s)[:, None]
     kpos = torch.arange(s)[None, :]
     mask = torch.ones(s, s, dtype=torch.bool)
@@ -2793,12 +2907,13 @@ def flash_bwd_check(label, q, k, v, dout, kw):
           f"{BWD_FLOOR:g} max|g|)")
 
 
-def bwd_timing(label, b, s, h, hk, d):
+def bwd_timing(label, b, s, h, hk, d, sk=None):
     """Device ms at one path shape: the backward alone (``autograd.grad``
     of a retained graph) and forward + backward, of the kernels, of the
     plain version's autograd and of SDPA's fp32 backward (one call with
     ``enable_gqa``, causal; timed only), with the backward's bound; and the
-    training forward (with its log-sum-exp) against its plain version."""
+    training forward (with its log-sum-exp) against its plain version.
+    With ``sk`` (cross attention): ``sk`` keys, bidirectional."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
@@ -2806,19 +2921,26 @@ def bwd_timing(label, b, s, h, hk, d):
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_lse_plain, flash_attention_plain)
 
+    causal = sk is None
+    sk = s if sk is None else sk
     gen = torch.Generator().manual_seed(b * s + d)
     q, k, v, dout = (torch.randn(shape, generator=gen).to("cuda") for shape
-                     in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d),
+                     in ((b, s, h, d), (b, sk, hk, d), (b, sk, hk, d),
                          (b, s, h, d)))
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)
+            is_causal=causal, enable_gqa=True).transpose(1, 2)
+
+    def kernels(q, k, v):
+        return flash_attention(q, k, v, causal=causal)
+
+    def plain(q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal)
 
     t = {}
-    for name, fn in (("ms", flash_attention), ("plain_ms",
-                                               flash_attention_plain),
+    for name, fn in (("ms", kernels), ("plain_ms", plain),
                      ("library_ms", sdpa)):
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
         out = fn(*leaves)
@@ -2838,10 +2960,11 @@ def bwd_timing(label, b, s, h, hk, d):
     out = sdpa(*leaves)
     t["library_expanded_ms"] = device_ms(lambda: torch.autograd.grad(
         out, leaves, dout, retain_graph=True), n=20)
-    pairs = b * h * visible_pairs(s)
+    pairs = b * h * visible_pairs(s, causal, sk=sk)
     nbytes = 4 * (4 * q.numel() + 4 * k.numel() + b * h * s)
     t["bound"] = bound(nbytes, 10 * d * pairs, FLASH_OPS_S)
-    print(f"  flash_attention_bwd {label} B{b} S{s} H{h}/{hk} D{d}: "
+    shape = f"S{s}" if causal else f"Sq{s} Sk{sk}"
+    print(f"  flash_attention_bwd {label} B{b} {shape} H{h}/{hk} D{d}: "
           f"backward kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
           f"SDPA {t['library_ms']:.4f} (on repeated kv heads "
           f"{t['library_expanded_ms']:.4f}), bound {t['bound'][0]:.5f} "
@@ -2849,8 +2972,10 @@ def bwd_timing(label, b, s, h, hk, d):
           f"plain {t['fwd_bwd_plain_ms']:.4f}, SDPA "
           f"{t['fwd_bwd_library_ms']:.4f}")
     fwd = dict(
-        ms=device_ms(lambda: flash_attention_cuda(q, k, v, lse=True)),
-        plain_ms=device_ms(lambda: flash_attention_lse_plain(q, k, v)),
+        ms=device_ms(lambda: flash_attention_cuda(q, k, v, lse=True,
+                                                  causal=causal)),
+        plain_ms=device_ms(lambda: flash_attention_lse_plain(
+            q, k, v, causal=causal)),
         library_ms=device_ms(lambda: sdpa(q, k, v)),
         library_expanded_ms=device_ms(lambda: sdpa(q, kx, vx)),
         bound=bound(4 * (2 * q.numel() + 2 * k.numel() + b * h * s),
@@ -2881,13 +3006,20 @@ def bwd_cases():
                                ("window 7", dict(causal=True, window=7)),
                                ("bidirectional window 9",
                                 dict(causal=False, window=9)))]
+    # the rectangular kernels (cross attention: Sq queries, Sk keys)
+    cases += [(f"cross {label}", (b, sq, sk, h, hk, d),
+               dict(causal=False, **kw))
+              for label, (b, sq, sk, h, hk, d, kw) in CROSS_SHAPES.items()]
     return cases
 
 
-def bwd_inputs(gen, dev, b, s, h, hk, d):
-    """q, k, v, dout of one backward case from the CPU generator ``gen``."""
+def bwd_inputs(gen, dev, b, s, *dims):
+    """q, k, v, dout of one backward case from the CPU generator ``gen``:
+    dims (H, Hk, D), or (Sk, H, Hk, D) with ``s`` queries against Sk
+    keys."""
+    sk, (h, hk, d) = (s, dims) if len(dims) == 3 else (dims[0], dims[1:])
     return [torch.randn(shape, generator=gen).to(dev) for shape in
-            ((b, s, h, d), (b, s, hk, d), (b, s, hk, d), (b, s, h, d))]
+            ((b, s, h, d), (b, sk, hk, d), (b, sk, hk, d), (b, s, h, d))]
 
 
 def bwd_tiles_match():
@@ -2924,14 +3056,19 @@ def flash_bwd_checks(dev, rows):
         q, k, v, dout = bwd_inputs(gen, dev, *shape)
         flash_bwd_check(f"{label} {kw}", q, k, v, dout, kw)
     bwd, lse = {}, {}
-    for label, shape in BWD_PATH.items():
-        bwd[label], lse[label] = bwd_timing(label, *shape)
+    timed = [(label, shape, None) for label, shape in BWD_PATH.items()]
+    timed += [(label, (b, sq, h, hk, d), sk) for label, (b, sq, sk, h, hk, d,
+                                                        _) in
+              CROSS_SHAPES.items() if label in CROSS_TIMED]
+    for label, shape, sk in timed:
+        bwd[label], lse[label] = bwd_timing(label, *shape, sk=sk)
         b, s, h, hk, d = shape
-        splits = bwd_plan(*shape, sms=sms)["splits"]
-        tiles = -(-s // bwd_tiles(d)["rows"])
+        sk = s if sk is None else sk
+        splits = bwd_plan(b, s, sk, h, hk, d, sms=sms)["splits"]
+        rows_ = bwd_tiles(d)["rows"]
         print(f"  flash_attention_bwd {label}: plan {splits} split(s) on "
-              f"{sms} SMs, {tiles * splits * hk * b} dK/dV and "
-              f"{tiles * h * b} dQ blocks")
+              f"{sms} SMs, {-(-sk // rows_) * splits * hk * b} dK/dV and "
+              f"{-(-s // rows_) * h * b} dQ blocks")
     top = "mllm_s140"
     rows["flash_attention_bwd"] = {**bwd[top], **{
         k: v for k, v in bwd.items() if k != top}}
@@ -3224,8 +3361,9 @@ def pretrain_phase(dev, q8_random_score):
     return {"stream_pretrain": counts, "q8_trained": q8_counts}, summary
 
 
-def train_vs_cpu(label, card, make, batches, witness_ctx, opt):
-    """The first CARD_CPU_STEPS AdamW steps (``opt``) of ``card`` (a model
+def train_vs_cpu(label, card, make, batches, witness_ctx, opt,
+                 steps=CARD_CPU_STEPS):
+    """The first ``steps`` AdamW steps (``opt``) of ``card`` (a model
     on the card whose ``loss(batch)`` trains it) on ``batches(t)`` (CPU
     tensors); before each, a CPU copy and a second card copy that runs
     ``witness_ctx``'s plain versions (``make(device)`` builds both) take
@@ -3254,8 +3392,8 @@ def train_vs_cpu(label, card, make, batches, witness_ctx, opt):
 
     params = dict(card.named_parameters())
     state = adamw_init(params, opt)
-    steps, counts = [], {}
-    for t in range(CARD_CPU_STEPS):
+    n_steps, steps, counts = steps, [], {}
+    for t in range(n_steps):
         batch = batches(t)
         state_dict = card.state_dict()
         witness.load_state_dict(state_dict)
@@ -3729,6 +3867,465 @@ def moe_phase(dev, smi):
     return counts, {"moonshot_serve": serving}, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the encoder-decoder and patch-frontend families
+# ---------------------------------------------------------------------------
+
+#: (a) seamless-m4t-medium served: 4 requests, each 1024 seeded stub frames
+#: (T_src, ~20 s of speech at the encoder's 20 ms stride) and a 16-token
+#: prompt, one prefill with the frames, then 32 greedy decode steps
+SEAMLESS_SERVE = dict(batch=4, t_src=1024, prompt=16, new=32)
+#: (b) pixtral-12b's patch prefill: the reference's N_PATCHES (1024) patch
+#: embeddings at seeded positions of a 2048-token prompt, 12 decode steps
+PIXTRAL_PATCHES = dict(prompt=2048, patches=1024, new=12)
+#: (c) card == CPU at full width, depth 2: the CPU's greedy tokens (the
+#: prefill's and 7 decode steps') fed to both devices; the inputs:
+#: seamless's 4 requests of 16-token prompts with SEAMLESS_CHECK_T frames,
+#: pixtral one prompt of 256 tokens with 64 patches.  Under the
+#: reference's init these models' attention scores have standard
+#: deviations of ~64 (seamless: q and k ~8 a component over 64 dims) to
+#: ~300 (pixtral), so fp32 rounding is amplified: on the CPU alone, one
+#: thread against eight moves the logits by up to 2.8e-3 (pixtral) and
+#: 5.2e-3 (seamless at 1024 frames), past phase 11's 1e-3 (LM_TOL).  So
+#: the logits are held to a float64 run of the same model on the CPU: the
+#: card's no farther than ENCDEC_WITNESS times the CPU fp32 run's (plus
+#: 1e-6 of the largest logit), as phase 2 holds the dense zoo's attention;
+#: the greedy tokens are compared and printed.  (a)'s 1024 frames are
+#: compared too, printed only
+ENCDEC_CHECK_TOKENS = 8
+SEAMLESS_CHECK_T = 64
+ENCDEC_WITNESS = 2.0
+PIXTRAL_CHECK = dict(prompt=256, patches=64)
+#: (d) training: seamless at full width and depth, batch 8 x 128 tokens
+#: with 512 frames a sample, in 2 micro-batches; pixtral at full width and
+#: PIXTRAL_TRAIN_DEPTH layers (40 do not fit: weights and gradients alone
+#: are 98 GB), int8 moments, 8 x 128 with 64 patches a sample; card == CPU
+#: on one step at depth 2 (batch 2 x 32, 64 frames or 8 patches)
+SEAMLESS_TRAIN = dict(batch=8, seq=128, t_src=512)
+PIXTRAL_TRAIN_DEPTH = 8
+PIXTRAL_TRAIN = dict(batch=8, seq=128, patches=64)
+ENCDEC_TRAIN_CHECK = dict(batch=2, seq=32, t_src=64, patches=8)
+
+
+def frontend_extra(cfg, t_src=0, patches=0, seq=0):
+    """``TokenStream``'s ``extra_fn`` for a model's stub frontend: seeded
+    frames (B, t_src, d), or patch embeddings (B, patches, d) (0.02 a
+    normal draw, as the reference's tests make them) at random positions
+    below ``seq`` (repeats included: they add up)."""
+    def extra(rs, b):
+        if cfg.encoder_decoder:
+            return {"frames": rs.standard_normal(
+                (b, t_src, cfg.d_model)).astype(np.float32)}
+        return {"patch_embeds": (0.02 * rs.standard_normal(
+                    (b, patches, cfg.d_model))).astype(np.float32),
+                "patch_pos": rs.randint(0, seq, (b, patches))}
+    return extra
+
+
+def greedy_steps(lm, prompt, n, feed=None, **inputs):
+    """``lm.prefill(prompt, **inputs)`` then ``n - 1`` decode steps on the
+    greedy tokens (or on ``feed``'s, (B, n), so that two devices run the
+    same steps): (tokens (B, n) on the CPU, each step's logits on the CPU,
+    each step's ms (the prefill first), the prefill's launch counts, the
+    decode steps' launch counts)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cuda = lm.device.type == "cuda"
+    b, p = prompt.shape
+    t_src = inputs["frames"].shape[1] if "frames" in inputs else 0
+    cache = lm.init_cache(b, p + n, t_src=t_src)
+    dev_inputs = {k: v.to(lm.device) for k, v in inputs.items()}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    sync()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    lg, cache = lm.prefill(prompt.to(lm.device), cache, **dev_inputs)
+    sync()
+    ms = [(time.perf_counter() - t0) * 1e3]
+    pre_counts = launch_counts()
+    logits, toks = [lg[:, 0].cpu()], [lg[:, 0].argmax(-1).cpu()]
+    reset_launch_counts()
+    for t in range(n - 1):
+        tok = toks[-1] if feed is None else feed[:, t]
+        t0 = time.perf_counter()
+        lg, cache = lm.decode(tok[:, None].to(lm.device), cache,
+                              torch.tensor(p + t))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg[:, 0].cpu())
+        toks.append(lg[:, 0].argmax(-1).cpu())
+    return (torch.stack(toks, 1), logits, ms, pre_counts, launch_counts())
+
+
+def seamless_inputs(cfg, batch, t_src, prompt, seed):
+    rs = np.random.RandomState(seed)
+    tokens = torch.from_numpy(rs.randint(2, cfg.vocab_size, (batch, prompt)))
+    frames = torch.from_numpy(rs.standard_normal(
+        (batch, t_src, cfg.d_model)).astype(np.float32))
+    return tokens, {"frames": frames}
+
+
+def pixtral_inputs(cfg, prompt, patches, seed):
+    """One prompt with ``patches`` patch embeddings at seeded, distinct
+    positions (an image's patches, one a position)."""
+    rs = np.random.RandomState(seed)
+    tokens = torch.from_numpy(rs.randint(2, cfg.vocab_size, (1, prompt)))
+    pos = np.sort(rs.choice(prompt, patches, replace=False))[None]
+    pe = (0.02 * rs.standard_normal((1, patches, cfg.d_model))).astype(
+        np.float32)
+    return tokens, {"patch_embeds": torch.from_numpy(pe),
+                    "patch_pos": torch.from_numpy(pos)}
+
+
+def seamless_serve(dev, smi):
+    """Phase 20 (a): seamless-m4t-medium at full width and depth, seeded
+    random weights drawn on the card: ``SEAMLESS_SERVE``'s requests through
+    one ``prefill(frames=...)`` and greedy decode steps (a short warm-up
+    run first).  The encoder's and decoder's kernels by step class: the
+    prefill launches flash_attention (the encoder's bidirectional layers,
+    the decoder's causal ones, its cross attention at Sq 16 against 1024
+    keys) once a layer each and no decode_attention; a decode step
+    launches decode_attention twice a decoder layer (self and cross) and
+    no flash_attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.kernel import \
+        MIN_KEYS_PER_SPLIT
+    from repro_torch.models.model import LM
+
+    cfg = get_config("seamless-m4t-medium")
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(20))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"  seamless-m4t-medium: {n_params / 1e9:.3f} G parameters (fp32, "
+          f"{4 * n_params / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; {cfg.n_encoder_layers} encoder "
+          f"+ {cfg.n_layers} decoder layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}")
+    a = SEAMLESS_SERVE
+    tokens, inputs = seamless_inputs(cfg, a["batch"], 64, a["prompt"], 19)
+    greedy_steps(lm, tokens, 3, **inputs)                  # warm-up
+    tokens, inputs = seamless_inputs(cfg, a["batch"], a["t_src"],
+                                     a["prompt"], 20)
+    frames = inputs["frames"].to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc = lm._encode(lm.tree(), frames)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(enc).all()) and enc.shape == frames.shape,
+          "seamless_serve: the encoder's output")
+    del enc
+    torch.cuda.reset_peak_memory_stats()
+    toks, logits, ms, pre, dec = greedy_steps(lm, tokens, a["new"] + 1,
+                                              frames=frames)
+    peak = torch.cuda.max_memory_allocated()
+    n_enc, n_dec, steps = cfg.n_encoder_layers, cfg.n_layers, a["new"]
+    check(all(bool(torch.isfinite(x).all()) for x in logits)
+          and toks.shape == (a["batch"], steps + 1)
+          and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()),
+          "seamless_serve: non-finite logits or tokens out of the vocab")
+    want = {("flash_attention_f32", "prefill"): n_enc + 2 * n_dec,
+            ("decode_attention_f32", "prefill"): 0,
+            ("flash_attention_f32", "decode"): 0,
+            ("decode_attention_f32", "decode"): 2 * n_dec * steps}
+    got = {(k, c): (pre if c == "prefill" else dec)[k] for k, c in want}
+    for key, n in want.items():
+        check(got[key] == n, f"seamless_serve: {key[0]} launched {got[key]} "
+              f"times in the {key[1]}, not {n}")
+    # a decode step's self attention holds prompt + step keys, its cross
+    # attention all 1024 frames: long where past one split
+    long_cross = a["t_src"] > MIN_KEYS_PER_SPLIT
+    long_self = a["prompt"] + steps > MIN_KEYS_PER_SPLIT
+    res = {"encode_ms": encode_ms, "prefill_ms": ms[0],
+           "decode_step_ms_median": statistics.median(ms[1:]),
+           "decode_step_ms_max": max(ms[1:]),
+           "decode_tokens_per_s": a["batch"] * steps / (sum(ms[1:]) / 1e3),
+           "peak_memory_gb": peak / 1e9, "parameters": n_params,
+           "launches_by_step_class": {"decode_attention": {
+               "long": n_dec * steps * (long_cross + long_self),
+               "short": n_dec * steps * (2 - long_cross - long_self)}},
+           "launches_prefill_decode": {f"{k} {c}": n for (k, c), n in
+                                       got.items()}}
+    print(f"  seamless_serve: {a['batch']} requests x {a['t_src']} frames + "
+          f"{a['prompt']}-token prompts: encode {encode_ms:.2f} ms, prefill "
+          f"(encode, cross K/V, the prompts) {ms[0]:.2f} ms, {steps} decode "
+          f"steps median {res['decode_step_ms_median']:.3f} ms (max "
+          f"{res['decode_step_ms_max']:.3f}), {res['decode_tokens_per_s']:.1f}"
+          f" decode tokens/s; peak {peak / 1e9:.2f} GB; {smi}")
+    print("  seamless_serve launches by step class: prefill "
+          f"flash_attention_f32 {got['flash_attention_f32', 'prefill']} "
+          f"({n_enc} encoder, {n_dec} causal, {n_dec} cross), "
+          f"decode_attention_f32 {got['decode_attention_f32', 'prefill']}; "
+          f"{steps} decode steps flash_attention_f32 "
+          f"{got['flash_attention_f32', 'decode']}, decode_attention_f32 "
+          f"{got['decode_attention_f32', 'decode']} ({n_dec} self + {n_dec} "
+          f"cross a step)")
+    print(f"  seamless_serve tokens (first 8 of each request): "
+          f"{toks[:, :8].tolist()}")
+    counts = {k: pre[k] + dec[k] for k in pre}
+    del lm
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def pixtral_serve(dev, smi):
+    """Phase 20 (b): pixtral-12b at full width and all 40 layers through
+    ``ServingEngine`` as phase 9 (``serve_phase``: the launcher's 8
+    requests plus one of 4200 tokens), then one ``LM.prefill`` of
+    ``PIXTRAL_PATCHES`` (patch embeddings at seeded positions) and greedy
+    decode steps; peak memory under 80 GB."""
+    serving, counts, lm, eng, _ = serve_phase(
+        "pixtral_serve", "pixtral-12b", dev,
+        per_prefill=["flash_attention"], per_decode=["decode_attention"])
+    del eng
+    torch.cuda.empty_cache()
+    b = PIXTRAL_PATCHES
+    tokens, inputs = pixtral_inputs(lm.cfg, b["prompt"], b["patches"], 20)
+    torch.cuda.reset_peak_memory_stats()
+    toks, logits, ms, pre, dec = greedy_steps(lm, tokens, b["new"] + 1,
+                                              **inputs)
+    peak = torch.cuda.max_memory_allocated()
+    n = lm.cfg.n_layers
+    check(all(bool(torch.isfinite(x).all()) for x in logits),
+          "pixtral_serve: non-finite logits after the patch prefill")
+    check(pre["flash_attention_f32"] == n and
+          dec["decode_attention_f32"] == n * b["new"],
+          f"pixtral_serve: the patch prefill launched flash_attention_f32 "
+          f"{pre['flash_attention_f32']} times, its decode steps "
+          f"decode_attention_f32 {dec['decode_attention_f32']}")
+    serving["patch_prefill_ms"] = ms[0]
+    serving["patch_decode_step_ms_median"] = statistics.median(ms[1:])
+    serving["patch_peak_memory_gb"] = peak / 1e9
+    print(f"  pixtral_serve patch prefill: {b['patches']} patch embeddings "
+          f"in a {b['prompt']}-token prompt {ms[0]:.1f} ms, {b['new']} decode"
+          f" steps median {serving['patch_decode_step_ms_median']:.3f} ms, "
+          f"peak {peak / 1e9:.2f} GB; tokens {toks[0].tolist()}; {smi}")
+    for gb in (serving["peak_memory_gb"], peak / 1e9):
+        check(gb < 80, f"pixtral_serve: peak {gb:.2f} GB")
+    for k in counts:
+        counts[k] += pre[k] + dec[k]
+    del lm
+    torch.cuda.empty_cache()
+    return serving, counts
+
+
+def f64_logits(lm64, tokens, fed, inputs):
+    """The float64 model's logits at the steps ``greedy_steps`` runs with
+    ``feed=fed``: one causal forward over the prompt and the fed tokens,
+    read at the prompt's last position and each fed one."""
+    p, n = tokens.shape[1], fed.shape[1]
+    full = torch.cat([tokens, fed[:, :n - 1]], dim=1)
+    on = {k: v.double() if v.is_floating_point() else v
+          for k, v in inputs.items()}
+    lg = lm64.logits_causal(full, **on)
+    return [lg[:, p - 1 + t] for t in range(n)]
+
+
+def vs_float64(card, cpu, cpu64, tokens, inputs):
+    """The CPU's greedy steps, the card's and the card's with the plain
+    attention on the CPU's tokens: each one's largest logit distance from
+    the float64 model's, the largest |logit|, and whether the card's
+    tokens are the CPU's."""
+    want, want_lg = greedy_steps(cpu, tokens, ENCDEC_CHECK_TOKENS,
+                                 **inputs)[:2]
+    got, got_lg = greedy_steps(card, tokens, ENCDEC_CHECK_TOKENS, feed=want,
+                               **inputs)[:2]
+    with plain_attention():
+        plain_lg = greedy_steps(card, tokens, ENCDEC_CHECK_TOKENS,
+                                feed=want, **inputs)[1]
+    exact = f64_logits(cpu64, tokens, want, inputs)
+    check(all(bool(torch.isfinite(x).all()) for x in got_lg),
+          "non-finite logits on the card")
+    dist = {name: max((x.double() - e).abs().max().item()
+                      for x, e in zip(lg, exact))
+            for name, lg in (("card", got_lg), ("plain", plain_lg),
+                             ("cpu", want_lg))}
+    dist["card_vs_cpu"] = max((x - w).abs().max().item()
+                              for x, w in zip(got_lg, want_lg))
+    dist["top"] = max(e.abs().max().item() for e in exact)
+    dist["same_tokens"] = torch.equal(got, want)
+    return dist, want
+
+
+def encdec_card_vs_cpu(dev):
+    """Phase 20 (c): seamless (2 encoder and 2 decoder layers) and pixtral
+    (2 layers) at full width, the same weights (drawn on the card, copied
+    to the CPU in fp32 and in float64) and inputs (frames, patches): the
+    CPU's greedy steps fed to the card; the card's logits no farther from
+    the float64 model's than ENCDEC_WITNESS times the CPU's fp32 logits
+    (plus 1e-6 of the largest); the greedy tokens compared; the card with
+    the attention kernels' plain versions printed beside."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    summary = {}
+    a = SEAMLESS_SERVE
+    for arch in ("seamless-m4t-medium", "pixtral-12b"):
+        cfg = get_config(arch).replace(n_layers=2)
+        runs = []
+        if cfg.encoder_decoder:
+            cfg = cfg.replace(n_encoder_layers=2)
+            for t_src in (SEAMLESS_CHECK_T, a["t_src"]):
+                runs.append((t_src == SEAMLESS_CHECK_T, f"{t_src} frames",
+                             *seamless_inputs(cfg, a["batch"], t_src,
+                                              a["prompt"], 22)))
+        else:
+            runs.append((True, f"{PIXTRAL_CHECK['patches']} patches in "
+                         f"{PIXTRAL_CHECK['prompt']} tokens",
+                         *pixtral_inputs(cfg, PIXTRAL_CHECK["prompt"],
+                                         PIXTRAL_CHECK["patches"], 22)))
+        card = LM(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(22))
+        cpu = LM(cfg, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        cpu64 = LM(cfg, device="cpu")
+        cpu64.load_state_dict(card.state_dict())
+        cpu64.double()
+        summary[arch] = {}
+        for gated, what, tokens, inputs in runs:
+            dist, want = vs_float64(card, cpu, cpu64, tokens, inputs)
+            bar = ENCDEC_WITNESS * dist["cpu"] + 1e-6 * dist["top"]
+            print(f"  {arch} depth 2 at full width, {what}"
+                  f"{'' if gated else ' (printed, not gated)'}: logits from "
+                  f"float64 (largest |logit| {dist['top']:.3f}): card "
+                  f"{dist['card']:.3e}, CPU fp32 {dist['cpu']:.3e} (gate "
+                  f"{ENCDEC_WITNESS:g}x + 1e-6 of the largest: {bar:.3e}), "
+                  f"the plain attention on the card {dist['plain']:.3e}; "
+                  f"card from CPU {dist['card_vs_cpu']:.3e}; greedy tokens "
+                  f"equal {dist['same_tokens']} ({want.tolist()})")
+            if gated:
+                check(dist["card"] <= bar, f"{arch} {what}: the card's "
+                      f"logits {dist['card']:.3e} from float64, the CPU's "
+                      f"{dist['cpu']:.3e}")
+            summary[arch][what] = dist
+        del card, cpu, cpu64
+        torch.cuda.empty_cache()
+    return summary
+
+
+def encdec_train(dev, smi, arch):
+    """Phase 20 (d): ``arch`` trained through ``Trainer`` at full width
+    (seamless at full depth, fp32 moments; pixtral at PIXTRAL_TRAIN_DEPTH
+    layers, int8 moments), 3 steps of 2 micro-batches on a ``TokenStream``
+    whose batches carry frames or patches (its ``extra_fn``): finite
+    losses, the forward-with-lse and backward launched once an attention
+    layer (encoder, decoder, cross) a micro-batch, peak under 80 GB; then
+    one step card == CPU at depth 2 (``train_vs_cpu``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import LM
+    from repro_torch.training import (OptimizerConfig, TokenStream,
+                                      TrainConfig, Trainer)
+
+    seamless = arch.startswith("seamless")
+    cfg = get_config(arch)
+    if seamless:
+        t = SEAMLESS_TRAIN
+        extra = frontend_extra(cfg, t_src=t["t_src"])
+        attn_layers = cfg.n_encoder_layers + 2 * cfg.n_layers
+    else:
+        t = PIXTRAL_TRAIN
+        cfg = cfg.replace(n_layers=PIXTRAL_TRAIN_DEPTH)
+        extra = frontend_extra(cfg, patches=t["patches"], seq=t["seq"])
+        attn_layers = cfg.n_layers
+    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(21))
+    data = TokenStream(cfg.vocab_size, t["batch"], t["seq"], seed=21,
+                       extra_fn=extra, device=dev)
+    trainer = Trainer(lm.loss, dict(lm.named_parameters()),
+                      OptimizerConfig(lr=1e-3, warmup_steps=5, total_steps=3,
+                                      quantized_state=not seamless),
+                      TrainConfig(steps=3, grad_accum=2, log_every=0), data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = trainer.train()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in lm.parameters())
+    what = (f"{cfg.n_encoder_layers} + {cfg.n_layers} layers, batch "
+            f"{t['batch']} x {t['seq']} with {t['t_src']} frames" if seamless
+            else f"{cfg.n_layers} layers, int8 moments, batch {t['batch']} x "
+            f"{t['seq']} with {t['patches']} patches a sample")
+    print(f"  {arch} trained at full width ({n_params / 1e9:.3f} G "
+          f"parameters), {what}, 2 micro-batches, 3 steps: losses "
+          f"{out['history']}, step s {out['step_times']}, peak "
+          f"{peak / 1e9:.2f} GB (max_memory_allocated); {smi}")
+    check(len(out["history"]) == 3 and
+          all(math.isfinite(x) for x in out["history"]),
+          f"{arch} training: losses {out['history']}")
+    check(peak < 80e9, f"{arch} training: peak {peak / 1e9:.2f} GB")
+    want = attn_layers * 2 * 3
+    for symbol in ("flash_attention_lse_f32", "flash_attention_bwd_f32"):
+        check(counts[symbol] == want, f"{arch} training: {symbol} launched "
+              f"{counts[symbol]} times, not {want}")
+    summary = {"n_layers": cfg.n_layers, "parameters": n_params,
+               "losses": out["history"], "step_s": out["step_times"],
+               "max_memory_allocated": peak}
+    del trainer, lm, data
+    torch.cuda.empty_cache()
+
+    # one step card == CPU at depth 2
+    c = ENCDEC_TRAIN_CHECK
+    small = get_config(arch).replace(n_layers=2)
+    if seamless:
+        small = small.replace(n_encoder_layers=2)
+    stream = TokenStream(small.vocab_size, c["batch"], c["seq"], seed=23,
+                         extra_fn=frontend_extra(small, t_src=c["t_src"],
+                                                 patches=c["patches"],
+                                                 seq=c["seq"]),
+                         device="cpu")
+    batch = stream.next_batch()
+    card = LM(small, device=dev).init(
+        torch.Generator(device=dev).manual_seed(23))
+    more, summary["card_vs_cpu"] = train_vs_cpu(
+        f"{arch} depth 2", card, lambda device: LM(small, device=device),
+        lambda _: batch, plain_attention, _lm_train_opt(), steps=1)
+    n = (small.n_encoder_layers + 2 * small.n_layers) if seamless \
+        else small.n_layers
+    for symbol in ("flash_attention_lse_f32", "flash_attention_bwd_f32"):
+        check(more[symbol] == n, f"{arch} depth 2 card vs CPU: {symbol} "
+              f"launched {more[symbol]} times, not {n}")
+    for k, v in more.items():
+        counts[k] = counts.get(k, 0) + v
+    del card
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def encdec_phase(dev, smi):
+    """Phase 20: (a) seamless-m4t-medium served, (b) pixtral-12b served,
+    (c) card == CPU at depth 2, (d) both trained.  Returns the launch
+    counts by path, the serving numbers and a summary."""
+    t20 = time.perf_counter()
+    counts, summary, serving = {}, {}, {}
+    print("[20a] seamless-m4t-medium, full width and depth: prefill with "
+          "frames, greedy decode")
+    serving["seamless_serve"], counts["seamless_serve"] = \
+        seamless_serve(dev, smi)
+    print(f"[20b] pixtral-12b, full width, 40 layers, through ServingEngine"
+          f"(max_slots={SERVE_SLOTS}, s_max={SERVE_S_MAX}), then a patch "
+          "prefill")
+    serving["pixtral_serve"], counts["pixtral_serve"] = \
+        pixtral_serve(dev, smi)
+    print("[20c] card vs CPU: seamless and pixtral at full width, depth 2")
+    summary["card_vs_cpu"] = encdec_card_vs_cpu(dev)
+    print("[20d] seamless trained at full width and depth; pixtral at full "
+          f"width, {PIXTRAL_TRAIN_DEPTH} layers; card vs CPU at depth 2")
+    for path, arch in (("seamless_train", "seamless-m4t-medium"),
+                       ("pixtral_train", "pixtral-12b")):
+        counts[path], summary[path] = encdec_train(dev, smi, arch)
+    summary["seconds"] = time.perf_counter() - t20
+    print(f"[20] {summary['seconds']:.1f} s; {smi}")
+    return counts, serving, summary
+
+
 def training_phase(dev, rows, q8_random_score, smi):
     """Phase 18: (a) the flash_attention backward, (f) the ssd_scan
     backward, (g) mamba2-130m's training steps at full width and card ==
@@ -3914,6 +4511,12 @@ def main() -> int:
         moe_counts, moe_serving, moe_summary = moe_phase(dev, smi)
         counts.update(moe_counts)
         serving.update(moe_serving)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print("[20] the encoder-decoder and patch-frontend families")
+        encdec_counts, encdec_serving, encdec_summary = encdec_phase(dev, smi)
+        counts.update(encdec_counts)
+        serving.update(encdec_serving)
     except (SmokeFailure, RuntimeError, ValueError, KeyError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
@@ -3964,10 +4567,12 @@ def main() -> int:
         "new_tokens": SERVE_NEW}}))
     print(json.dumps({"training": train_summary}, default=str))
     print(json.dumps({"moe": moe_summary}, default=str))
+    print(json.dumps({"encdec": encdec_summary}, default=str))
     print(f"[total] {time.perf_counter() - t_start:.1f} s (phase 17 "
           f"{serve_summary['seconds']:.1f} s, phase 18 "
           f"{train_summary['seconds']:.1f} s, phase 19 "
-          f"{moe_summary['seconds']:.1f} s)")
+          f"{moe_summary['seconds']:.1f} s, phase 20 "
+          f"{encdec_summary['seconds']:.1f} s)")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,12 +18,15 @@ device time there (``chip_smoke.device_ms``): the backward alone
 the forward's output (the serving entry point, and the training one with
 its log-sum-exp) at every ``BWD_PATH`` shape and at phase 2's timed
 prefill shapes (the stream MLLM's B16 S140/76/28 and the server's B32/B64
-buckets, gemma2's, chatglm3's and phi3's prefill of 8192), and keeps
-ptxas' registers and spills for the forward's functions: the script prints
-whether every run of every tree gave the same bits and the same report,
-and exits non-zero if not.  SDPA's fp32 backward is timed once (the first
-run of this tree), in one ``enable_gqa`` call and on kv heads repeated
-before the timing.
+buckets, gemma2's, chatglm3's and phi3's prefill of 8192): the script
+prints whether every run of every tree gave the same bits, and exits
+non-zero if not.  It prints ptxas' registers and spills for the forward's
+functions (by name and template, whatever their parameter lists) beside
+the other trees' where they differ, and the backward's of each tree.  SDPA's fp32 backward is timed once (the first run of
+this tree), in one ``enable_gqa`` call and on kv heads repeated before the
+timing.  This tree's runs also time the rectangular kernels (cross
+attention, Sq queries against Sk keys, ``chip_smoke.CROSS_TIMED``), which
+an older tree may not have, beside SDPA's.
 
 ``--variants`` builds this tree's backward with other counts of split
 terms for P^T.dO, dS^T.Q and dS.K (``-DBWD_PDO_TERMS`` etc.: 3 or 6) into
@@ -84,6 +87,9 @@ def _ptxas(log: str) -> dict:
             # source file: drop it, so trees compare by function
             name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "_GLOBAL__N_",
                           m.group(1))
+            # and its parameter list, so that a kernel that gained an
+            # argument compares by name and template
+            name = re.sub(r"(EE+)v.*$", r"\1", name)
             out[name] = []
         elif name and re.search(r"registers|spill", ln):
             out[name].append(re.sub(r"^.*?: *", "", ln.strip()))
@@ -126,6 +132,42 @@ def _bwd_ms(cs, fn, q, k, v, dout):
     return bwd, cs.device_ms(both, n=10)
 
 
+def _cross_times(cs, out, sdpa: bool) -> None:
+    """This tree's rectangular backward (``causal=False``) at
+    ``CROSS_TIMED``, checked against the plain autograd first; SDPA's fp32
+    backward beside it where ``sdpa``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    def kernels(q, k, v):
+        return flash_attention(q, k, v, causal=False)
+
+    def plain(q, k, v):
+        return flash_attention_plain(q, k, v, causal=False)
+
+    def one_call(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True).transpose(1, 2)
+
+    for label in cs.CROSS_TIMED:
+        b, sq, sk, h, hk, d, _ = cs.CROSS_SHAPES[label]
+        gen = torch.Generator().manual_seed(b * sq + d)
+        q, k, v, dout = cs.bwd_inputs(gen, "cuda", b, sq, sk, h, hk, d)
+        err = _grad_err(kernels, plain, q, k, v, dout)
+        if err > cs.TOL["flash_attention_bwd"]:
+            raise SystemExit(f"flash_attention_bwd {label} off by "
+                             f"{err:.3e} of the largest gradient")
+        bwd, both = _bwd_ms(cs, kernels, q, k, v, dout)
+        out["cross"][label] = {"bwd": bwd, "fwd_bwd": both, "err": err}
+        if sdpa:
+            out["cross"][label]["sdpa"], out["cross"][label][
+                "sdpa_fwd_bwd"] = _bwd_ms(cs, one_call, q, k, v, dout)
+
+
 def worker(tree: str, sdpa: bool) -> dict:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs       # puts this tree's src first on the path
@@ -141,7 +183,7 @@ def worker(tree: str, sdpa: bool) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     report = build(["flash_attention", "flash_attention_bwd"], force=True)
     dev = torch.device("cuda")
-    out = {"times": {}, "digests": {},
+    out = {"times": {}, "digests": {}, "cross": {},
            "ptxas": _ptxas(str(report["flash_attention"]["log"])),
            "ptxas_bwd": _ptxas(str(report["flash_attention_bwd"]["log"]))}
 
@@ -182,6 +224,8 @@ def worker(tree: str, sdpa: bool) -> dict:
         digests(label, q, k, v, kw)
         del q, k, v
         torch.cuda.empty_cache()
+    if os.path.samefile(tree, ROOT):
+        _cross_times(cs, out, sdpa)
     return out
 
 
@@ -225,8 +269,22 @@ def compare(trees) -> int:
             continue
         for shape in this[0]["times"]:
             ratio = best[".", shape] / best[label, shape]
-            print(f"{shape}: this tree / {label} = {ratio:.3f} (the better "
-                  f"turn of each)")
+            both = min(r["times"][shape]["fwd_bwd"] for r in this) / min(
+                r["times"][shape]["fwd_bwd"] for r in results[label])
+            print(f"{shape}: this tree / {label} = {ratio:.3f} backward, "
+                  f"{both:.3f} forward + backward (the better turn of each)")
+    cross_sdpa = next(r["cross"] for r in this if any(
+        "sdpa" in c for c in r["cross"].values()))
+    for shape in this[0]["cross"]:
+        t = [r["cross"][shape] for r in this]
+        c = cross_sdpa[shape]
+        print(f"{shape} (this tree, causal=False): backward "
+              + ", ".join("%.4f" % x["bwd"] for x in t)
+              + "; forward + backward "
+              + ", ".join("%.4f" % x["fwd_bwd"] for x in t)
+              + f" (err {t[0]['err']:.2e}); SDPA fp32 one enable_gqa call: "
+              f"backward {c['sdpa']:.4f}, forward + backward "
+              f"{c['sdpa_fwd_bwd']:.4f}")
     print(f"chatglm3_b8_s64: this tree {best['.', 'chatglm3_b8_s64']:.4f} "
           f"ms against SDPA on repeated kv heads "
           f"{sdpa['chatglm3_b8_s64']['sdpa_repeated']:.4f}")
@@ -241,9 +299,9 @@ def compare(trees) -> int:
               f"tree, bit for bit (sha256): {eq}")
     same = all(r["ptxas"] == ref["ptxas"] for rs in results.values()
                for r in rs)
-    ok &= same
     print(f"forward's ptxas registers and spills equal in every tree: "
-          f"{same}")
+          f"{same} (printed, not gated: a kernel that gained an argument "
+          f"allocates anew)")
     for fn, lines in sorted(ref["ptxas"].items()):
         others = {label: rs[0]["ptxas"].get(fn) for label, rs in
                   results.items() if label != "."}
@@ -254,8 +312,8 @@ def compare(trees) -> int:
         print(f"backward's ptxas, {label}:")
         for fn, lines in sorted(rs[0]["ptxas_bwd"].items()):
             print(f"  {fn}: {'; '.join(lines)}")
-    print(json.dumps({k: [r["times"] for r in v] for k, v in
-                      results.items()}))
+    print(json.dumps({k: [{**r["times"], **r["cross"]} for r in v]
+                      for k, v in results.items()}))
     return 0 if ok else 1
 
 

@@ -3,7 +3,8 @@
 Counterpart of ``repro/common/config.py``.  ``ArchConfig``,
 ``AttentionConfig``, ``MoEConfig``, ``SSMConfig`` and ``BlockSpecEntry``
 are ported with the fields the stream MLLM and the LMs (dense attention,
-Mamba2 and MoE stacks) use.  The shape cells wait for the slice that runs
+Mamba2 and MoE stacks, an encoder with cross attention, stub frontends)
+use.  The shape cells wait for the slice that runs
 them.
 
 Block kind strings are ``"<mixer>+<mlp>"``:
@@ -66,13 +67,14 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     block_pattern: Tuple[str, ...] = ("attn+dense",)
+    n_encoder_layers: int = 0
     encoder_decoder: bool = False
     norm: str = "rmsnorm"            # rmsnorm | layernorm
     post_block_norm: bool = False    # sandwich norms (gemma2)
     embed_scale: bool = False        # embeddings scaled by sqrt(d_model)
     final_softcap: Optional[float] = None
     tie_embeddings: bool = True
-    frontend: Optional[str] = None   # "patch" for the stream MLLM
+    frontend: Optional[str] = None   # "patch" | "audio": stub embeddings
     mlp_gated: bool = True
     remat: bool = True
     notes: str = ""

@@ -3,11 +3,10 @@
 
 Counterpart of ``repro/configs/__init__.py`` over the archs the port serves
 and trains (gemma2-2b, mamba2-130m, the dense zoo: chatglm3-6b, glm4-9b,
-phi3-mini-3.8b, and the MoE family: moonshot-v1-16b-a3b,
-qwen3-moe-235b-a22b, jamba-1.5-large-398b) and the two stream MLLM
-backbones.  An arch of the
-reference's registry that the port does not run yet raises a ``KeyError``
-that names the slice it waits for.
+phi3-mini-3.8b, the MoE family: moonshot-v1-16b-a3b,
+qwen3-moe-235b-a22b, jamba-1.5-large-398b, the encoder-decoder
+seamless-m4t-medium and the patch-frontend pixtral-12b) and the two stream
+MLLM backbones.  An unknown name raises a ``KeyError``.
 """
 from __future__ import annotations
 
@@ -17,7 +16,8 @@ from repro_torch.common.config import ArchConfig
 from repro_torch.configs import (chatglm3_6b, gemma2_2b, glm4_9b,
                                  jamba_1_5_large_398b, mamba2_130m,
                                  moonshot_v1_16b_a3b, phi3_mini_3_8b,
-                                 qwen3_moe_235b_a22b, samsara_stream)
+                                 pixtral_12b, qwen3_moe_235b_a22b,
+                                 samsara_stream, seamless_m4t_medium)
 
 REGISTRY: Dict[str, ArchConfig] = {
     c.name: c for c in (
@@ -29,6 +29,8 @@ REGISTRY: Dict[str, ArchConfig] = {
         moonshot_v1_16b_a3b.CONFIG,
         qwen3_moe_235b_a22b.CONFIG,
         jamba_1_5_large_398b.CONFIG,
+        seamless_m4t_medium.CONFIG,
+        pixtral_12b.CONFIG,
         samsara_stream.STREAM_MLLM_CONFIG,
         samsara_stream.STREAM_MLLM_SMALL_CONFIG,
     )
@@ -43,22 +45,14 @@ _SMOKE: Dict[str, Callable[[], ArchConfig]] = {
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.smoke,
     "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b.smoke,
     "jamba-1.5-large-398b": jamba_1_5_large_398b.smoke,
+    "seamless-m4t-medium": seamless_m4t_medium.smoke,
+    "pixtral-12b": pixtral_12b.smoke,
     "samsara-stream-mllm": samsara_stream.smoke,
     "samsara-stream-mllm-small": samsara_stream.smoke,
 }
 
-#: archs of the reference's registry the port does not run yet -> the
-#: slice that ports what they need
-NOT_PORTED = {
-    "seamless-m4t-medium": "the encoder-decoder slice",
-    "pixtral-12b": "the patch-frontend slice",
-}
-
 
 def _lookup(name: str) -> None:
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet: it waits for "
-                       f"{NOT_PORTED[name]}; the port runs {sorted(REGISTRY)}")
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(REGISTRY)}")
 

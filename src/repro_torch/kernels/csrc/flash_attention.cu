@@ -7,8 +7,13 @@
 // full_attention via attend_prefill); the port's MLLM and the served LMs'
 // prefill call this kernel.
 //
-// Layout: the model's own, q/o (B, S, H, D) and k/v (B, S, Hk, D), all
+// Layout: the model's own, q/o (B, Sq, H, D) and k/v (B, Sk, Hk, D), all
 // contiguous.  GQA puts G = H/Hk consecutive query heads on one kv head.
+// Sq and Sk differ only without a positional mask (causal 0, no window):
+// cross attention, Sq decoder tokens against the Sk frames of an
+// encoder's output (the wrapper refuses the rest).  The key loop runs to
+// Sk and masks the last tile's tail at Sk; the query tiles, the output
+// and lse are Sq rows.  At Sq == Sk the code is the square kernel's.
 //
 // Bound on an H100: 4*D fp32 operations per visible (query, key) pair
 // (Q.K^T and P.V) and 4 bytes per element of q, k, v and o.  The least
@@ -80,9 +85,9 @@
 // 256) exceeds the 48 KB default, and the launch raises the kernel's
 // limit first.  Key tiles wholly above the causal diagonal or below the
 // window are never loaded, and a warp skips the products of a tile none
-// of its rows sees; ragged edges (any S) are masked in the kernel, never
-// padded: rows past S and keys past S load zeros and are masked out of
-// the softmax.
+// of its rows sees; ragged edges (any Sq, Sk) are masked in the kernel,
+// never padded: rows past Sq and keys past Sk load zeros and are masked
+// out of the softmax.
 //
 // Two entry points run this kernel: flash_attention_f32 (serving, no
 // log-sum-exp) and flash_attention_lse_f32 (training), which also writes
@@ -123,17 +128,17 @@ struct Cfg {
                        (size_t)(VREST ? 2 : 3) * BK * LV);
 };
 
-// keys k0 .. k0+BK-1 of kv head hk into s (zeros past S)
+// keys k0 .. k0+BK-1 of kv head hk into s (zeros past Sk)
 template <int D, int LD>
 __device__ __forceinline__ void load_keys(float* s, const float* src, int b,
-                                          int S, int Hk, int hk, int k0,
+                                          int Sk, int Hk, int hk, int k0,
                                           bool vec) {
   const int w = vec ? 4 : 1, per_row = D / w;
   for (int e = threadIdx.x; e < Cfg<D>::BK * per_row; e += kThreads) {
     const int j = e / per_row, c = (e % per_row) * w, pos = k0 + j;
-    const bool ok = pos < S;
+    const bool ok = pos < Sk;
     cp_async(s + j * LD + c,
-             ok ? src + (((size_t)b * S + pos) * Hk + hk) * D + c : src, ok,
+             ok ? src + (((size_t)b * Sk + pos) * Hk + hk) * D + c : src, ok,
              vec);
   }
 }
@@ -174,7 +179,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, Cfg<D>::MINB)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int S,
+                 float* __restrict__ lse, int Sq, int Sk,
                  int H, int Hk, int G, int BQ, int causal, float cap,
                  int window, float scale, bool vec) {
   using C = Cfg<D>;
@@ -200,18 +205,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = threadIdx.x; e < kRows * per_row; e += kThreads) {
       const int r = e / per_row, c = (e % per_row) * w;
       const int pos = q0 + r % BQ;
-      const bool ok = r < R && pos < S;
+      const bool ok = r < R && pos < Sq;
       cp_async(q_s + r * LQ + c,
-               ok ? q + (((size_t)b * S + pos) * H + hk * G + r / BQ) * D + c
+               ok ? q + (((size_t)b * Sq + pos) * H + hk * G + r / BQ) * D + c
                   : q,
                ok, vec);
     }
   }
   // keys any row of this tile can see
-  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int kend = causal ? min(Sk, q0 + BQ) : Sk;
   int kbeg = window > 0 ? max(0, q0 - window + 1) : 0;
   kbeg -= kbeg % BK;
-  load_keys<D, LQ>(k_s, k, b, S, Hk, hk, kbeg, vec);
+  load_keys<D, LQ>(k_s, k, b, Sk, Hk, hk, kbeg, vec);
   cp_commit();
 
   // this thread's two rows (fragment rows gq and gq+8 of the warp's 16)
@@ -222,7 +227,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + gq + 8 * i;
     qpos[i] = q0 + r % BQ;
-    live[i] = r < R && qpos[i] < S;
+    live[i] = r < R && qpos[i] < Sq;
     if (live[i]) {
       lo_pos = min(lo_pos, qpos[i]);
       hi_pos = max(hi_pos, qpos[i]);
@@ -243,7 +248,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    load_keys<D, LV>(v_s, v, b, S, Hk, hk, k0, vec);
+    load_keys<D, LV>(v_s, v, b, Sk, Hk, hk, k0, vec);
     cp_commit();
     cp_wait<1>();  // Q and K(k0) have landed
     __syncthreads();
@@ -299,7 +304,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const int i = e >> 1, kpos = k0 + nt * 8 + 2 * tq + (e & 1);
           float x = (s[nt][e] + sx[nt][e]) * scale;
           if (cap > 0.0f) x = cap * tanhf(x / cap);
-          const bool vis = live[i] && kpos < S &&
+          const bool vis = live[i] && kpos < Sk &&
                            (!causal || kpos <= qpos[i]) &&
                            (window <= 0 || kpos > qpos[i] - window);
           s[nt][e] = vis ? x : -INFINITY;
@@ -334,7 +339,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rsum[i];
     }
     __syncthreads();  // every warp is done with K(k0)
-    if (k0 + BK < kend) load_keys<D, LQ>(k_s, k, b, S, Hk, hk, k0 + BK, vec);
+    if (k0 + BK < kend) load_keys<D, LQ>(k_s, k, b, Sk, Hk, hk, k0 + BK, vec);
     cp_commit();
     cp_wait<1>();  // V(k0) has landed
     __syncthreads();
@@ -404,9 +409,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // the row's log-sum-exp, in the scaled (and capped) logit domain, for
     // the backward (every live row sees at least its own key: m is finite)
     if (lse != nullptr && tq == 0)
-      lse[((size_t)b * H + hk * G + r / BQ) * S + qpos[i]] = m[i] + logf(l[i]);
+      lse[((size_t)b * H + hk * G + r / BQ) * Sq + qpos[i]] = m[i] + logf(l[i]);
     float* orow =
-        o + (((size_t)b * S + qpos[i]) * H + hk * G + r / BQ) * D + 2 * tq;
+        o + (((size_t)b * Sq + qpos[i]) * H + hk * G + r / BQ) * D + 2 * tq;
 #pragma unroll
     for (int dt = 0; dt < DK; ++dt)
       *reinterpret_cast<float2*>(orow + dt * 8) =
@@ -416,8 +421,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
-           float* lse, int B, int S, int H, int Hk, int causal, float cap,
-           int window, cudaStream_t stream) {
+           float* lse, int B, int Sq, int Sk, int H, int Hk, int causal,
+           float cap, int window, cudaStream_t stream) {
   const int G = H / Hk;
   const int BQ = kRows / G;
   const size_t smem = Cfg<D>::smem;
@@ -428,21 +433,23 @@ int launch(const float* q, const float* k, const float* v, float* o,
     if (err != cudaSuccess) return (int)err;
   }
   const bool vec = (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15u) == 0;
-  const dim3 grid((S + BQ - 1) / BQ, Hk, B);
+  const dim3 grid((Sq + BQ - 1) / BQ, Hk, B);
   const float scale = (float)(1.0 / sqrt((double)D));
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, lse, S, H, Hk, G, BQ, causal, cap, window, scale, vec);
+      q, k, v, o, lse, Sq, Sk, H, Hk, G, BQ, causal, cap, window, scale,
+      vec);
   return (int)cudaGetLastError();
 }
 
-// q/o (B, S, H, D), k/v (B, S, Hk, D) float32 contiguous; lse (B, H, S)
-// float32, or null for no log-sum-exp.  cap <= 0 means no soft-cap,
-// window <= 0 no sliding window.
+// q/o (B, Sq, H, D), k/v (B, Sk, Hk, D) float32 contiguous; lse (B, H,
+// Sq) float32, or null for no log-sum-exp.  cap <= 0 means no soft-cap,
+// window <= 0 no sliding window; Sq != Sk takes neither a causal mask nor
+// a window.
 int flash_forward(const void* q, const void* k, const void* v, void* o,
-                  void* lse, int B, int S, int H, int Hk, int D, int causal,
-                  float cap, int window, void* stream) {
-  if (B <= 0 || S <= 0 || Hk <= 0 || H % Hk || H / Hk > kRows || B > 65535 ||
-      Hk > 65535)
+                  void* lse, int B, int Sq, int Sk, int H, int Hk, int D,
+                  int causal, float cap, int window, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hk <= 0 || H % Hk || H / Hk > kRows ||
+      B > 65535 || Hk > 65535 || (Sq != Sk && (causal || window > 0)))
     return (int)cudaErrorInvalidValue;
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;
@@ -451,12 +458,12 @@ int flash_forward(const void* q, const void* k, const void* v, void* o,
   float* lf = (float*)lse;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 16: return launch<16>(qf, kf, vf, of, lf, B, S, H, Hk, causal, cap, window, st);
-    case 32: return launch<32>(qf, kf, vf, of, lf, B, S, H, Hk, causal, cap, window, st);
-    case 64: return launch<64>(qf, kf, vf, of, lf, B, S, H, Hk, causal, cap, window, st);
-    case 96: return launch<96>(qf, kf, vf, of, lf, B, S, H, Hk, causal, cap, window, st);
-    case 128: return launch<128>(qf, kf, vf, of, lf, B, S, H, Hk, causal, cap, window, st);
-    case 256: return launch<256>(qf, kf, vf, of, lf, B, S, H, Hk, causal, cap, window, st);
+    case 16: return launch<16>(qf, kf, vf, of, lf, B, Sq, Sk, H, Hk, causal, cap, window, st);
+    case 32: return launch<32>(qf, kf, vf, of, lf, B, Sq, Sk, H, Hk, causal, cap, window, st);
+    case 64: return launch<64>(qf, kf, vf, of, lf, B, Sq, Sk, H, Hk, causal, cap, window, st);
+    case 96: return launch<96>(qf, kf, vf, of, lf, B, Sq, Sk, H, Hk, causal, cap, window, st);
+    case 128: return launch<128>(qf, kf, vf, of, lf, B, Sq, Sk, H, Hk, causal, cap, window, st);
+    case 256: return launch<256>(qf, kf, vf, of, lf, B, Sq, Sk, H, Hk, causal, cap, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -465,20 +472,20 @@ int flash_forward(const void* q, const void* k, const void* v, void* o,
 
 // The serving forward: no log-sum-exp.
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int B, int S,
-                                   int H, int Hk, int D, int causal,
+                                   const void* v, void* o, int B, int Sq,
+                                   int Sk, int H, int Hk, int D, int causal,
                                    float cap, int window, void* stream) {
-  return flash_forward(q, k, v, o, nullptr, B, S, H, Hk, D, causal, cap,
+  return flash_forward(q, k, v, o, nullptr, B, Sq, Sk, H, Hk, D, causal, cap,
                        window, stream);
 }
 
-// The training forward: o and each row's log-sum-exp, lse (B, H, S), which
+// The training forward: o and each row's log-sum-exp, lse (B, H, Sq), which
 // flash_attention_bwd_f32 (flash_attention_bwd.cu) reads.
 extern "C" int flash_attention_lse_f32(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
-                                       int B, int S, int H, int Hk, int D,
-                                       int causal, float cap, int window,
-                                       void* stream) {
-  return flash_forward(q, k, v, o, lse, B, S, H, Hk, D, causal, cap, window,
-                       stream);
+                                       int B, int Sq, int Sk, int H, int Hk,
+                                       int D, int causal, float cap,
+                                       int window, void* stream) {
+  return flash_forward(q, k, v, o, lse, B, Sq, Sk, H, Hk, D, causal, cap,
+                       window, stream);
 }

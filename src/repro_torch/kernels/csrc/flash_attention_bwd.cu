@@ -24,6 +24,12 @@
 //   dV_j = sum_i P_ij dO_i;  dK_j = scale sum_i dS_ij q_i;
 //   dQ_i = scale sum_j dS_ij k_j.
 // dK and dV sum over the queries of all G heads of the group.
+// The queries and keys may be of different lengths, Sq and Sk, where no
+// positional mask applies (causal 0, no window: cross attention to an
+// encoder's output): the dK/dV blocks tile the Sk keys and walk the Sq
+// queries, the dQ blocks tile the Sq queries and walk the Sk keys, delta
+// covers the Sq rows and the splits' scratch the Sk keys.  At Sq == Sk the
+// code is the square kernel's.
 //
 // Bound on an H100: 10 D fp32 operations per visible (query, key) pair
 // (Q.K^T recomputed, dO.V^T, dV, dK, dQ: five products of 2 D) and 4 bytes
@@ -47,7 +53,7 @@
 // Design: three launches on the caller's stream, every sum in a fixed order
 // (no atomics), so a launch repeats the last one bit for bit.
 //  1. flash_bwd_delta: delta_i = dO_i.o_i, a few lanes a (row, head) with
-//     16-byte loads, into a (B, H, S) scratch the wrapper allocates.
+//     16-byte loads, into a (B, H, Sq) scratch the wrapper allocates.
 //  2. flash_bwd_main: the dK/dV blocks, then the dQ blocks, in one grid
 //     (a dQ block starts as soon as the card has room, beside the dK/dV
 //     blocks' tails).  A dK/dV block owns a tile of R = 32 keys (16 at D
@@ -80,7 +86,7 @@
 //     column groups' totals are added in group order through shared
 //     memory.  With one split the total is dK (times the scale) and dV;
 //     with more, each split's total goes to an fp32 scratch (2, splits, B,
-//     S, Hk, D) that the wrapper allocates.  A dQ block owns a tile of R
+//     Sk, Hk, D) that the wrapper allocates.  A dQ block owns a tile of R
 //     queries of one head in the same warp layout (its column groups share
 //     out the key tile), loops over the key tiles the forward visits for
 //     those rows (flash_attention.cu's range), recomputes S = Q.K^T and dP
@@ -113,8 +119,8 @@
 // in dQ) are split the same way once where D <= 64, and as they are read
 // above that.  Every row is padded by 4 floats (a stride of 4 mod 32
 // words), so both fragment patterns, (row g, column t) and (row 2t, column
-// g), are free of bank conflicts.  Rows and keys past S load zeros and are
-// masked (P = 0) and never stored; a warp skips the products of a tile
+// g), are free of bank conflicts.  Rows past Sq and keys past Sk load
+// zeros and are masked (P = 0) and never stored; a warp skips the products of a tile
 // none of its rows sees (but keeps the block's barriers).  Shared memory
 // (Cfg<D>::smem) is at most 108,160 bytes (D 256: 16-key and 8-query
 // tiles), two blocks an SM at every D; above 48 KB each launch raises the
@@ -188,7 +194,8 @@ struct Cfg {
 };
 
 // rows p0 .. p0+n-1 of head h of a (B, S, NH, D) tensor into dst (row
-// stride D+4) with cp.async; zeros past S
+// stride D+4) with cp.async; zeros past S (Sq for q and dO, Sk for k and
+// v)
 template <int D, int THREADS>
 __device__ __forceinline__ void load_rows(float* dst,
                                           const float* __restrict__ src,
@@ -466,9 +473,9 @@ __device__ __forceinline__ void grad_pair(float s, float dpv, float lse,
   }
 }
 
-// delta_i = dO_i.o_i of the (B, S, H, D) layout's (position, head) rows,
+// delta_i = dO_i.o_i of the (B, Sq, H, D) layout's (position, head) rows,
 // TPR threads a row (four consecutive elements at a time, 16-byte loads
-// where vec), into delta (B, H, S)
+// where vec), into delta (B, H, Sq)
 template <int D>
 __global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
@@ -515,7 +522,7 @@ flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
 struct Args {
   const float *q, *k, *v, *dout, *lse, *delta;
   float *dq, *dk, *dv, *part;
-  int B, S, H, Hk, G, splits, causal, window;
+  int B, Sq, Sk, H, Hk, G, splits, causal, window;
   float cap, scale;
   bool vec;
 };
@@ -533,7 +540,8 @@ __device__ __forceinline__ void dkdv_block(const Args& A, float* smem, int kt,
   const float* __restrict__ dout = A.dout;
   const float* __restrict__ lse = A.lse;
   const float* __restrict__ delta = A.delta;
-  const int S = A.S, H = A.H, Hk = A.Hk, G = A.G, splits = A.splits;
+  const int Sq = A.Sq, Sk = A.Sk, H = A.H, Hk = A.Hk, G = A.G,
+            splits = A.splits;
   const int causal = A.causal, window = A.window;
   const float cap = A.cap, scale = A.scale;
   const bool vec = A.vec;
@@ -552,28 +560,28 @@ __device__ __forceinline__ void dkdv_block(const Args& A, float* smem, int kt,
   const int kw = k0 + rg * 16;  // the warp's first key
 
   // the queries that can see a key of the tile
-  const int klast = min(S, k0 + R) - 1;
+  const int klast = min(Sk, k0 + R) - 1;
   const int qbeg = causal ? k0 : 0;
-  const int qend = window > 0 ? min(S, klast + window) : S;
+  const int qend = window > 0 ? min(Sq, klast + window) : Sq;
   const int nq = (qend - qbeg + BC - 1) / BC;
   const int T = (g1 - g0) * nq;  // tiles: the split's heads x query tiles
 
   auto load_y = [&](int stage, int h, int q0) {
     float* base = y_s + stage * 4 * BC * LD;
-    load_rows<D, TH>(base, q, b, S, H, h, q0, BC, vec);
-    load_rows<D, TH>(base + 2 * BC * LD, dout, b, S, H, h, q0, BC, vec);
+    load_rows<D, TH>(base, q, b, Sq, H, h, q0, BC, vec);
+    load_rows<D, TH>(base + 2 * BC * LD, dout, b, Sq, H, h, q0, BC, vec);
     if (threadIdx.x < 2 * BC) {
       const int pos = q0 + threadIdx.x % BC;
       const float* src = threadIdx.x < BC ? lse : delta;
-      const bool ok = pos < S;
+      const bool ok = pos < Sq;
       cp_async(st_s + stage * 2 * BC + threadIdx.x,
-               ok ? src + ((size_t)b * H + h) * S + pos : src, ok, false);
+               ok ? src + ((size_t)b * H + h) * Sq + pos : src, ok, false);
     }
   };
   // the ring: tile j in stage j % NS; groups 0 .. NS-2 hold K and V and
   // the first NS-1 tiles, then one group a tile (empty past the last)
-  load_rows<D, TH>(x_s, k, b, S, Hk, hk, k0, R, vec);
-  load_rows<D, TH>(x_s + XP * R * LD, v, b, S, Hk, hk, k0, R, vec);
+  load_rows<D, TH>(x_s, k, b, Sk, Hk, hk, k0, R, vec);
+  load_rows<D, TH>(x_s + XP * R * LD, v, b, Sk, Hk, hk, k0, R, vec);
 #pragma unroll
   for (int j = 0; j < NS - 1; ++j) {
     if (j < T) load_y(j, hk * G + g0 + j / nq, qbeg + (j % nq) * BC);
@@ -620,9 +628,9 @@ __device__ __forceinline__ void dkdv_block(const Args& A, float* smem, int kt,
       cp_commit();
     }
     // does any key of this warp see one of its queries of the tile?
-    const int qlo = q0 + c0, qhi = min(qlo + NT * 8, S) - 1;
-    const bool work = kw < S && qlo < S && (!causal || kw <= qhi) &&
-                      (window <= 0 || min(kw + 15, S - 1) > qlo - window);
+    const int qlo = q0 + c0, qhi = min(qlo + NT * 8, Sq) - 1;
+    const bool work = kw < Sk && qlo < Sq && (!causal || kw <= qhi) &&
+                      (window <= 0 || min(kw + 15, Sk - 1) > qlo - window);
     float sc[NT][4], dp[NT][4];
     if (work) {
       scores<C>(kx, kx + R * LD, qh, ql, xo, yo, sc);
@@ -637,7 +645,7 @@ __device__ __forceinline__ void dkdv_block(const Args& A, float* smem, int kt,
         for (int e = 0; e < 4; ++e) {
           const int key = kw + gq + 8 * (e >> 1);
           const int jc = nt * 8 + 2 * tq + (e & 1), qpos = qlo + jc;
-          const bool vis = key < S && qpos < S &&
+          const bool vis = key < Sk && qpos < Sq &&
                            (!causal || key <= qpos) &&
                            (window <= 0 || key > qpos - window);
           grad_pair(sc[nt][e], dp[nt][e], lse_c[jc], dl_c[jc], vis, cap,
@@ -678,12 +686,12 @@ __device__ __forceinline__ void dkdv_block(const Args& A, float* smem, int kt,
     add_sums<C, 2>(y_s, warp, 1, tot_v);
   }
 
-  const size_t n = (size_t)A.B * S * Hk * D;  // one split's elements
+  const size_t n = (size_t)A.B * Sk * Hk * D;  // one split's elements
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = kw + gq + 8 * i;
-    if (key >= S) continue;
-    const size_t row = (((size_t)b * S + key) * Hk + hk) * D;
+    if (key >= Sk) continue;
+    const size_t row = (((size_t)b * Sk + key) * Hk + hk) * D;
 #pragma unroll
     for (int dt = 0; dt < KS; ++dt) {
       const int d = dc0 + dt * 8 + 2 * tq;
@@ -740,7 +748,7 @@ __device__ __forceinline__ void dq_block(const Args& A, float* smem, int q0,
   const float* __restrict__ k = A.k;
   const float* __restrict__ v = A.v;
   const float* __restrict__ dout = A.dout;
-  const int S = A.S, H = A.H, Hk = A.Hk, G = A.G;
+  const int Sq = A.Sq, Sk = A.Sk, H = A.H, Hk = A.Hk, G = A.G;
   const int causal = A.causal, window = A.window;
   const float cap = A.cap, scale = A.scale;
   const bool vec = A.vec;
@@ -756,31 +764,31 @@ __device__ __forceinline__ void dq_block(const Args& A, float* smem, int q0,
   const int qw = q0 + rg * 16;  // the warp's first query
 
   // the keys any row of the tile sees (flash_attention.cu's range)
-  const int kend = causal ? min(S, q0 + R) : S;
+  const int kend = causal ? min(Sk, q0 + R) : Sk;
   const int kbeg = window > 0 ? max(0, q0 - window + 1) : 0;
   const int T = (kend - kbeg + BC - 1) / BC;
 
   auto load_y = [&](int stage, int kk0) {
     float* base = y_s + stage * 4 * BC * LD;
-    load_rows<D, TH>(base, k, b, S, Hk, hk, kk0, BC, vec);
-    load_rows<D, TH>(base + 2 * BC * LD, v, b, S, Hk, hk, kk0, BC, vec);
+    load_rows<D, TH>(base, k, b, Sk, Hk, hk, kk0, BC, vec);
+    load_rows<D, TH>(base + 2 * BC * LD, v, b, Sk, Hk, hk, kk0, BC, vec);
   };
-  load_rows<D, TH>(x_s, q, b, S, H, h, q0, R, vec);
-  load_rows<D, TH>(x_s + XP * R * LD, dout, b, S, H, h, q0, R, vec);
+  load_rows<D, TH>(x_s, q, b, Sq, H, h, q0, R, vec);
+  load_rows<D, TH>(x_s + XP * R * LD, dout, b, Sq, H, h, q0, R, vec);
 #pragma unroll
   for (int j = 0; j < NS - 1; ++j) {
     if (j < T) load_y(j, kbeg + j * BC);
     cp_commit();
   }
 
-  // this thread's two rows' lse and delta (0 past S)
+  // this thread's two rows' lse and delta (0 past Sq)
   float lr[2], dr[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int pos = qw + gq + 8 * i;
-    const size_t at = ((size_t)b * H + h) * S + pos;
-    lr[i] = pos < S ? __ldg(A.lse + at) : 0.0f;
-    dr[i] = pos < S ? __ldg(A.delta + at) : 0.0f;
+    const size_t at = ((size_t)b * H + h) * Sq + pos;
+    lr[i] = pos < Sq ? __ldg(A.lse + at) : 0.0f;
+    dr[i] = pos < Sq ? __ldg(A.delta + at) : 0.0f;
   }
 
   float acc[KS][4];
@@ -817,9 +825,9 @@ __device__ __forceinline__ void dq_block(const Args& A, float* smem, int q0,
       cp_commit();
     }
     // does any row of this warp see one of its keys of the tile?
-    const int klo = k0 + c0, khi = min(klo + NT * 8, S) - 1;
-    const int qmax = min(qw + 15, S - 1);
-    const bool work = qw < S && klo < S && (!causal || klo <= qmax) &&
+    const int klo = k0 + c0, khi = min(klo + NT * 8, Sk) - 1;
+    const int qmax = min(qw + 15, Sq - 1);
+    const bool work = qw < Sq && klo < Sk && (!causal || klo <= qmax) &&
                       (window <= 0 || khi > qw - window);
     float sc[NT][4], dp[NT][4];
     if (work) {
@@ -835,7 +843,7 @@ __device__ __forceinline__ void dq_block(const Args& A, float* smem, int q0,
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1, qpos = qw + gq + 8 * i;
           const int key = klo + nt * 8 + 2 * tq + (e & 1);
-          const bool vis = qpos < S && key < S &&
+          const bool vis = qpos < Sq && key < Sk &&
                            (!causal || key <= qpos) &&
                            (window <= 0 || key > qpos - window);
           grad_pair(sc[nt][e], dp[nt][e], lr[i], dr[i], vis, cap, scale,
@@ -858,8 +866,8 @@ __device__ __forceinline__ void dq_block(const Args& A, float* smem, int q0,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int pos = qw + gq + 8 * i;
-    if (pos >= S) continue;
-    float* row = A.dq + (((size_t)b * S + pos) * H + h) * D;
+    if (pos >= Sq) continue;
+    float* row = A.dq + (((size_t)b * Sq + pos) * H + h) * D;
 #pragma unroll
     for (int dt = 0; dt < KS; ++dt)
       *reinterpret_cast<float2*>(row + dc0 + dt * 8 + 2 * tq) =
@@ -877,14 +885,15 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MINB)
 flash_bwd_main(const Args A, long long n_dkdv) {
   extern __shared__ __align__(16) float smem[];
   constexpr int R = Cfg<D>::R;
-  const int nt = (A.S + R - 1) / R;
   long long i = blockIdx.x;
   if (i < n_dkdv) {
+    const int nt = (A.Sk + R - 1) / R;  // key tiles
     const int x = (int)(i % ((long long)nt * A.splits));
     i /= (long long)nt * A.splits;
     dkdv_block<D>(A, smem, x % nt, x / nt, (int)(i % A.Hk),
                   (int)(i / A.Hk));
   } else {
+    const int nt = (A.Sq + R - 1) / R;  // query tiles
     i -= n_dkdv;
     const int x = (int)(i % nt);
     i /= nt;
@@ -905,14 +914,14 @@ int config(int* out) {
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* delta, float* part,
-           float* dq, float* dk, float* dv, int B, int S, int H, int Hk,
-           int causal, float cap, int window, int splits,
+           float* dq, float* dk, float* dv, int B, int Sq, int Sk, int H,
+           int Hk, int causal, float cap, int window, int splits,
            cudaStream_t stream) {
   using C = Cfg<D>;
   const int G = H / Hk;
-  const int nkt = (S + C::R - 1) / C::R;
+  const int nkt = (Sk + C::R - 1) / C::R, nqt = (Sq + C::R - 1) / C::R;
   if (splits < 1 || splits > G || (splits > 1 && part == nullptr) ||
-      (long long)nkt * (splits * Hk + H) * B > 0x7fffffffLL)
+      ((long long)nkt * splits * Hk + (long long)nqt * H) * B > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (C::smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -923,27 +932,27 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   const bool vec = (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                      (uintptr_t)dout) & 15u) == 0;
   const float scale = (float)(1.0 / sqrt((double)D));
-  const long long rows_bsh = (long long)B * S * H;
+  const long long rows_bsh = (long long)B * Sq * H;
   constexpr int kRowsDelta = kDeltaThreads / (D / 4 >= 32 ? 32
                                               : D / 4 >= 16 ? 16
                                               : D / 4 >= 8 ? 8 : 4);
   const bool vec_o = (((uintptr_t)o | (uintptr_t)dout) & 15u) == 0;
   flash_bwd_delta<D><<<(unsigned)((rows_bsh + kRowsDelta - 1) / kRowsDelta),
                        kDeltaThreads, 0, stream>>>(o, dout, delta, rows_bsh,
-                                                   S, H, vec_o);
+                                                   Sq, H, vec_o);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const Args A{q,  k,     v,  dout,   lse,    delta,  dq,     dk,
-               dv, part,  B,  S,      H,      Hk,     G,      splits,
-               causal, window, cap, scale, vec};
+               dv, part,  B,  Sq,     Sk,     H,      Hk,     G,
+               splits, causal, window, cap, scale, vec};
   const long long n_dkdv = (long long)nkt * splits * Hk * B;
-  const long long n_dq = (long long)nkt * H * B;
+  const long long n_dq = (long long)nqt * H * B;
   flash_bwd_main<D><<<(unsigned)(n_dkdv + n_dq), C::THREADS, C::smem,
                       stream>>>(A, n_dkdv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (splits > 1) {
-    const long long n4 = (long long)B * S * Hk * D / 4;
+    const long long n4 = (long long)B * Sk * Hk * D / 4;
     flash_bwd_merge<<<(unsigned)((n4 + kMergeThreads - 1) / kMergeThreads),
                       kMergeThreads, 0, stream>>>(part, dk, dv, n4, splits,
                                                   scale);
@@ -969,19 +978,21 @@ extern "C" int flash_attention_bwd_config(int D, int* out) {
   }
 }
 
-// q, o, dout, dq (B, S, H, D); k, v, dk, dv (B, S, Hk, D); lse and the
-// scratch delta (B, H, S); part, the splits' scratch (2, splits, B, S, Hk,
-// D) or null with one split; all float32 contiguous.  lse is
+// q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, Hk, D); lse and the
+// scratch delta (B, H, Sq); part, the splits' scratch (2, splits, B, Sk,
+// Hk, D) or null with one split; all float32 contiguous.  lse is
 // flash_attention_lse_f32's for the same q, k, v and options.  cap <= 0
-// means no soft-cap, window <= 0 no sliding window.  splits (1 .. H/Hk)
+// means no soft-cap, window <= 0 no sliding window; Sq != Sk takes neither
+// a causal mask nor a window.  splits (1 .. H/Hk)
 // is the host plan's (kernel.py::bwd_plan); the tiles and grids are this
 // source's.
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* part, void* dq,
-    void* dk, void* dv, int B, int S, int H, int Hk, int D, int causal,
-    float cap, int window, int splits, void* stream) {
-  if (B <= 0 || S <= 0 || Hk <= 0 || H % Hk || B > 65535 || H > 65535)
+    void* dk, void* dv, int B, int Sq, int Sk, int H, int Hk, int D,
+    int causal, float cap, int window, int splits, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hk <= 0 || H % Hk || B > 65535 ||
+      H > 65535 || (Sq != Sk && (causal || window > 0)))
     return (int)cudaErrorInvalidValue;
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;
@@ -997,8 +1008,8 @@ extern "C" int flash_attention_bwd_f32(
   cudaStream_t st = (cudaStream_t)stream;
 #define FLASH_BWD_CASE(DIM)                                                  \
   case DIM:                                                                  \
-    return launch<DIM>(qf, kf, vf, of, gf, lf, df, pf, dqf, dkf, dvf, B, S,  \
-                       H, Hk, causal, cap, window, splits, st);
+    return launch<DIM>(qf, kf, vf, of, gf, lf, df, pf, dqf, dkf, dvf, B, Sq, \
+                       Sk, H, Hk, causal, cap, window, splits, st);
   switch (D) {
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(32)

@@ -1,6 +1,8 @@
 """Bindings of ``csrc/flash_attention.cu`` (the forward, with or without
 each row's log-sum-exp) and ``csrc/flash_attention_bwd.cu`` (its gradient);
-see the sources for the design notes."""
+see the sources for the design notes.  Queries and keys may differ in
+length (Sq != Sk, cross attention) where no positional mask applies:
+``causal=False`` and no window."""
 from __future__ import annotations
 
 import ctypes
@@ -10,18 +12,19 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels._build import CudaKernel, require_cuda
+from repro_torch.kernels.flash_attention.ref import check_lengths
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 KERNEL = CudaKernel("flash_attention", "flash_attention_f32",
-                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I])
+                    [_P] * 4 + [_I] * 7 + [_F, _I])
 #: the training forward: the output and each row's log-sum-exp
 KERNEL_LSE = CudaKernel("flash_attention", "flash_attention_lse_f32",
-                        [_P] * 5 + [_I] * 6 + [_F, _I])
+                        [_P] * 5 + [_I] * 7 + [_F, _I])
 #: the backward: dQ, dK, dV (delta, dK/dV and dQ in one launch, the splits'
 #: merge where the plan splits the group); its last int is ``bwd_plan``'s
 #: split count
 KERNEL_BWD = CudaKernel("flash_attention_bwd", "flash_attention_bwd_f32",
-                        [_P] * 11 + [_I] * 6 + [_F, _I, _I])
+                        [_P] * 11 + [_I] * 7 + [_F, _I, _I])
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 MAX_GROUP = 64
 H100_SMS = 132
@@ -64,10 +67,10 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def bwd_plan(b: int, s: int, h: int, hk: int, d: int, *,
+def bwd_plan(b: int, sq: int, sk: int, h: int, hk: int, d: int, *,
              sms: int = H100_SMS) -> Dict[str, int]:
-    """The backward's split count and scratch at one shape, from the shape
-    alone.
+    """The backward's split count and scratch at one shape (``sq``
+    queries, ``sk`` keys), from the shape alone.
 
     The dK/dV blocks are one per (tile of ``rows`` keys, kv head, split of
     the group's heads, batch row); split ``sp`` takes heads ``sp G /
@@ -77,15 +80,15 @@ def bwd_plan(b: int, s: int, h: int, hk: int, d: int, *,
     x the query tiles of key tile 0, plus ``MERGE_TILES`` for the merge
     pass), among those whose blocks the card holds at once (``sms`` x the
     blocks an SM holds).  With more than one split, each writes its totals
-    to an fp32 scratch (2, splits, B, S, Hk, D) of ``scratch`` elements,
+    to an fp32 scratch (2, splits, B, Sk, Hk, D) of ``scratch`` elements,
     which the merge pass adds in split order."""
     if h % hk or not 0 < h // hk <= MAX_GROUP:
         raise ValueError(f"flash_attention_bwd: {h} q heads over {hk} kv "
                          f"heads (groups up to {MAX_GROUP})")
     t = bwd_tiles(d)
     g = h // hk
-    blocks = _cdiv(s, t["rows"]) * hk * b
-    nq = _cdiv(s, t["cols"])
+    blocks = _cdiv(sk, t["rows"]) * hk * b
+    nq = _cdiv(sq, t["cols"])
     splits, cost = 1, g * nq
     if blocks < sms:
         for sp in range(2, g + 1):
@@ -95,7 +98,7 @@ def bwd_plan(b: int, s: int, h: int, hk: int, d: int, *,
             if c < cost:
                 splits, cost = sp, c
     return dict(splits=splits,
-                scratch=2 * splits * b * s * hk * d if splits > 1 else 0)
+                scratch=2 * splits * b * sk * hk * d if splits > 1 else 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,15 +107,17 @@ def _sms(index: int) -> int:
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           cap: Optional[float], window: Optional[int]) -> torch.device:
+           causal: bool, cap: Optional[float],
+           window: Optional[int]) -> torch.device:
     dev = require_cuda(name, q, k, v)
     if not (q.dtype == k.dtype == v.dtype == torch.float32):
         raise ValueError(f"{name}: the CUDA kernel takes float32")
-    b, s, h, d = q.shape
-    hk = k.shape[2]
-    if k.shape != (b, s, hk, d) or v.shape != k.shape:
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    if k.shape != (b, sk, hk, d) or v.shape != k.shape or (sq and not sk):
         raise ValueError(f"{name}: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    check_lengths(name, sq, sk, causal, window)
     if d not in HEAD_DIMS or h % hk or h // hk > MAX_GROUP:
         raise ValueError(f"{name}: head_dim {d} (takes {HEAD_DIMS})"
                          f", {h} q heads over {hk} kv heads")
@@ -131,18 +136,20 @@ def _options(causal: bool, cap: Optional[float], window: Optional[int]):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, cap: Optional[float] = None,
                          window: Optional[int] = None, lse: bool = False):
-    """Model layout on CUDA, fp32: q (B, S, H, D); k, v (B, S, Hk, D) ->
-    (B, S, H, D).  Any S; D in ``HEAD_DIMS``; H/Hk at most ``MAX_GROUP``.
-    With ``lse`` returns (out, lse) where lse (B, H, S) is each row's
-    log-sum-exp of its scaled (and capped) logits, which
-    ``flash_attention_bwd_cuda`` takes (``flash_attention_lse_f32``; the
-    output is the same kernel's)."""
-    dev = _check("flash_attention", q, k, v, cap, window)
+    """Model layout on CUDA, fp32: q (B, Sq, H, D); k, v (B, Sk, Hk, D) ->
+    (B, Sq, H, D).  Any Sq, Sk (Sk != Sq with ``causal=False`` and no
+    window); D in ``HEAD_DIMS``; H/Hk at most ``MAX_GROUP``.  With ``lse``
+    returns (out, lse) where lse (B, H, Sq) is each row's log-sum-exp of
+    its scaled (and capped) logits, which ``flash_attention_bwd_cuda``
+    takes (``flash_attention_lse_f32``; the output is the same
+    kernel's)."""
+    dev = _check("flash_attention", q, k, v, causal, cap, window)
     b, s, h, d = q.shape
     out = torch.empty_like(q)
     rows = torch.empty((b, h, s), device=dev) if lse else None
     if b and s:
-        dims = (b, s, h, k.shape[2], d, *_options(causal, cap, window))
+        dims = (b, s, k.shape[1], h, k.shape[2], d,
+                *_options(causal, cap, window))
         if lse:
             KERNEL_LSE.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               out.data_ptr(), rows.data_ptr(), *dims)
@@ -159,9 +166,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              cap: Optional[float] = None,
                              window: Optional[int] = None):
     """The gradient of ``flash_attention_cuda(q, k, v, ...)`` at ``dout``
-    (B, S, H, D), given its output ``out`` and ``lse`` (from ``lse=True``
+    (B, Sq, H, D), given its output ``out`` and ``lse`` (from ``lse=True``
     with the same options): (dq, dk, dv) in the layouts of q, k, v."""
-    dev = _check("flash_attention_bwd", q, k, v, cap, window)
+    dev = _check("flash_attention_bwd", q, k, v, causal, cap, window)
     require_cuda("flash_attention_bwd", out, lse, dout)
     b, s, h, d = q.shape
     if out.shape != q.shape or dout.shape != q.shape or \
@@ -175,7 +182,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     if b and s:
-        plan = bwd_plan(b, s, h, k.shape[2], d, sms=_sms(dev.index))
+        sk, hk = k.shape[1], k.shape[2]
+        plan = bwd_plan(b, s, sk, h, hk, d, sms=_sms(dev.index))
         delta = torch.empty((b, h, s), device=dev)      # scratch
         part = torch.empty(plan["scratch"], device=dev)  # the splits' totals
         KERNEL_BWD.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -183,6 +191,6 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                           delta.data_ptr(),
                           part.data_ptr() if plan["scratch"] else None,
                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s,
-                          h, k.shape[2], d, *_options(causal, cap, window),
+                          sk, h, hk, d, *_options(causal, cap, window),
                           plan["splits"])
     return dq, dk, dv

@@ -38,9 +38,11 @@ class FlashAttentionFn(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, cap: Optional[float] = None,
                     window: Optional[int] = None) -> torch.Tensor:
-    """Model layout: q (B, S, H, D); k, v (B, S, Hk, D) -> (B, S, H, D).
+    """Model layout: q (B, Sq, H, D); k, v (B, Sk, Hk, D) -> (B, Sq, H, D).
 
-    GQA: query heads ``hk*G .. hk*G+G-1`` share kv head ``hk``.  A CPU
+    GQA: query heads ``hk*G .. hk*G+G-1`` share kv head ``hk``.  Sk may
+    differ from Sq (cross attention to an encoder's output) with
+    ``causal=False`` and no window; otherwise ``ValueError``.  A CPU
     tensor takes the plain version, which autograd differentiates; a CUDA
     one takes the forward kernel, and, when grad mode is on and an input
     requires grad, ``FlashAttentionFn`` (the forward kernel with its

@@ -3,7 +3,9 @@ stream, with the trainer's full substrate (micro-batched step, int8 AdamW
 option, atomic checkpoints, SIGTERM checkpointing, resume, straggler log).
 
 Counterpart of ``repro/launch/train.py`` on one device, so without its
-``--data-axis``/``--model-axis`` mesh flags; ``--device`` (default cuda)
+``--data-axis``/``--model-axis`` mesh flags; it feeds tokens only, as the
+reference's does, so an encoder-decoder (whose batches carry frames)
+exits with an error that names them; ``--device`` (default cuda)
 and ``--depth`` (layers; default the config's) are the port's own.  It runs
 fp32 with TF32 off for matmuls and convolutions.
 
@@ -63,6 +65,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.encoder_decoder:
+        raise ValueError(f"{cfg.name}: an encoder-decoder trains on batches "
+                         "with frames (B, T, d) beside the tokens, and the "
+                         "launcher's TokenStream feeds tokens only; train it "
+                         "with Trainer(lm.loss, ...) on batches that carry "
+                         "frames")
     if args.depth is not None:
         cfg = cfg.replace(n_layers=args.depth)
     # a generator on the device: a full-width model is drawn on the card

@@ -1,10 +1,14 @@
-"""GQA self-attention: prefill through the flash kernel, cached decode
+"""GQA attention: self-attention over a prefill, an encoder's bidirectional
+self-attention and cross attention through the flash kernel, cached decode
 through the decode-attention kernel.
 
 Counterpart of ``repro/models/attention.py`` for the paths the port runs:
-``attention_spec``, ``_project_qkv`` (with qk-norm), ``_out_proj``,
-``attend_prefill`` (causal, sliding-window for ``attn_local``) and
-``attend_decode``.  Head
+``attention_spec`` (``cross=True``: no qk-norm), ``_project_qkv`` (with
+qk-norm), ``_out_proj``, ``attend_prefill`` (causal, sliding-window for
+``attn_local``), ``attend_encoder`` (bidirectional, rotated),
+``cross_kv`` and ``attend_cross`` (decoder tokens against an encoder's
+keys, neither rotated; the flash kernel at Sq != Sk, or the decode kernel
+for one token) and ``attend_decode``.  Head
 counts come from the weights (``wq`` (d, H, Dh), ``wk``/``wv`` (d, Hk, Dh),
 ``wo`` (H, Dh, d)), so a pruned variant with other shapes runs unchanged.
 There is no tensor-parallel head padding: the port runs on one card, which
@@ -26,7 +30,8 @@ from repro_torch.models.layers import apply_rope, rms_norm_simple
 from repro_torch.models.param import ParamSpec
 
 
-def attention_spec(d_model: int, att: AttentionConfig) -> Dict[str, ParamSpec]:
+def attention_spec(d_model: int, att: AttentionConfig,
+                   cross: bool = False) -> Dict[str, ParamSpec]:
     d = att.head_dim
     spec = {
         "wq": ParamSpec((d_model, att.n_heads, d)),
@@ -34,10 +39,16 @@ def attention_spec(d_model: int, att: AttentionConfig) -> Dict[str, ParamSpec]:
         "wv": ParamSpec((d_model, att.n_kv_heads, d)),
         "wo": ParamSpec((att.n_heads, d, d_model)),
     }
-    if att.qk_norm:
+    if att.qk_norm and not cross:
         spec["q_norm"] = ParamSpec((d,), "ones")
         spec["k_norm"] = ParamSpec((d,), "ones")
     return spec
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
+    """x (B, S, d), w (d, H, Dh) -> (B, S, H, Dh)."""
+    d, h, dh = w.shape
+    return mm(x, w.reshape(d, h * dh)).reshape(*x.shape[:-1], h, dh)
 
 
 def _project_qkv(params: Dict[str, torch.Tensor], xq: torch.Tensor,
@@ -46,15 +57,11 @@ def _project_qkv(params: Dict[str, torch.Tensor], xq: torch.Tensor,
     """xq (B, Sq, d), xkv (B, Skv, d) -> q (B,Sq,H,Dh), k/v (B,Skv,Hk,Dh);
     q and k RMS-normed per head (qk-norm) when the weights hold their
     scales, before the rotary embedding, as in the reference."""
-    def proj(x, w):
-        d, h, dh = w.shape
-        return mm(x, w.reshape(d, h * dh)).reshape(*x.shape[:-1], h, dh)
-
-    q, k = proj(xq, params["wq"]), proj(xkv, params["wk"])
+    q, k = _proj(xq, params["wq"], mm), _proj(xkv, params["wk"], mm)
     if "q_norm" in params:
         q = rms_norm_simple(q, params["q_norm"])
         k = rms_norm_simple(k, params["k_norm"])
-    return q, k, proj(xkv, params["wv"])
+    return q, k, _proj(xkv, params["wv"], mm)
 
 
 def _out_proj(params: Dict[str, torch.Tensor],
@@ -83,6 +90,46 @@ def attend_prefill(params: Dict[str, torch.Tensor], att: AttentionConfig,
                           causal=True, cap=att.softcap, window=window)
     y = _out_proj(params, out, mm)
     return (y, (k, v)) if return_kv else y
+
+
+def attend_encoder(params: Dict[str, torch.Tensor], att: AttentionConfig,
+                   x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Bidirectional self-attention over an encoder's input x (B, T, d):
+    q and k rotated at ``positions``, every frame sees every frame."""
+    q, k, v = _project_qkv(params, x, x)
+    q = apply_rope(q, positions, att.rotary_pct, att.rope_theta)
+    k = apply_rope(k, positions, att.rotary_pct, att.rope_theta)
+    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal=False, cap=att.softcap)
+    return _out_proj(params, out)
+
+
+def cross_kv(params: Dict[str, torch.Tensor],
+             enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's output (B, T, d) -> the cross attention's (K, V),
+    (B, T, Hk, Dh) each, not rotated (computed once a sequence)."""
+    return _proj(enc_out, params["wk"]), _proj(enc_out, params["wv"])
+
+
+def attend_cross(params: Dict[str, torch.Tensor], att: AttentionConfig,
+                 x: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 decode: bool = False) -> torch.Tensor:
+    """Decoder tokens x (B, Sq, d) against an encoder's (K, V) (B, T, Hk,
+    Dh): q not rotated, no mask.  A sequence (``causal`` and
+    ``prefill_cache`` modes) goes through the flash kernel at Sq != T; one
+    token (``decode``) through the decode kernel with ``kv_len`` T for
+    every row and no window."""
+    q = _proj(x, params["wq"])
+    if decode:
+        kv_len = torch.full((x.shape[0], 1), k.shape[1], dtype=torch.int32,
+                            device=x.device)
+        out = decode_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), kv_len, cap=att.softcap)
+        out = out.to(x.dtype)
+    else:
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=False, cap=att.softcap)
+    return _out_proj(params, out)
 
 
 def attend_decode(params: Dict[str, torch.Tensor], att: AttentionConfig,

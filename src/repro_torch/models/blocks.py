@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/models/blocks.py`` for the mixers ``attn``,
 ``attn_local``, ``attn_global`` and ``mamba`` with a ``dense``, ``moe`` or
-no MLP.
+no MLP, and a decoder's cross attention to an encoder's output
+(``cross_norm`` and ``cross`` after the mixer).
 A *period* is one repetition of ``cfg.block_pattern`` (gemma2's (local,
 global) pair); every weight and cache leaf of the stack keeps its leading
 per-period axis, as the reference's scanned stack does, and
@@ -12,14 +13,17 @@ leaf's ``.grad``: ``_PeriodSlice``).  So a stacked leaf's gradient exists
 only in its ``.grad`` after ``loss.backward()``: ``torch.autograd.grad``,
 ``backward(inputs=...)``, hooks on the leaf and double backward see none
 for it.  Modes: ``causal`` (no cache),
-``prefill_cache`` (fills the cache) and ``decode`` (one token against it).
+``prefill_cache`` (fills the cache), ``decode`` (one token against it) and
+``encode`` (an encoder's bidirectional self-attention, no cache); a stack
+with cross attention takes each period's cross (K, V) (``cross_kv_stack``
+makes them from the encoder's output; the cache holds them for decode).
 The port writes caches in place; the reference returns new ones.  The MoE
 blocks' aux losses are summed period by period, as the reference's scan
 carries them (``apply_stack(..., return_aux=True)``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -32,7 +36,9 @@ from repro_torch.models.layers import apply_mlp, mlp_spec, norm, norm_spec
 from repro_torch.models.param import stack
 
 MIXERS = ("attn", "attn_local", "attn_global", "mamba")
-MODES = ("causal", "prefill_cache", "decode")
+MODES = ("causal", "prefill_cache", "decode", "encode")
+#: one period's cross attention (K, V) by block key, (B, T, Hk, Dh) each
+CrossKV = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _entry(kind: str) -> BlockSpecEntry:
@@ -44,15 +50,12 @@ def _entry(kind: str) -> BlockSpecEntry:
 
 
 def _check(cfg: ArchConfig) -> None:
-    if cfg.encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: cross attention waits for the port's "
-            "encoder-decoder slice")
     for kind in cfg.block_pattern:
         _entry(kind)
 
 
-def block_spec(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
+def block_spec(cfg: ArchConfig, kind: str,
+               cross_attention: bool = False) -> Dict[str, Any]:
     ent = _entry(kind)
     d = cfg.d_model
     spec: Dict[str, Any] = {"pre_norm": norm_spec(d, cfg.norm)}
@@ -62,6 +65,9 @@ def block_spec(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
         spec["mixer"] = attn.attention_spec(d, cfg.attention)
     if cfg.post_block_norm:
         spec["post_mixer_norm"] = norm_spec(d, cfg.norm)
+    if cross_attention:
+        spec["cross_norm"] = norm_spec(d, cfg.norm)
+        spec["cross"] = attn.attention_spec(d, cfg.attention, cross=True)
     if ent.mlp != "none":
         spec["pre_mlp_norm"] = norm_spec(d, cfg.norm)
         if ent.mlp == "moe":
@@ -73,11 +79,14 @@ def block_spec(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
     return spec
 
 
-def stack_spec(cfg: ArchConfig) -> Dict[str, Any]:
+def stack_spec(cfg: ArchConfig, n_periods: Optional[int] = None,
+               cross_attention: bool = False) -> Dict[str, Any]:
+    """The stacked periods: ``cfg.n_periods`` (the decoder) unless
+    ``n_periods`` is given (an encoder's)."""
     _check(cfg)
-    return stack({f"i{j}": block_spec(cfg, kind)
+    return stack({f"i{j}": block_spec(cfg, kind, cross_attention)
                   for j, kind in enumerate(cfg.block_pattern)},
-                 cfg.n_periods)
+                 cfg.n_periods if n_periods is None else n_periods)
 
 
 def block_cache_shapes(cfg: ArchConfig, kind: str, batch: int,
@@ -94,14 +103,17 @@ def apply_block(cfg: ArchConfig, kind: str, params: Dict[str, Any],
                 x: torch.Tensor, *, mode: str, positions: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 lens: Optional[torch.Tensor] = None,
+                cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 mm=torch.matmul,
                 aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """One block: x + mixer(norm(x)) (sandwiched by a post norm when the
-    config says so), then the same with the MLP.  ``cache`` (this block's
-    leaves for this period) is filled or advanced in place.  ``mm``
-    computes the dense MLP's products and, in ``causal`` mode, the
-    attention's projections (``layers.frame_matmul`` for the stream MLLM).
-    An MoE block appends its aux loss to ``aux`` when given."""
+    config says so), then x + cross(cross_norm(x)) against ``cross_kv``
+    where the block has cross attention, then the MLP as the mixer.
+    ``cache`` (this block's leaves for this period) is filled or advanced
+    in place.  ``mm`` computes the dense MLP's products and, in ``causal``
+    mode, the attention's projections (``layers.frame_matmul`` for the
+    stream MLLM).  An MoE block appends its aux loss to ``aux`` when
+    given."""
     ent = _entry(kind)
     h = norm(params["pre_norm"], x, cfg.norm)
     mix = params["mixer"]
@@ -114,7 +126,9 @@ def apply_block(cfg: ArchConfig, kind: str, params: Dict[str, Any],
             y = ssm_mod.mamba_prefill(mix, cfg.ssm, h)
     else:
         local = ent.mixer == "attn_local"
-        if mode == "decode":
+        if mode == "encode":
+            y = attn.attend_encoder(mix, cfg.attention, h, positions)
+        elif mode == "decode":
             y = attn.attend_decode(mix, cfg.attention, h, cache["k"],
                                    cache["v"], lens, local=local)
         elif mode == "prefill_cache":
@@ -128,6 +142,13 @@ def apply_block(cfg: ArchConfig, kind: str, params: Dict[str, Any],
     if cfg.post_block_norm:
         y = norm(params["post_mixer_norm"], y, cfg.norm)
     x = x + y
+    if "cross" in params:
+        if cross_kv is None:
+            raise ValueError(f"{cfg.name}: a cross-attention block without "
+                             "the encoder's (K, V)")
+        h = norm(params["cross_norm"], x, cfg.norm)
+        x = x + attn.attend_cross(params["cross"], cfg.attention, h,
+                                  *cross_kv, decode=mode == "decode")
     if ent.mlp != "none":
         h = norm(params["pre_mlp_norm"], x, cfg.norm)
         mlp = params["mlp"]
@@ -186,23 +207,45 @@ def _periods(tree: Any, n: int):
     return lambda i: views[i]
 
 
+def cross_kv_stack(cfg: ArchConfig, stacked: Dict[str, Any],
+                   enc_out: torch.Tensor) -> List[CrossKV]:
+    """Each period's cross (K, V) by block key from the encoder's output
+    (B, T, d): the per-period list ``apply_stack`` takes.  Only the cross
+    attention's ``wk`` and ``wv`` are sliced (a period's ``_PeriodSlice``
+    under autograd)."""
+    n = stacked["i0"]["pre_norm"]["scale"].shape[0]
+    period = _periods({key: {w: blk["cross"][w] for w in ("wk", "wv")}
+                       for key, blk in stacked.items()}, n)
+    out = []
+    for i in range(n):
+        p = period(i)
+        out.append({key: attn.cross_kv(p[key], enc_out) for key in p})
+    return out
+
+
 def apply_stack(cfg: ArchConfig, stacked: Dict[str, Any], x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str = "causal",
                 cache: Optional[Dict[str, Any]] = None,
                 lens: Optional[torch.Tensor] = None,
+                cross_kv: Optional[Sequence[CrossKV]] = None,
                 mm=torch.matmul, return_aux: bool = False):
     """Run every period of the stacked weights in order.  ``cache`` is a
     dict per block key ``i{j}`` of (n_periods, B, ...) tensors, filled
-    (``prefill_cache``) or advanced (``decode``) in place.  ``mm`` is
-    ``apply_block``'s.  Returns x, or with ``return_aux`` (x, the MoE aux
-    loss): each period's blocks summed in order, then the periods, from a
-    float32 zero, as the reference's scan carries it."""
+    (``prefill_cache``) or advanced (``decode``) in place.  ``cross_kv``
+    gives each period's cross (K, V) by block key (a stack with cross
+    attention).  ``mm`` is ``apply_block``'s.  Returns x, or with
+    ``return_aux`` (x, the MoE aux loss): each period's blocks summed in
+    order, then the periods, from a float32 zero, as the reference's scan
+    carries it."""
     _check(cfg)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; have {MODES}")
-    if (cache is None) != (mode == "causal"):
+    if (cache is None) != (mode in ("causal", "encode")):
         raise ValueError(f"mode {mode!r} with cache={cache is not None}")
     n = stacked["i0"]["pre_norm"]["scale"].shape[0]
+    if cross_kv is not None and len(cross_kv) != n:
+        raise ValueError(f"{len(cross_kv)} periods of cross (K, V) for a "
+                         f"stack of {n}")
     period = _periods(stacked, n)
     cache_at = None if cache is None else _periods(cache, n)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -215,6 +258,7 @@ def apply_stack(cfg: ArchConfig, stacked: Dict[str, Any], x: torch.Tensor,
             x = apply_block(
                 cfg, kind, p_params[key], x, mode=mode, positions=positions,
                 cache=None if p_cache is None else p_cache[key], lens=lens,
+                cross_kv=None if cross_kv is None else cross_kv[i][key],
                 mm=mm, aux=p_aux)
         if p_aux:
             a = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -27,17 +27,18 @@ def norm_spec(d: int, kind: str) -> Dict[str, ParamSpec]:
 def apply_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
                *, kind: str = "rmsnorm",
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """RMSNorm (or LayerNorm with ``bias``) in fp32, cast back to the
-    input's dtype."""
-    x32 = x.to(torch.float32)
+    """RMSNorm (or LayerNorm with ``bias``) in fp32 (float64 for float64
+    inputs), cast back to the input's dtype."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(dt)
     if kind == "layernorm":
-        mu = torch.mean(x32, dim=-1, keepdim=True)
-        var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
-        y = (x32 - mu) * torch.rsqrt(var + eps)
-        y = y * scale.to(torch.float32) + bias.to(torch.float32)
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * scale.to(dt) + bias.to(dt)
     else:
-        ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-        y = x32 * torch.rsqrt(ms + eps) * scale.to(torch.float32)
+        ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * scale.to(dt)
     return y.to(x.dtype)
 
 
@@ -58,10 +59,10 @@ def rms_norm_simple(x: torch.Tensor, scale: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, rotary_pct: float, theta: float,
-               device=None) -> torch.Tensor:
+               device=None, dtype=torch.float32) -> torch.Tensor:
     rot_dim = int(head_dim * rotary_pct)
     rot_dim -= rot_dim % 2
-    exponent = torch.arange(0, rot_dim, 2, dtype=torch.float32,
+    exponent = torch.arange(0, rot_dim, 2, dtype=dtype,
                             device=device) / rot_dim
     return 1.0 / (theta ** exponent)  # (rot_dim/2,)
 
@@ -69,14 +70,16 @@ def rope_freqs(head_dim: int, rotary_pct: float, theta: float,
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, rotary_pct: float,
                theta: float) -> torch.Tensor:
     """x (..., S, H, D); positions broadcastable to (..., S).  Half-split
-    rotation (not interleaved) of the first ``rotary_pct`` of D."""
+    rotation (not interleaved) of the first ``rotary_pct`` of D; the angles
+    in fp32 (float64 for float64 inputs)."""
     head_dim = x.shape[-1]
     rot_dim = int(head_dim * rotary_pct)
     rot_dim -= rot_dim % 2
     if rot_dim == 0:
         return x
-    inv = rope_freqs(head_dim, rotary_pct, theta, device=x.device)
-    ang = positions[..., None].to(torch.float32) * inv  # (..., S, rot/2)
+    dt = torch.promote_types(x.dtype, torch.float32)
+    inv = rope_freqs(head_dim, rotary_pct, theta, device=x.device, dtype=dt)
+    ang = positions[..., None].to(dt) * inv             # (..., S, rot/2)
     cos = torch.cos(ang)[..., None, :]                  # (..., S, 1, rot/2)
     sin = torch.sin(ang)[..., None, :]
     x_rot, x_pass = x[..., :rot_dim], x[..., rot_dim:]
@@ -174,9 +177,9 @@ def unembed(params: Dict[str, Any], x: torch.Tensor,
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_coef: float = 1e-4) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits (B, S, V), labels (B, S) int -> (mean nll, mean z-loss), in
-    fp32; the label's logit is picked by index (the reference's
-    take-along-axis path)."""
-    logits = logits.to(torch.float32)
+    fp32 (float64 for float64 logits); the label's logit is picked by
+    index (the reference's take-along-axis path)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - ll

@@ -1,21 +1,28 @@
-"""LM: the decoder-only language model the serving engine runs.
+"""LM: the language model the serving engine and the trainer run.
 
-Counterpart of ``repro/models/model.py`` for token inputs (no patch or
-audio frontend, no encoder), with a tied or untied unembedding: ``spec``,
-``_embed``, ``forward`` / ``logits_and_aux`` (the differentiable causal
-logits and the MoE aux loss) and ``loss`` for training;
-``logits_causal``, ``cache_shapes`` / ``init_cache``,
-``prefill(..., last_pos)`` and ``decode`` without a graph, for serving.
-The parameters' dotted names are the reference's parameter tree paths
-(``stack.i0.mixer.wq``), so ``repro_torch.bridge`` loads the reference's
+Counterpart of ``repro/models/model.py``: decoder-only stacks, the
+encoder-decoder (seamless-m4t: an encoder over stub audio frames, cross
+attention in every decoder block) and the patch frontend (pixtral: stub
+patch embeddings added at their positions), with a tied or untied
+unembedding: ``spec``, ``_embed``, ``_encode``, ``_cross_kv_stack``,
+``forward`` / ``logits_and_aux`` (the differentiable causal logits and the
+MoE aux loss) and ``loss`` for training; ``logits_causal``,
+``cache_shapes`` / ``init_cache``, ``prefill(..., last_pos)`` and
+``decode`` without a graph, for serving.  The frontends' inputs are
+keywords beside the tokens: ``frames`` (B, T, d) for the encoder,
+``patch_embeds`` (B, P, d) and ``patch_pos`` (B, P) for the patches (the
+reference's batch keys).  The parameters' dotted names are the reference's
+parameter tree paths (``stack.i0.mixer.wq``, ``encoder.stack.i0.mixer.wq``,
+``stack.i0.cross.wk``), so ``repro_torch.bridge`` loads the reference's
 tree key for key.  The cache is a dict ``{"layers": {"i{j}":
-{leaf: (n_periods, B, ...)}}}``, as the reference's; prefill and decode
-write it in place and return it.
+{leaf: (n_periods, B, ...)}}}``, as the reference's, with ``"cross":
+{"i{j}": {"k", "v": (n_periods, B, T_src, Hk, Dh)}}`` for an
+encoder-decoder; prefill and decode write it in place and return it.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -27,15 +34,15 @@ from repro_torch.models.layers import (cross_entropy, embed_spec,
                                        unembed)
 from repro_torch.models.param import ParamTree, init_params
 
+#: the batch keys of the stub frontends' inputs, beside tokens and labels
+FRONTEND_KEYS = ("frames", "patch_embeds", "patch_pos")
+
 
 class LM(ParamTree):
-    """A decoder-only LM as one module of parameters."""
+    """An LM (decoder-only or encoder-decoder) as one module of
+    parameters."""
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
-        if cfg.frontend is not None or cfg.encoder_decoder:
-            raise NotImplementedError(
-                f"{cfg.name}: the port's LM takes tokens only; frontends "
-                "and encoders wait for their slices")
         dev = resolve_device(device)
         super().__init__(self.spec(cfg), dev)
         self.cfg = cfg
@@ -43,12 +50,21 @@ class LM(ParamTree):
 
     @staticmethod
     def spec(cfg: ArchConfig) -> Dict[str, Any]:
-        return {
+        spec: Dict[str, Any] = {
             "embed": embed_spec(cfg.padded_vocab, cfg.d_model,
                                 cfg.tie_embeddings),
-            "stack": blk.stack_spec(cfg),
+            "stack": blk.stack_spec(cfg,
+                                    cross_attention=cfg.encoder_decoder),
             "final_norm": norm_spec(cfg.d_model, cfg.norm),
         }
+        if cfg.encoder_decoder:
+            spec["encoder"] = {
+                "stack": blk.stack_spec(
+                    cfg, n_periods=cfg.n_encoder_layers
+                    // len(cfg.block_pattern)),
+                "final_norm": norm_spec(cfg.d_model, cfg.norm),
+            }
+        return spec
 
     def init(self, generator: torch.Generator) -> "LM":
         """Seeded init (the reference's scheme) from ``generator``."""
@@ -56,78 +72,169 @@ class LM(ParamTree):
         return self
 
     # ------------------------------------------------------------------
-    def _embed(self, params: Dict[str, Any],
-               tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params: Dict[str, Any], tokens: torch.Tensor,
+               patch_embeds: Optional[torch.Tensor] = None,
+               patch_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings (B, S, d), plus ``patch_embeds`` (B, P, d) added
+        at ``patch_pos`` (B, P) for the patch frontend: a position given
+        twice takes both (``index_put(..., accumulate=True)``, out of
+        place, as the reference's ``.at[].add``)."""
         cfg = self.cfg
         scale = math.sqrt(float(cfg.d_model)) if cfg.embed_scale else None
-        return embed_tokens(params["embed"], tokens.to(self.device), scale)
+        x = embed_tokens(params["embed"], tokens.to(self.device), scale)
+        if patch_embeds is None:
+            return x
+        if cfg.frontend != "patch" or patch_pos is None:
+            raise ValueError(f"{cfg.name}: patch embeddings take the patch "
+                             "frontend and their positions")
+        pp = patch_pos.to(self.device).long()
+        bidx = torch.arange(x.shape[0], device=self.device)[:, None]
+        return x.index_put((bidx.expand_as(pp), pp),
+                           patch_embeds.to(self.device, x.dtype),
+                           accumulate=True)
+
+    def _encode(self, params: Dict[str, Any],
+                frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over stub frame embeddings (B, T, d): its stack in
+        ``encode`` mode (bidirectional), then its final norm."""
+        cfg = self.cfg
+        x = frames.to(self.device)
+        positions = torch.arange(x.shape[1], device=self.device)[None]
+        x = blk.apply_stack(cfg, params["encoder"]["stack"], x, positions,
+                            mode="encode")
+        return norm(params["encoder"]["final_norm"], x, cfg.norm)
+
+    def _cross_kv_stack(self, params: Dict[str, Any],
+                        enc_out: torch.Tensor) -> List[blk.CrossKV]:
+        """The encoder's output -> each decoder period's cross (K, V)."""
+        return blk.cross_kv_stack(self.cfg, params["stack"], enc_out)
+
+    def _cross_from_frames(self, params: Dict[str, Any],
+                           frames: Optional[torch.Tensor]
+                           ) -> Optional[List[blk.CrossKV]]:
+        if not self.cfg.encoder_decoder:
+            if frames is not None:
+                raise ValueError(f"{self.cfg.name}: frames take an encoder")
+            return None
+        if frames is None:
+            raise ValueError(f"{self.cfg.name}: the encoder-decoder takes "
+                             "frames (B, T, d)")
+        return self._cross_kv_stack(params, self._encode(params, frames))
 
     def _head(self, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
         x = norm(params["final_norm"], x, self.cfg.norm)
         return unembed(params["embed"], x, self.cfg.final_softcap)
 
-    def logits_and_aux(self, tokens: torch.Tensor
+    def logits_and_aux(self, tokens: torch.Tensor, *,
+                       frames: Optional[torch.Tensor] = None,
+                       patch_embeds: Optional[torch.Tensor] = None,
+                       patch_pos: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens (B, S) -> (logits (B, S, padded vocab), the MoE aux loss
-        (0 without MoE blocks)), no cache; differentiable in the parameters
-        that require grad (training)."""
+        """tokens (B, S) (with ``frames`` for an encoder-decoder, patches
+        for the patch frontend) -> (logits (B, S, padded vocab), the MoE
+        aux loss (0 without MoE blocks)), no cache; differentiable in the
+        parameters that require grad (training)."""
         params = self.tree()
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, patch_embeds, patch_pos)
         positions = torch.arange(tokens.shape[1], device=self.device)[None]
-        x, aux = blk.apply_stack(self.cfg, params["stack"], x, positions,
-                                 return_aux=True)
+        x, aux = blk.apply_stack(
+            self.cfg, params["stack"], x, positions, return_aux=True,
+            cross_kv=self._cross_from_frames(params, frames))
         return self._head(params, x), aux
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, **inputs) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, padded vocab), no cache;
-        differentiable in the parameters that require grad (training)."""
-        return self.logits_and_aux(tokens)[0]
+        differentiable in the parameters that require grad (training).
+        ``inputs``: ``logits_and_aux``'s frontend keywords."""
+        return self.logits_and_aux(tokens, **inputs)[0]
 
     @torch.no_grad()
-    def logits_causal(self, tokens: torch.Tensor) -> torch.Tensor:
+    def logits_causal(self, tokens: torch.Tensor, **inputs) -> torch.Tensor:
         """``forward`` without a graph, for serving."""
-        return self(tokens)
+        return self(tokens, **inputs)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Next-token loss of ``{"tokens", "labels"}`` (B, S): mean nll +
-        z-loss + the MoE aux loss (router z-loss and load balance, 0
-        without MoE blocks); labels below 0 are read as 0, as the reference
-        does."""
-        logits, aux = self.logits_and_aux(batch["tokens"])
+        """Next-token loss of ``{"tokens", "labels"}`` (B, S), with
+        ``"frames"`` or ``"patch_embeds"`` / ``"patch_pos"`` where the
+        model takes them: mean nll + z-loss + the MoE aux loss (router
+        z-loss and load balance, 0 without MoE blocks); labels below 0 are
+        read as 0, as the reference does."""
+        logits, aux = self.logits_and_aux(
+            batch["tokens"], **{k: batch[k] for k in FRONTEND_KEYS
+                                if k in batch})
         labels = batch["labels"].to(self.device).long().clamp_min(0)
         nll, zl = cross_entropy(logits, labels)
         return nll + zl + aux
 
     # ------------------------------------------------------------------
-    def cache_shapes(self, batch: int, s_max: int) -> Dict[str, Any]:
-        """{"layers": {"i{j}": {leaf: (n_periods, batch, ...)}}}."""
+    def cache_shapes(self, batch: int, s_max: int,
+                     t_src: int = 0) -> Dict[str, Any]:
+        """{"layers": {"i{j}": {leaf: (n_periods, batch, ...)}}}, with
+        {"cross": {"i{j}": {"k", "v": (n_periods, batch, t_src, Hk, Dh)}}}
+        for an encoder-decoder."""
         cfg = self.cfg
-        return {"layers": {
+        out: Dict[str, Any] = {"layers": {
             f"i{j}": {leaf: (cfg.n_periods,) + shape for leaf, shape in
                       blk.block_cache_shapes(cfg, kind, batch, s_max).items()}
             for j, kind in enumerate(cfg.block_pattern)}}
+        if cfg.encoder_decoder:
+            att = cfg.attention
+            kv = (cfg.n_periods, batch, t_src, att.n_kv_heads, att.head_dim)
+            out["cross"] = {f"i{j}": {"k": kv, "v": kv}
+                            for j in range(len(cfg.block_pattern))}
+        return out
 
-    def init_cache(self, batch: int, s_max: int) -> Dict[str, Any]:
+    def init_cache(self, batch: int, s_max: int,
+                   t_src: int = 0) -> Dict[str, Any]:
         """A zeroed fp32 cache (the kernels take fp32)."""
-        return {"layers": {
-            key: {leaf: torch.zeros(shape, device=self.device)
-                  for leaf, shape in leaves.items()}
-            for key, leaves in self.cache_shapes(batch, s_max)["layers"]
-            .items()}}
+        return {part: {key: {leaf: torch.zeros(shape, device=self.device)
+                             for leaf, shape in leaves.items()}
+                       for key, leaves in tree.items()}
+                for part, tree in self.cache_shapes(batch, s_max,
+                                                    t_src).items()}
+
+    @staticmethod
+    def _cache_cross(cache: Dict[str, Any]) -> List[blk.CrossKV]:
+        """The cache's cross (K, V) as ``apply_stack`` takes them: each
+        period's a contiguous view of the stacked leaves."""
+        cross = cache["cross"]
+        ks = {key: (c["k"].unbind(0), c["v"].unbind(0))
+              for key, c in cross.items()}
+        n = next(iter(cross.values()))["k"].shape[0]
+        return [{key: (k[i], v[i]) for key, (k, v) in ks.items()}
+                for i in range(n)]
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: Dict[str, Any],
-                last_pos: Optional[torch.Tensor] = None
+                last_pos: Optional[torch.Tensor] = None, *,
+                frames: Optional[torch.Tensor] = None,
+                patch_embeds: Optional[torch.Tensor] = None,
+                patch_pos: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Run the prompt tokens (B, S) through the model, filling
         ``cache`` (in place).  ``last_pos`` (B,) picks the position whose
-        logits are returned (right-padded prompts); default the last.
-        Returns (logits (B, 1, V), cache)."""
+        logits are returned (right-padded prompts); default the last.  An
+        encoder-decoder encodes ``frames`` and puts each period's cross
+        (K, V) in ``cache["cross"]`` (replacing its leaves, whatever their
+        T_src); without frames it reuses the cache's, as the reference
+        does.  Returns (logits (B, 1, V), cache)."""
         params = self.tree()
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, patch_embeds, patch_pos)
         positions = torch.arange(tokens.shape[1], device=self.device)[None]
+        cross = None
+        if self.cfg.encoder_decoder:
+            if frames is not None:
+                cross = self._cross_from_frames(params, frames)
+                cache["cross"] = {
+                    key: {"k": torch.stack([p[key][0] for p in cross]),
+                          "v": torch.stack([p[key][1] for p in cross])}
+                    for key in cross[0]}
+            cross = self._cache_cross(cache)
+        elif frames is not None:
+            raise ValueError(f"{self.cfg.name}: frames take an encoder")
         x = blk.apply_stack(self.cfg, params["stack"], x, positions,
-                            mode="prefill_cache", cache=cache["layers"])
+                            mode="prefill_cache", cache=cache["layers"],
+                            cross_kv=cross)
         if last_pos is not None:
             idx = last_pos.to(self.device).long()[:, None, None]
             x = torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1]))
@@ -139,12 +246,16 @@ class LM(ParamTree):
     def decode(self, tokens: torch.Tensor, cache: Dict[str, Any],
                lens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One decode step.  tokens (B, 1); lens (B,) int, each sequence's
-        length so far (a scalar is broadcast).  Returns (logits (B, 1, V),
-        cache advanced in place)."""
+        length so far (a scalar is broadcast).  An encoder-decoder's cross
+        attention reads ``cache["cross"]`` (decode writes none).  Returns
+        (logits (B, 1, V), cache advanced in place)."""
         params = self.tree()
         b = tokens.shape[0]
         lens = lens.to(self.device).long().reshape(-1).expand(b)
         x = self._embed(params, tokens)
+        cross = self._cache_cross(cache) if self.cfg.encoder_decoder \
+            else None
         x = blk.apply_stack(self.cfg, params["stack"], x, lens[:, None],
-                            mode="decode", cache=cache["layers"], lens=lens)
+                            mode="decode", cache=cache["layers"], lens=lens,
+                            cross_kv=cross)
         return self._head(params, x), cache

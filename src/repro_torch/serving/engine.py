@@ -1,6 +1,8 @@
 """Continuous-batching serving engine.
 
-Counterpart of ``repro/serving/engine.py``.  Slot-based scheduler:
+Counterpart of ``repro/serving/engine.py``: decoder-only archs, served
+from tokens (an encoder-decoder raises, as the reference asserts; the
+patch frontend's LM serves its prompts' tokens).  Slot-based scheduler:
 ``max_slots`` concurrent sequences share one batched cache.  Prefill runs
 per request (the prompt right-padded to a power-of-two bucket for attention
 archs; exact length when the arch has Mamba layers, whose recurrent state
@@ -52,6 +54,11 @@ def _bucket(n: int, lo: int = 16) -> int:
 class ServingEngine:
     def __init__(self, lm: LM, *, max_slots: int = 4, s_max: int = 512,
                  eos_id: int = 1):
+        if lm.cfg.encoder_decoder:
+            raise ValueError(f"{lm.cfg.name}: the engine serves decoder-only "
+                             "archs (an encoder-decoder's requests carry "
+                             "frames; drive LM.prefill(frames=...) and "
+                             "LM.decode)")
         self.cfg = lm.cfg
         self.lm = lm
         self.device = lm.device

@@ -521,7 +521,7 @@ def test_int8_quantization_card_equals_cpu(dev):
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m", "chatglm3-6b",
                                   "glm4-9b", "phi3-mini-3.8b",
                                   "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "pixtral-12b"])
 def test_lm_serving_card_equals_cpu(dev, arch):
     """The smoke LMs through the engine on the card and on the CPU, same
     weights: the same tokens."""
@@ -546,7 +546,7 @@ def _bwd_case(b, s, h, hk, d, kw):
     the same ids on every worker, card or not)."""
     from repro_torch.kernels.flash_attention.kernel import bwd_plan
 
-    splits = bwd_plan(b, s, h, hk, d)["splits"]
+    splits = bwd_plan(b, s, s, h, hk, d)["splits"]
     opts = "-".join(f"{k}{v}" for k, v in kw.items())
     return pytest.param(b, s, h, hk, d, kw,
                         id=f"B{b}-S{s}-H{h}-Hk{hk}-D{d}-{opts}-splits{splits}")
@@ -606,6 +606,159 @@ def test_flash_attention_backward_kernel(dev, b, s, h, hk, d, kw):
         assert err <= 2e-5 * max(want.abs().max().item(), 1.0), err
     for a, c in zip(grads[0], grads[2]):
         assert torch.equal(a, c)
+
+
+#: the rectangular kernels' cases (cross attention: Sq queries against Sk
+#: keys, no mask), (B, Sq, Sk, H, Hk, D, options): seamless-m4t-medium's
+#: prefill and training cross attention, a ragged one, a capped one and
+#: fewer keys than queries (chip_smoke.CROSS_SHAPES)
+CROSS_CASES = [
+    pytest.param(4, 16, 1024, 16, 16, 64, {}, id="seamless-prefill-cross"),
+    pytest.param(4, 128, 512, 16, 16, 64, {}, id="seamless-train-cross"),
+    pytest.param(2, 45, 130, 8, 4, 32, {}, id="ragged"),
+    pytest.param(2, 33, 257, 4, 2, 128, dict(cap=20.0), id="capped"),
+    pytest.param(2, 200, 77, 8, 8, 64, {}, id="sk-below-sq")]
+
+
+def _cross_inputs(b, sq, sk, h, hk, d, dev):
+    gen = torch.Generator().manual_seed(sq * sk + d)
+    return [torch.randn(shape, generator=gen).to(dev) for shape in
+            ((b, sq, h, d), (b, sk, hk, d), (b, sk, hk, d), (b, sq, h, d))]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,d,kw", CROSS_CASES)
+def test_flash_attention_cross_kernel(dev, b, sq, sk, h, hk, d, kw):
+    """The forward at Sq != Sk (``causal=False``) against its plain
+    version (2e-5), one launch a call, with and without the log-sum-exp
+    (the same output bit for bit); ``causal=True`` there is refused."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_lse_plain, flash_attention_plain)
+
+    q, k, v, _ = _cross_inputs(b, sq, sk, h, hk, d, dev)
+    reset_launch_counts()
+    got = flash_attention_cuda(q, k, v, causal=False, **kw)
+    assert launch_counts()["flash_attention_f32"] == 1
+    torch.testing.assert_close(
+        got, flash_attention_plain(q, k, v, causal=False, **kw), atol=2e-5,
+        rtol=2e-5)
+    out, lse = flash_attention_cuda(q, k, v, causal=False, lse=True, **kw)
+    assert torch.equal(out, got) and lse.shape == (b, h, sq)
+    torch.testing.assert_close(
+        lse, flash_attention_lse_plain(q, k, v, causal=False, **kw)[1],
+        atol=2e-5, rtol=2e-5)
+    with pytest.raises(ValueError, match="causal=False"):
+        flash_attention_cuda(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,d,kw", CROSS_CASES)
+def test_flash_attention_cross_backward_kernel(dev, b, sq, sk, h, hk, d,
+                                               kw):
+    """The backward at Sq != Sk: one launch of the forward with its
+    log-sum-exp and one of the backward; dQ, dK, dV against the plain
+    version's autograd (2e-5 of each gradient's largest magnitude); a
+    second backward equal bit for bit."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v, dout = _cross_inputs(b, sq, sk, h, hk, d, dev)
+    grads = []
+    for fn in (flash_attention, flash_attention_plain, flash_attention):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        reset_launch_counts()
+        out = fn(*leaves, causal=False, **kw)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if fn is flash_attention:
+            assert counts["flash_attention_lse_f32"] == 1
+            assert counts["flash_attention_bwd_f32"] == 1
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    for got, want in zip(grads[0], grads[1]):
+        assert got.shape == want.shape
+        err = (got - want).abs().max().item()
+        assert err <= 2e-5 * max(want.abs().max().item(), 1.0), err
+    for a, c in zip(grads[0], grads[2]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(4, 1024, 16, 64), (2, 77, 4, 64)])
+def test_decode_attention_cross_kernel(dev, b, s, h, d):
+    """decode_attention at G 1, D 64 with every row's kv_len the cache's
+    whole length (a decode step's cross attention to the encoder's
+    frames), against its plain version (2e-5), one launch."""
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_plain
+
+    gen = torch.Generator().manual_seed(s)
+    q = torch.randn(b, 1, h, d, generator=gen).to(dev)
+    k = torch.randn(b, s, h, d, generator=gen).to(dev)
+    v = torch.randn(b, s, h, d, generator=gen).to(dev)
+    kv_len = torch.full((b, 1), s, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    got = decode_attention_cuda(q, k, v, kv_len)
+    assert launch_counts()["decode_attention_f32"] == 1
+    torch.testing.assert_close(got, decode_attention_plain(q, k, v, kv_len),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "pixtral-12b"])
+def test_encdec_and_patch_card_equals_cpu(dev, arch):
+    """The smoke encoder-decoder (frames) and patch-frontend (patches at
+    positions with a repeat) LMs on the card and on the CPU, same weights
+    and inputs: causal logits (1e-4), prefill and two greedy decode steps'
+    tokens equal; the loss's gradients held to a float64 run on the CPU,
+    each leaf within 1e-4 of its largest |g| or no farther than twice the
+    CPU's fp32 gradient (the random-weight attention is near an argmax,
+    so fp32 rounding moves a leaf: seamless-smoke's CPU fp32 gradient is
+    up to 8e-4 of a leaf's largest |g| from float64)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import LM
+
+    cfg = smoke_config(arch)
+    cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = LM(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(0)
+    tokens = torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, 24)))
+    if cfg.encoder_decoder:
+        inputs = {"frames": torch.from_numpy(
+            rs.standard_normal((2, 40, cfg.d_model)).astype(np.float32))}
+    else:
+        inputs = {"patch_embeds": torch.from_numpy(
+            rs.standard_normal((2, 5, cfg.d_model)).astype(np.float32)),
+            "patch_pos": torch.tensor([[0, 3, 3, 9, 20], [1, 1, 1, 5, 6]])}
+    outs = []
+    cpu64 = LM(cfg, device="cpu")
+    cpu64.load_state_dict(cpu.state_dict())
+    cpu64.double()
+    for p in cpu64.parameters():
+        p.requires_grad_(True)
+    cpu64.loss({"tokens": tokens, "labels": tokens.roll(-1, 1),
+                **{k: v.double() if v.is_floating_point() else v
+                   for k, v in inputs.items()}}).backward()
+    exact = {n: p.grad for n, p in cpu64.named_parameters()}
+    for lm in (cpu, card):
+        on = {k: v.to(lm.device) for k, v in inputs.items()}
+        logits = lm.logits_causal(tokens.to(lm.device), **on).cpu()
+        cache = lm.init_cache(2, 32, t_src=40)
+        lg, cache = lm.prefill(tokens.to(lm.device), cache, **on)
+        toks = [lg[:, 0].argmax(-1)]
+        for t in range(2):
+            lg, cache = lm.decode(toks[-1][:, None], cache,
+                                  torch.tensor(24 + t))
+            toks.append(lg[:, 0].argmax(-1))
+        for p in lm.parameters():
+            p.requires_grad_(True)
+        lm.loss({"tokens": tokens.to(lm.device),
+                 "labels": tokens.roll(-1, 1).to(lm.device), **on}).backward()
+        grads = {n: p.grad.cpu() for n, p in lm.named_parameters()}
+        outs.append((logits, torch.stack(toks, 1).cpu(), grads))
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-4)
+    assert torch.equal(outs[1][1], outs[0][1])
+    for n, g in exact.items():
+        top = max(g.abs().max().item(), 1e-30)
+        far_cpu, far_card = ((o[2][n].double() - g).abs().max().item() / top
+                             for o in outs)
+        assert far_card <= max(1e-4, 2 * far_cpu), (n, far_card, far_cpu)
 
 
 def test_flash_attention_lse_forward_equals_serving_forward(dev):

@@ -13,7 +13,10 @@ count lies in 1 .. G, so the C source's head ranges put every head of a
 group in exactly one split, in head order; a split plan's dK/dV blocks fit
 the card at once; the shared memory fits a block; the scratch holds each
 split's dK and dV (none with one split); the launch's blocks keep within
-CUDA's grid limit; and the same shape always gives the same plan.
+CUDA's grid limit; and the same shape always gives the same plan.  The
+rectangular shapes (cross attention, ``chip_smoke.CROSS_SHAPES``: Sq
+queries against Sk keys) are held to the same rules, the dK/dV blocks
+tiling the keys, the dQ blocks the queries and the scratch the keys.
 """
 import importlib.util
 from pathlib import Path
@@ -37,7 +40,10 @@ def _module(name, path):
     return mod
 
 
-PATH = _module("chip_smoke", ROOT / "chip_smoke.py").BWD_PATH
+SMOKE = _module("chip_smoke", ROOT / "chip_smoke.py")
+PATH = SMOKE.BWD_PATH
+#: (B, Sq, Sk, H, Hk, D) of the rectangular shapes the card runs
+CROSS = {label: c[:6] for label, c in SMOKE.CROSS_SHAPES.items()}
 CASES = _module("_torch_cuda_cases",
                 ROOT / "tests" / "test_torch_cuda.py").BWD_CASES
 #: (B, S, H, Hk, D) of every shape the card runs the backward at
@@ -46,8 +52,10 @@ SHAPES = sorted({tuple(s) for s in PATH.values()}
 GROUPS = (1, 2, 16, 64)
 
 
-def check_plan(b, s, h, hk, d):
-    plan = bwd_plan(b, s, h, hk, d)
+def check_plan(b, s, h, hk, d, sk=None):
+    """The plan at ``s`` queries against ``sk`` keys (default ``s``)."""
+    sk = s if sk is None else sk
+    plan = bwd_plan(b, s, sk, h, hk, d)
     g, splits = h // hk, plan["splits"]
     assert 1 <= splits <= g
     # the C source's ranges (dkdv_block's g0, g1): each head in exactly
@@ -58,17 +66,17 @@ def check_plan(b, s, h, hk, d):
     assert all(lo < hi for lo, hi in heads)
     t = bwd_tiles(d)
     assert t["smem"] <= SMEM_BLOCK
-    n = b * s * hk * d
+    n = b * sk * hk * d
     assert plan["scratch"] == (2 * splits * n if splits > 1 else 0)
-    tiles = -(-s // t["rows"])
+    tiles, q_tiles = -(-sk // t["rows"]), -(-s // t["rows"])
     # the main launch: the dK/dV blocks, then the dQ blocks; the merge
     # pass: 256 threads a block, four elements a thread
-    assert 0 < tiles * (splits * hk + h) * b <= MAX_GRID_X
+    assert 0 < (tiles * splits * hk + q_tiles * h) * b <= MAX_GRID_X
     assert -(-n // 1024) <= MAX_GRID_X
     # the dK/dV blocks of a split plan fit the card at once
     if splits > 1:
         assert tiles * splits * hk * b <= H100_SMS * t["per_sm"]
-    assert bwd_plan(b, s, h, hk, d) == plan
+    assert bwd_plan(b, s, sk, h, hk, d) == plan
     return plan
 
 
@@ -77,6 +85,14 @@ def check_plan(b, s, h, hk, d):
                               for s in SHAPES])
 def test_plan_at_the_card_shapes(shape):
     check_plan(*shape)
+
+
+@pytest.mark.parametrize("label", sorted(CROSS))
+def test_plan_at_the_cross_shapes(label):
+    """The rectangular shapes, and each with its two lengths swapped."""
+    b, sq, sk, h, hk, d = CROSS[label]
+    check_plan(b, sq, h, hk, d, sk=sk)
+    check_plan(b, sk, h, hk, d, sk=sq)
 
 
 @pytest.mark.parametrize("g", GROUPS)
@@ -94,7 +110,7 @@ def test_chatglm3_micro_batch_fills_the_card():
     dK/dV kernel has at least as many blocks as the card has SMs (one
     split had 32 blocks)."""
     b, s, h, hk, d = PATH["chatglm3_b8_s64"]
-    splits = bwd_plan(b, s, h, hk, d)["splits"]
+    splits = bwd_plan(b, s, s, h, hk, d)["splits"]
     tiles = -(-s // bwd_tiles(d)["rows"])
     assert splits > 1 and tiles * splits * hk * b >= H100_SMS
 
@@ -104,7 +120,8 @@ def test_one_split_where_the_blocks_fill_the_card():
     scratch."""
     for label, shape in PATH.items():
         if label.startswith(("mllm", "small")):
-            plan = bwd_plan(*shape)
+            b, s, h, hk, d = shape
+            plan = bwd_plan(b, s, s, h, hk, d)
             assert plan["splits"] == 1 and plan["scratch"] == 0, label
 
 
@@ -121,4 +138,4 @@ def test_tiles_per_head_dim():
     with pytest.raises(ValueError):
         bwd_tiles(48)
     with pytest.raises(ValueError):
-        bwd_plan(1, 8, 130, 2, 32)
+        bwd_plan(1, 8, 8, 130, 2, 32)

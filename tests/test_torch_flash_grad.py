@@ -1,7 +1,9 @@
 """flash_attention's gradient on the CPU: the plain version under autograd
 against ``jax.vjp`` of the reference's plain attention
 (``repro.models.attention.full_attention``, and ``_windowed_full_attention``
-for a sliding window), on the same numpy inputs and output gradient.
+for a sliding window), on the same numpy inputs and output gradient; and
+at Sq != Sk (cross attention) against ``chunked_bidir_attention``, the
+reference's encoder and cross attention.
 
 The port trains through this function on the CPU; on the card the same
 gradient comes from the backward kernel (``FlashAttentionFn``), held to
@@ -18,6 +20,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.models.attention import (_windowed_full_attention,  # noqa: E402
+                                    chunked_bidir_attention,
                                     full_attention)
 
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
@@ -87,3 +90,55 @@ def test_cpu_tensors_never_take_the_kernel_function():
     assert "FlashAttentionFn" not in type(out.grad_fn).__name__
     out.sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+# (Sq, Sk, H, Hk, D, cap, q_block): decoder tokens against more frames,
+# fewer, a group of 2, a cap, and the reference's q-block scan (Sq a
+# multiple of its q_block)
+CROSS_CASES = [
+    (8, 37, 4, 4, 16, None, 1024),
+    (21, 6, 4, 2, 16, None, 1024),
+    (12, 40, 8, 2, 32, 30.0, 1024),
+    (32, 19, 4, 4, 16, None, 16),
+]
+
+
+@pytest.mark.parametrize("sq,sk,h,hk,d,cap,q_block", CROSS_CASES)
+def test_rectangular_gradient_matches_reference(sq, sk, h, hk, d, cap,
+                                                q_block):
+    """The plain version at Sq != Sk (``causal=False``) and its gradient
+    against ``jax.vjp`` of ``chunked_bidir_attention``."""
+    rs = np.random.RandomState(sq * 100 + sk)
+    q = rs.randn(2, sq, h, d).astype(np.float32)
+    k = rs.randn(2, sk, hk, d).astype(np.float32)
+    v = rs.randn(2, sk, hk, d).astype(np.float32)
+    dout = rs.randn(2, sq, h, d).astype(np.float32)
+
+    out_j, vjp = jax.vjp(
+        lambda q, k, v: chunked_bidir_attention(q, k, v, cap=cap,
+                                                q_block=q_block),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    grads_j = vjp(jnp.asarray(dout))
+
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=False, cap=cap)
+    assert out.shape == (2, sq, h, d)
+    out.backward(torch.from_numpy(dout))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               atol=TOL, rtol=TOL)
+    for name, got, want in zip("qkv", (tq.grad, tk.grad, tv.grad), grads_j):
+        want = np.asarray(want)
+        assert got.shape == want.shape
+        err = np.abs(got.numpy() - want).max()
+        assert err <= TOL * np.abs(want).max(), (name, err)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False,
+                                                        window=4)])
+def test_rectangular_with_a_mask_raises(kw):
+    """A causal mask or a window over queries and keys of different
+    lengths has no meaning: the plain version refuses it, as the kernels'
+    wrappers do."""
+    q, k = torch.zeros(1, 8, 2, 16), torch.zeros(1, 12, 2, 16)
+    with pytest.raises(ValueError, match="causal=False and no window"):
+        flash_attention(q, k, k, **kw)
