@@ -220,6 +220,28 @@ Phases (any failure exits non-zero and prints no result line):
      keys, no mask) to their plain versions and float64, and time the
      seamless shapes beside SDPA; phase 2 times decode_attention at the
      seamless cross decode (G 1, D 64, 1024 keys).
+ 21. the LM zoo in bf16 (after 20): (a) chatglm3-6b at full width and
+     depth, phase 12's seeded weights cast once to bf16 (``LM.cast_``),
+     through ``ServingEngine(max_slots=4, s_max=8192, dtype=bfloat16)`` on
+     phase 12's requests (``chatglm3_bf16_serve``: flash_attention_bf16 a
+     layer a prefill, decode_attention_bf16 a layer a decode step), its
+     decode ticks profiled, printed beside phase 12's fp32 run with the
+     top-1 agreement (not gated); (b) moonshot-v1-16b-a3b at full width
+     and all 48 layers built in bf16 (``moonshot_bf16_serve``), peak under
+     80 GB; (c) card == CPU at bf16, full width, depth 2, for gemma2-2b,
+     chatglm3-6b, phi3-mini-3.8b, mamba2-130m and seamless-m4t-medium: the
+     CPU bf16 run's greedy tokens fed to the card, the card's logits no
+     farther from an fp32 run of the same bf16-rounded weights than twice
+     the CPU bf16 run's; (d) the bf16 step (``REPRO_CAST_BF16_STEP=1``):
+     mamba2-130m through launch/train.py (``mamba2_bf16_step_train``),
+     then chatglm3-6b at depth 2 card == CPU on three steps
+     (``chatglm3_bf16_step_vs_cpu``); (e) a bf16 flash_attention with grad
+     on is refused.  Phase 2 also holds the bf16 kernels
+     (flash_attention_bf16 at the fp32 sweep's head dims, groups and
+     options and ``CROSS_SHAPES``; decode_attention_bf16 at gemma2's,
+     chatglm3's, phi3-mini's and seamless's cross decode shapes) to their
+     plain versions (2e-2, 3e-2) and to float64 on the same bf16 inputs
+     (``bf16_vs_float64``), timed beside SDPA in bf16 (a yardstick).
 
 Each phase that drives a plan zeroes the kernels' launch counts first and
 reads them after; a kernel of the plan that was never launched fails the
@@ -256,6 +278,7 @@ HBM_BYTES_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_OPS_S = 67e12           # H100 SXM fp32 outside the tensor cores
 TF32_OPS_S = 495e12          # H100 SXM dense TF32 on the tensor cores
 INT8_OPS_S = 1979e12         # H100 SXM dense int8 on the tensor cores
+BF16_OPS_S = 989e12          # H100 SXM dense bf16 on the tensor cores
 #: flash_attention runs each fp32 product as three TF32 products (3xTF32):
 #: its operations bound is at a third of the TF32 rate
 FLASH_OPS_S = TF32_OPS_S / 3
@@ -273,7 +296,9 @@ FLASH_OPS_S = TF32_OPS_S / 3
 TOL = {"frame_diff": 1e-6, "fused_preprocess": 1e-5, "flash_attention": 2e-5,
        "fused_prefix": 1e-5, "decode_attention": 2e-5, "ssd_scan": 1e-4,
        "int8_matmul": 0.0, "flash_attention_lse": 2e-5,
-       "flash_attention_bwd": 2e-5, "ssd_scan_bwd": 1e-4}
+       "flash_attention_bwd": 2e-5, "ssd_scan_bwd": 1e-4,
+       # bf16 (phase 2, 21): the reference sweep's bf16 tolerances
+       "flash_attention_bf16": 2e-2, "decode_attention_bf16": 3e-2}
 KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
     "frame_diff": ("frame_diff_u8",
                    "src/repro_torch/kernels/csrc/frame_diff.cu",
@@ -312,6 +337,16 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
     "ssd_scan_bwd": ("ssd_scan_bwd_f32",
                      "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:55"),
+    # the LM zoo in bf16 (phase 21): the two TPU kernels' bf16 half
+    "flash_attention_bf16": ("flash_attention_bf16",
+                             "src/repro_torch/kernels/csrc/"
+                             "flash_attention.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:94"),
+    "decode_attention_bf16": ("decode_attention_bf16",
+                              "src/repro_torch/kernels/csrc/"
+                              "decode_attention.cu",
+                              "src/repro/kernels/decode_attention/"
+                              "kernel.py:69"),
 }
 #: a kernel's other launches, each its own C entry point with its own
 #: count, made once with every launch of the kernel's entry above
@@ -332,7 +367,8 @@ PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
          "mllm_train_vs_cpu", "mllm_resume", "mamba2_train",
          "mamba2_train_vs_cpu", "moonshot_serve", "moonshot_train",
          "jamba_train", "seamless_serve", "pixtral_serve", "seamless_train",
-         "pixtral_train")
+         "pixtral_train", "chatglm3_bf16_serve", "moonshot_bf16_serve",
+         "mamba2_bf16_step_train", "chatglm3_bf16_step_vs_cpu")
 #: the volleyball stream's seed (Q10-Q13); TollBooth's is STREAM_SEED
 VOLLEYBALL_SEED = 3
 #: the semantic gate's threshold on the card (phase 15)
@@ -682,6 +718,7 @@ def kernel_checks(dev):
     lm_kernel_checks(compare, gen, dev, rows)
     cross_kernel_checks(compare, gen, dev, rows)
     magnitude_checks(gen, dev)
+    bf16_kernel_checks(compare, gen, dev, rows)
     rows.update(int8_checks(dev))
     t = rows["frame_diff"]
     print(f"  frame_diff at the path's shape: kernel {t['ms']:.4f} ms, plain "
@@ -1174,14 +1211,16 @@ def cross_kernel_checks(compare, gen, dev, rows):
           f"{t['bound'][0]:.5f} ms ({t['bound'][1]}, {nbytes} B)")
 
 
-def attention64(q, k, v, mask):
+def attention64(q, k, v, mask, cap=None):
     """float64 attention in model layout, the value both fp32 versions are
     measured against: q (B, Sq, H, D), k/v (B, S, Hk, D), mask (B, Sq, S)
-    of the visible keys."""
+    of the visible keys, the logits soft-capped at ``cap`` when given."""
     b, sq, h, d = q.shape
     hk = k.shape[2]
     qg = q.double().reshape(b, sq, hk, h // hk, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double()) / math.sqrt(d)
+    if cap is not None:
+        logits = cap * torch.tanh(logits / cap)
     logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
     out = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(logits, -1),
                        v.double())
@@ -1302,6 +1341,222 @@ def magnitude_checks(gen, dev):
                   f"magnitudes {label}: the kernel is {far['kernel']} from "
                   f"float64, the plain versions {far['plain']} (card) and "
                   f"{far['cpu']} (CPU)")
+
+
+#: the bf16 kernels' float64 gate: against float64 on the same bf16
+#: inputs, the kernel no farther than BF16_WITNESS times the plain bf16
+#: output (fp32 inside, rounded once), plus one bf16 ulp of the largest
+#: output (two roundings of one value can part by an ulp)
+BF16_WITNESS = 2.0
+#: the timed S8192 prefills are held to float64 on their last rows (every
+#: key visible to them; a float64 softmax over all 8192 rows is 17 GB)
+BF16_F64_ROWS = 256
+
+
+def bf16_ulp(top):
+    """One bf16 ulp at magnitude ``top`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+#: the bf16 float64 gate's worst kernel distance over the bar, by kernel
+BF16_F64 = {"flash_attention_bf16": 0.0, "decode_attention_bf16": 0.0}
+
+
+def bf16_vs_float64(name, got, plain, exact, label):
+    """The bf16 kernel's output ``got`` and the plain version's ``plain``
+    against ``exact`` (float64 on the same bf16 inputs): the kernel within
+    BF16_WITNESS times the plain version's distance plus one bf16 ulp of
+    the largest |exact|."""
+    got, plain, exact = (t.double().cpu() for t in (got, plain, exact))
+    top = exact.abs().max().item()
+    d_k = (got - exact).abs().max().item()
+    d_p = (plain - exact).abs().max().item()
+    bar = BF16_WITNESS * d_p + bf16_ulp(top)
+    BF16_F64[name] = max(BF16_F64[name], d_k / bar if bar else 0.0)
+    check(d_k <= bar, f"{name} {label}: {d_k:.3e} from float64, the plain "
+          f"bf16 version {d_p:.3e} (bar {bar:.3e})")
+    return d_k, d_p
+
+
+def flash_mask(sq, sk, kw, dev):
+    """(1, Sq, Sk) visible keys of flash_attention's options."""
+    if not kw.get("causal", True):
+        return torch.ones(1, sq, sk, dtype=torch.bool, device=dev)
+    pos = torch.arange(sq, device=dev)
+    mask = pos[None, :] <= pos[:, None]
+    if kw.get("window"):
+        mask &= pos[None, :] > pos[:, None] - kw["window"]
+    return mask[None]
+
+
+def bf16_kernel_checks(compare, gen, dev, rows):
+    """flash_attention_bf16 and decode_attention_bf16 on bf16 inputs: the
+    flash cases of the fp32 sweep (every head dim, groups 1, 2, 16 and 64,
+    S 1, 33, 257, bidirectional, capped, windowed) and ``CROSS_SHAPES``;
+    decode at gemma2's (local and global), chatglm3's and phi3-mini's
+    decode shapes (the served ticks' two classes and ragged slots) and the
+    seamless cross decode.  Each held to its plain version (TOL) and to
+    float64 on the same inputs (``bf16_vs_float64``); timed at the served
+    LMs' shapes beside PyTorch's SDPA in bf16 (a yardstick only), bound by
+    2 bytes an element and 989 TFLOP/s.  Adds rows["flash_attention_bf16"]
+    and rows["decode_attention_bf16"]."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_plain
+    from repro_torch.kernels.flash_attention.kernel import (
+        HEAD_DIMS, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev, bf)
+
+    def flash_case(b, sq, sk, h, hk, d, kw, label, rows64=None):
+        q, k, v = randn(b, sq, h, d), randn(b, sk, hk, d), randn(b, sk, hk, d)
+        got = flash_attention_cuda(q, k, v, **kw)
+        plain = flash_attention_plain(q, k, v, **kw)
+        check(got.dtype == bf, f"flash_attention_bf16 {label}: {got.dtype}")
+        compare("flash_attention_bf16", got, plain, label)
+        r0 = 0 if rows64 is None else sq - rows64
+        exact = attention64(q[:, r0:], k, v,
+                            flash_mask(sq, sk, kw, dev)[:, r0:],
+                            kw.get("cap"))
+        bf16_vs_float64("flash_attention_bf16", got[:, r0:], plain[:, r0:],
+                        exact, label)
+        return q, k, v
+
+    t0 = time.perf_counter()
+    for d in HEAD_DIMS:
+        for g in (1, 2, 16, 64):
+            hk = 1 if g == 64 else 2
+            for s in (1, 33, 257):
+                for kw in (dict(causal=False), dict(causal=True, cap=20.0),
+                           dict(causal=True, window=7)):
+                    flash_case(1, s, s, g * hk, hk, d, kw,
+                               f"B1 S{s} H{g * hk}/{hk} D{d} {kw}")
+    for label, (b, sq, sk, h, hk, d, kw) in CROSS_SHAPES.items():
+        flash_case(b, sq, sk, h, hk, d, dict(causal=False, **kw),
+                   f"{label} B{b} Sq{sq} Sk{sk} H{h}/{hk} D{d}")
+    print(f"  flash_attention_bf16: {len(HEAD_DIMS) * 4 * 9} sweep and "
+          f"{len(CROSS_SHAPES)} cross cases in "
+          f"{time.perf_counter() - t0:.1f} s; against float64 at most "
+          f"{BF16_F64['flash_attention_bf16']:.3f} of the bar")
+
+    # timed: the served LMs' prefill of an 8192 bucket (chatglm3-6b first:
+    # phase 21's path), and seamless's prefill cross attention
+    flash_rows = {}
+    s = 8192
+    for which, h, hk, d, kw in (
+            ("chatglm3_prefill", 32, 2, 128, dict(causal=True)),
+            ("phi3_prefill", 32, 32, 96, dict(causal=True)),
+            ("gemma2_prefill", 8, 4, 256,
+             dict(causal=True, cap=50.0, window=4096))):
+        label = f"{which} B1 S{s} H{h}/{hk} D{d} {kw}"
+        q, k, v = flash_case(1, s, s, h, hk, d, kw, label,
+                             rows64=BF16_F64_ROWS)
+        w = kw.get("window")
+        pairs = (w * (w + 1) // 2 + (s - w) * w) if w else s * (s + 1) // 2
+        nbytes, ops = 2 * (2 * q.numel() + 2 * k.numel()), 4 * d * pairs * h
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        mask = flash_mask(s, s, kw, dev)[0] if w else None
+        t = dict(ms=device_ms(lambda: flash_attention_cuda(q, k, v, **kw),
+                              n=2, reps=3),
+                 plain_ms=device_ms(lambda: flash_attention_plain(
+                     q, k, v, **kw), n=1, reps=3),
+                 library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+                     enable_gqa=True), n=2, reps=3),
+                 bound=bound(nbytes, ops, BF16_OPS_S))
+        flash_rows[which] = t
+        print(f"  flash_attention_bf16 {label}: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, SDPA bf16"
+              f"{' without the cap' if kw.get('cap') else ''} "
+              f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
+              f"({t['bound'][1]}, bf16 at {BF16_OPS_S / 1e12:.0f} TFLOP/s)")
+        del q, k, v, qh, kh, vh, mask
+        torch.cuda.empty_cache()
+    b, sq, sk, h, hk, d, kw = CROSS_SHAPES["seamless_prefill_cross"]
+    q, k, v = randn(b, sq, h, d), randn(b, sk, hk, d), randn(b, sk, hk, d)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    t = dict(ms=device_ms(lambda: flash_attention_cuda(q, k, v,
+                                                       causal=False)),
+             plain_ms=device_ms(lambda: flash_attention_plain(
+                 q, k, v, causal=False), n=8),
+             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                 qh, kh, vh, enable_gqa=True)),
+             bound=bound(2 * (2 * q.numel() + 2 * k.numel()),
+                         4 * d * sq * sk * h * b, BF16_OPS_S))
+    flash_rows["seamless_prefill_cross"] = t
+    print(f"  flash_attention_bf16 seamless_prefill_cross: kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA bf16 "
+          f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
+          f"({t['bound'][1]})")
+    rows["flash_attention_bf16"] = {**flash_rows.pop("chatglm3_prefill"),
+                                    **flash_rows}
+
+    # decode: (B, S, H, Hk, D, lens, kw, timed label or None)
+    lens, short = LONG_LENS, SHORT_LENS
+    cases = [(4, 8192, 32, 2, 128, lens, {}, "chatglm3_decode"),
+             (4, 8192, 32, 2, 128, short, {}, "chatglm3_short"),
+             (4, 8192, 8, 4, 256, lens, dict(cap=50.0, window=4096),
+              "local"),
+             (4, 8192, 8, 4, 256, lens, dict(cap=50.0), "global"),
+             (4, 8192, 8, 4, 256, short, dict(cap=50.0, window=4096),
+              "gemma2_short"),
+             (4, 8192, 32, 32, 96, lens, {}, "phi3_decode"),
+             (4, 8192, 32, 32, 96, short, {}, "phi3_short"),
+             CROSS_DECODE + ([CROSS_DECODE[1]] * CROSS_DECODE[0], {},
+                             "seamless_cross_decode"),
+             (4, 8192, 32, 2, 128, [1, 1, 1, 1], {}, None),
+             (4, 8192, 32, 2, 128, [6, 129, 2049, 8192], {}, None),
+             (2, 1000, 8, 8, 16, [999, 161], dict(window=517), None),
+             (2, 64, 4, 4, 32, [17, 3], dict(cap=20.0), None),
+             (3, 96, 8, 2, 64, [1, 9, 96], dict(window=8), None),
+             (2, 100, 6, 2, 64, [100, 37], {}, None)]
+    dec_rows = {}
+    for b, s, h, hk, d, ln, kw, which in cases:
+        q, k, v = randn(b, 1, h, d), randn(b, s, hk, d), randn(b, s, hk, d)
+        kv_len = torch.tensor(ln, dtype=torch.int32, device=dev)[:, None]
+        label = f"B{b} S{s} H{h}/{hk} D{d} len {ln} {kw}"
+        got = decode_attention_cuda(q, k, v, kv_len, **kw)
+        plain = decode_attention_plain(q, k, v, kv_len, **kw)
+        check(got.dtype == bf, f"decode_attention_bf16 {label}: {got.dtype}")
+        compare("decode_attention_bf16", got, plain, label)
+        kpos = torch.arange(s, device=dev)[None, None, :]
+        mask = kpos < kv_len[:, :, None]
+        if kw.get("window"):
+            mask &= kpos > kv_len[:, :, None] - 1 - kw["window"]
+        bf16_vs_float64("decode_attention_bf16", got, plain,
+                        attention64(q, k, v, mask, kw.get("cap")), label)
+        if which is None:
+            continue
+        n_live = int(mask.sum())
+        nbytes = 2 * (2 * q.numel() + 2 * hk * d * n_live) + 4 * b
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        t = dict(
+            ms=device_ms(lambda: decode_attention_cuda(q, k, v, kv_len,
+                                                       **kw)),
+            plain_ms=device_ms(lambda: decode_attention_plain(
+                q, k, v, kv_len, **kw), n=8),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask[:, None], enable_gqa=True)),
+            bound=bound(nbytes, 4 * d * h * n_live, BF16_OPS_S),
+            live_keys=n_live, bytes=nbytes)
+        dec_rows[which] = t
+        print(f"  decode_attention_bf16 {which} {label} ({n_live} live keys "
+              f"x {hk} kv heads): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, SDPA bf16"
+              f"{' without the cap' if kw.get('cap') else ''} "
+              f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
+              f"({t['bound'][1]}, {nbytes} B)")
+    print(f"  decode_attention_bf16: against float64 at most "
+          f"{BF16_F64['decode_attention_bf16']:.3f} of the bar")
+    rows["decode_attention_bf16"] = {**dec_rows.pop("chatglm3_decode"),
+                                     **dec_rows}
 
 
 def int8_yardstick(x_q, w_q, sx, sw):
@@ -2373,16 +2628,20 @@ def serve_requests(cfg, long_len):
 
 
 def serve_phase(name, arch, dev, per_prefill=(), per_decode=(), lm=None,
-                depth=None):
+                depth=None, dtype=torch.float32, build_in_dtype=False):
     """One LM at full width (at ``depth`` layers where given, else the
-    config's) through ``ServingEngine``: seeded random
+    config's) through ``ServingEngine(dtype=dtype)``: seeded random
     weights drawn on the card and a warm-up run (a short and a long
     request), or the given ``lm``, already warm; then the measured run of
     ``serve_requests`` with the launch counts zeroed just before and read
-    just after.  Each kernel of ``per_prefill`` must have launched once per
-    layer per prefill, each of ``per_decode`` once per layer per decode
-    step.  Returns the numbers, the counts, the LM, the engine and the
-    finished requests."""
+    just after.  At a ``dtype`` other than fp32 the weights are drawn in
+    fp32 and cast once (``LM.cast_``: the fp32 model's weights, rounded),
+    or, with ``build_in_dtype``, held in ``dtype`` from the start (a model
+    whose fp32 weights would not fit; other numbers at the same seed).
+    Each kernel of ``per_prefill`` must have launched once per layer per
+    prefill, each of ``per_decode`` once per layer per decode step.
+    Returns the numbers, the counts, the LM, the engine and the finished
+    requests."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.model import LM
@@ -2391,17 +2650,24 @@ def serve_phase(name, arch, dev, per_prefill=(), per_decode=(), lm=None,
     cfg = get_config(arch)
     if depth is not None:
         cfg = cfg.replace(n_layers=depth)
-    kw = dict(max_slots=SERVE_SLOTS, s_max=SERVE_S_MAX, eos_id=-1)
+    kw = dict(max_slots=SERVE_SLOTS, s_max=SERVE_S_MAX, eos_id=-1,
+              dtype=dtype)
     if lm is None:
         t0 = time.perf_counter()
-        lm = LM(cfg, device=dev).init(
-            torch.Generator(device=dev).manual_seed(0))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if build_in_dtype:
+            lm = LM(cfg, device=dev, dtype=dtype).init(gen)
+        else:
+            lm = LM(cfg, device=dev).init(gen)
+            if dtype != torch.float32:
+                lm.cast_(dtype)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in lm.parameters())
-        print(f"  {arch}: {n_params / 1e9:.3f} G parameters (fp32, "
-              f"{4 * n_params / 1e9:.2f} GB) drawn on the card in "
-              f"{time.perf_counter() - t0:.2f} s; {cfg.n_layers} layers, "
-              f"d_model {cfg.d_model}, vocab {cfg.vocab_size}")
+        n_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+        print(f"  {arch}: {n_params / 1e9:.3f} G parameters "
+              f"({n_bytes / 1e9:.2f} GB, compute dtype {dtype}) drawn on the "
+              f"card in {time.perf_counter() - t0:.2f} s; {cfg.n_layers} "
+              f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}")
         warm = timed_engine(lm, **kw)
         rs = np.random.RandomState(2)
         warm.run([Request(uid=-1, prompt=[2, 3, 4, 5], max_new_tokens=2),
@@ -2688,6 +2954,7 @@ def chatglm3_int8(dev, rows):
     # the reference test's logits: two rows of 32 tokens, fp32 weights
     tokens = torch.arange(64).reshape(2, 32) % lm.cfg.vocab_size
     fp32_top1 = lm.logits_causal(tokens).argmax(-1).cpu()
+    FP32_CHATGLM3.update(top1=fp32_top1, out=fp32_out)
 
     torch.cuda.reset_peak_memory_stats()
     params = lm.tree()
@@ -3362,7 +3629,7 @@ def pretrain_phase(dev, q8_random_score):
 
 
 def train_vs_cpu(label, card, make, batches, witness_ctx, opt,
-                 steps=CARD_CPU_STEPS):
+                 steps=CARD_CPU_STEPS, step_ctx=contextlib.nullcontext):
     """The first ``steps`` AdamW steps (``opt``) of ``card`` (a model
     on the card whose ``loss(batch)`` trains it) on ``batches(t)`` (CPU
     tensors); before each, a CPU copy and a second card copy that runs
@@ -3373,6 +3640,7 @@ def train_vs_cpu(label, card, make, batches, witness_ctx, opt,
     from the CPU than BWD_WITNESS times the witness.  A trajectory is not
     compared over several steps: AdamW's first steps are near sign steps,
     so leaves with near-zero gradients step either way on either device.
+    ``step_ctx`` wraps every loss (the bf16 step's ``cast_step``).
     Returns the launch counts of the card's steps and a summary."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.training.optimizer import adamw_init, adamw_update
@@ -3386,7 +3654,8 @@ def train_vs_cpu(label, card, make, batches, witness_ctx, opt,
         for p in m.parameters():
             p.grad = None
         dev = next(m.parameters()).device
-        loss = m.loss({k: v.to(dev) for k, v in batch.items()})
+        with step_ctx():
+            loss = m.loss({k: v.to(dev) for k, v in batch.items()})
         loss.backward()
         return loss.item(), {n: p.grad for n, p in m.named_parameters()}
 
@@ -3543,12 +3812,14 @@ def _lm_train_opt():
     return OptimizerConfig(lr=1e-3, warmup_steps=5, total_steps=50)
 
 
-def launcher_train(label, args, smi, want_launches):
+def launcher_train(label, args, smi, want_launches, env=None):
     """``launch/train.py`` in its own process (its last line is a JSON
-    summary): exits 0, finite losses, and each symbol of
-    ``want_launches`` launched exactly as often.  Returns the summary."""
+    summary), with ``env``'s variables set: exits 0, finite losses, and
+    each symbol of ``want_launches`` launched exactly as often.  Returns
+    the summary."""
     cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               **(env or {}))
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=600)
@@ -3922,7 +4193,7 @@ def frontend_extra(cfg, t_src=0, patches=0, seq=0):
     return extra
 
 
-def greedy_steps(lm, prompt, n, feed=None, **inputs):
+def greedy_steps(lm, prompt, n, feed=None, dtype=torch.float32, **inputs):
     """``lm.prefill(prompt, **inputs)`` then ``n - 1`` decode steps on the
     greedy tokens (or on ``feed``'s, (B, n), so that two devices run the
     same steps): (tokens (B, n) on the CPU, each step's logits on the CPU,
@@ -3933,7 +4204,7 @@ def greedy_steps(lm, prompt, n, feed=None, **inputs):
     cuda = lm.device.type == "cuda"
     b, p = prompt.shape
     t_src = inputs["frames"].shape[1] if "frames" in inputs else 0
-    cache = lm.init_cache(b, p + n, t_src=t_src)
+    cache = lm.init_cache(b, p + n, t_src=t_src, dtype=dtype)
     dev_inputs = {k: v.to(lm.device) for k, v in inputs.items()}
 
     def sync():
@@ -3943,7 +4214,8 @@ def greedy_steps(lm, prompt, n, feed=None, **inputs):
     sync()
     reset_launch_counts()
     t0 = time.perf_counter()
-    lg, cache = lm.prefill(prompt.to(lm.device), cache, **dev_inputs)
+    lg, cache = lm.prefill(prompt.to(lm.device), cache, dtype=dtype,
+                           **dev_inputs)
     sync()
     ms = [(time.perf_counter() - t0) * 1e3]
     pre_counts = launch_counts()
@@ -3953,7 +4225,7 @@ def greedy_steps(lm, prompt, n, feed=None, **inputs):
         tok = toks[-1] if feed is None else feed[:, t]
         t0 = time.perf_counter()
         lg, cache = lm.decode(tok[:, None].to(lm.device), cache,
-                              torch.tensor(p + t))
+                              torch.tensor(p + t), dtype=dtype)
         sync()
         ms.append((time.perf_counter() - t0) * 1e3)
         logits.append(lg[:, 0].cpu())
@@ -4326,6 +4598,251 @@ def encdec_phase(dev, smi):
     return counts, serving, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the LM zoo in bf16
+# ---------------------------------------------------------------------------
+
+#: phase 12's fp32 chatglm3-6b run, read by phase 21 (a): the top-1 of its
+#: logits on the reference test's 2 x 32 tokens and its served tokens
+FP32_CHATGLM3 = {}
+#: (b) moonshot-v1-16b-a3b served in bf16 at all its layers (~28.6 G
+#: parameters, ~57 GB in bf16; 20 layers in fp32 at phase 19); its peak
+#: must stay under the card's 80 GB
+MOONSHOT_BF16_DEPTH = 48
+PEAK_LIMIT_GB = 80.0
+#: (c) card == CPU at bf16, full width, depth 2 (seamless: 2 encoder and 2
+#: decoder layers): the same bf16-rounded weights on both devices, the CPU
+#: bf16 run's greedy tokens fed to the card; the logits held to an fp32
+#: run of the same rounded weights on the CPU: the card no farther than
+#: BF16_LM_WITNESS times the CPU bf16 run (plus 1e-6 of the largest
+#: logit), as phase 20 (c) holds fp32 to float64.  bf16 rounds each
+#: product's output to 8 bits, so the card and the CPU (other GEMM
+#: orders) part by bf16 ulps, far past phase 11's 1e-3
+BF16_CARD_CPU = ("gemma2-2b", "chatglm3-6b", "phi3-mini-3.8b", "mamba2-130m",
+                 "seamless-m4t-medium")
+BF16_LM_WITNESS = 2.0
+BF16_CHECK = dict(batch=2, prompt=16, tokens=8, t_src=64)
+#: (d) the bf16 step (REPRO_CAST_BF16_STEP=1): mamba2-130m through
+#: launch/train.py as 18 (g), then chatglm3-6b at full width and depth 2,
+#: batch 2 x 32, card == CPU on three steps as 18 (g) holds them
+BF16_STEP_ENV = {"REPRO_CAST_BF16_STEP": "1"}
+BF16_STEP_CPU = dict(depth=2, batch=2, seq=32)
+
+
+def chatglm3_bf16(dev, fp32_serving):
+    """Phase 21 (a): chatglm3-6b at full width and depth, phase 12's seeded
+    weights cast once to bf16, through ``ServingEngine(dtype=bf16)`` on
+    phase 12's requests (flash_attention_bf16 a layer a prefill,
+    decode_attention_bf16 a layer a decode step), its decode ticks
+    profiled; printed beside phase 12's fp32 run, with the top-1 agreement
+    of the logits and of the served tokens (not gated)."""
+    bf = torch.bfloat16
+    serving, counts, lm, eng, done = serve_phase(
+        "chatglm3_bf16_serve", "chatglm3-6b", dev,
+        per_prefill=["flash_attention_bf16"],
+        per_decode=["decode_attention_bf16"], dtype=bf)
+    print("[6] device busy share of chatglm3-6b's bf16 decode ticks")
+    busy = trace_decode("chatglm3_bf16_decode", eng, lm.cfg)
+    del eng
+    torch.cuda.empty_cache()
+    tokens = torch.arange(64).reshape(2, 32) % lm.cfg.vocab_size
+    top1 = lm.logits_causal(tokens, dtype=bf).argmax(-1).cpu()
+    agree = (top1 == FP32_CHATGLM3["top1"]).float().mean().item()
+    out = {r.uid: r.output for r in done}
+    ref = FP32_CHATGLM3["out"]
+    first = sum(ref[u][0] == out[u][0] for u in ref) / len(ref)
+    same = sum(a == b for u in ref for a, b in zip(ref[u], out[u])) \
+        / sum(len(o) for o in ref.values())
+    f = fp32_serving
+    print(f"  chatglm3 bf16 against phase 12's fp32 run: prefill of "
+          f"{LONG_PROMPT['chatglm3-6b']} tokens {serving['prefill_ms_long']:.1f}"
+          f" ms (fp32 {f['prefill_ms_long']:.1f}), decode step median "
+          f"{serving['decode_step_ms_median']:.3f} ms (fp32 "
+          f"{f['decode_step_ms_median']:.3f}), decode tokens/s "
+          f"{serving['decode_tokens_per_s']:.1f} (fp32 "
+          f"{f['decode_tokens_per_s']:.1f}), peak "
+          f"{serving['peak_memory_gb']:.2f} GB (fp32 "
+          f"{f['peak_memory_gb']:.2f}); top-1 agreement of the logits on "
+          f"2 x 32 tokens {agree:.4f}, first served token {first:.4f}, all "
+          f"served tokens {same:.4f} (printed, not gated)")
+    del lm
+    torch.cuda.empty_cache()
+    return serving, counts, {"decode_busy_share": busy,
+                             "top1_agreement": agree,
+                             "first_token_agreement": first,
+                             "token_agreement": same}
+
+
+def moonshot_bf16(dev):
+    """Phase 21 (b): moonshot-v1-16b-a3b at full width and
+    MOONSHOT_BF16_DEPTH layers, built in bf16 (each leaf drawn in fp32 and
+    rounded), through the engine as phase 9; peak under PEAK_LIMIT_GB."""
+    serving, counts, lm, eng, _ = serve_phase(
+        "moonshot_bf16_serve", "moonshot-v1-16b-a3b", dev,
+        per_prefill=["flash_attention_bf16"],
+        per_decode=["decode_attention_bf16"], depth=MOONSHOT_BF16_DEPTH,
+        dtype=torch.bfloat16, build_in_dtype=True)
+    check(serving["peak_memory_gb"] < PEAK_LIMIT_GB,
+          f"moonshot bf16: peak {serving['peak_memory_gb']:.2f} GB")
+    print("[6] device busy share of moonshot's bf16 decode ticks")
+    busy = trace_decode("moonshot_bf16_decode", eng, lm.cfg)
+    del lm, eng
+    torch.cuda.empty_cache()
+    return serving, counts, {"decode_busy_share": busy}
+
+
+def bf16_card_vs_cpu(dev):
+    """Phase 21 (c): BF16_CARD_CPU at full width, depth 2, weights drawn
+    on the card in fp32, cast to bf16 and copied to the CPU (a bf16 model)
+    and, upcast, to an fp32 CPU model: the CPU bf16 run's greedy steps
+    (a prefill and BF16_CHECK["tokens"] - 1 decode steps) fed to the card;
+    the card's logits no farther from the fp32 run's than BF16_LM_WITNESS
+    times the CPU bf16 run's (plus 1e-6 of the largest); tokens printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    bf, c, summary = torch.bfloat16, BF16_CHECK, {}
+    for i, arch in enumerate(BF16_CARD_CPU):
+        cfg = get_config(arch).replace(n_layers=2)
+        inputs = {}
+        if cfg.encoder_decoder:
+            cfg = cfg.replace(n_encoder_layers=2)
+            tokens, inputs = seamless_inputs(cfg, c["batch"], c["t_src"],
+                                             c["prompt"], 23 + i)
+        else:
+            tokens = torch.from_numpy(np.random.RandomState(23 + i).randint(
+                2, cfg.vocab_size, (c["batch"], c["prompt"])))
+        card = LM(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(23 + i)).cast_(bf)
+        cpu = LM(cfg, device="cpu", dtype=bf)
+        cpu.load_state_dict(card.state_dict())
+        cpu32 = LM(cfg, device="cpu")
+        cpu32.load_state_dict(card.state_dict())
+        want, want_lg = greedy_steps(cpu, tokens, c["tokens"], dtype=bf,
+                                     **inputs)[:2]
+        got, got_lg = greedy_steps(card, tokens, c["tokens"], feed=want,
+                                   dtype=bf, **inputs)[:2]
+        exact = greedy_steps(cpu32, tokens, c["tokens"], feed=want,
+                             **inputs)[1]
+        check(all(bool(torch.isfinite(x).all()) for x in got_lg),
+              f"{arch} bf16: non-finite logits on the card")
+        dist = {name: max((x.float() - e).abs().max().item()
+                          for x, e in zip(lg, exact))
+                for name, lg in (("card", got_lg), ("cpu", want_lg))}
+        dist["card_vs_cpu"] = max((x.float() - w.float()).abs().max().item()
+                                  for x, w in zip(got_lg, want_lg))
+        dist["top"] = max(e.abs().max().item() for e in exact)
+        dist["same_tokens"] = torch.equal(got, want)
+        bar = BF16_LM_WITNESS * dist["cpu"] + 1e-6 * dist["top"]
+        print(f"  {arch} depth 2, bf16: logits from the fp32 run of the same "
+              f"bf16 weights (largest |logit| {dist['top']:.3f}): card "
+              f"{dist['card']:.3e}, CPU bf16 {dist['cpu']:.3e} (gate "
+              f"{BF16_LM_WITNESS:g}x + 1e-6 of the largest: {bar:.3e}); card "
+              f"from CPU {dist['card_vs_cpu']:.3e}; the card's greedy tokens "
+              f"equal the CPU's {dist['same_tokens']} (CPU {want.tolist()}, "
+              f"card {got.tolist()})")
+        check(dist["card"] <= bar, f"{arch} bf16: the card's logits "
+              f"{dist['card']:.3e} from the fp32 run, the CPU's "
+              f"{dist['cpu']:.3e}")
+        summary[arch] = dist
+        del card, cpu, cpu32
+        torch.cuda.empty_cache()
+    return summary
+
+
+def bf16_step_train(dev, smi):
+    """Phase 21 (d): the bf16 step (REPRO_CAST_BF16_STEP=1): mamba2-130m
+    through launch/train.py at full width and depth as 18 (g) (finite
+    losses; ssd_scan's forward and backward a layer a micro-batch), then
+    chatglm3-6b at full width and depth 2 card == CPU on three steps, every
+    loss under ``cast_step`` (``chatglm3_bf16_step_vs_cpu``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.model import LM
+    from repro_torch.models.param import cast_step
+    from repro_torch.training import TokenStream
+
+    cfg = get_config("mamba2-130m")
+    want = cfg.n_layers * 2 * 3       # layers x micro-batches x steps
+    out = launcher_train("mamba2_bf16_step_train", MAMBA2_TRAIN, smi,
+                         {"ssd_scan_f32": want, "ssd_scan_bwd_f32": want},
+                         env=BF16_STEP_ENV)
+    check(len(out["losses"]) == 3, f"mamba2 bf16 step: {out['losses']}")
+    counts = {"mamba2_bf16_step_train": {
+        k: out["launches"].get(k, 0) for k in launch_counts()}}
+    b = BF16_STEP_CPU
+    small = get_config("chatglm3-6b").replace(n_layers=b["depth"])
+    card = LM(small, device=dev).init(
+        torch.Generator(device=dev).manual_seed(5))
+    stream = TokenStream(small.vocab_size, b["batch"], b["seq"], seed=5,
+                         device="cpu")
+    batches = [stream.next_batch() for _ in range(CARD_CPU_STEPS)]
+    counts["chatglm3_bf16_step_vs_cpu"], summary = train_vs_cpu(
+        f"chatglm3-6b depth {b['depth']}, bf16 step", card,
+        lambda device: LM(small, device=device), batches.__getitem__,
+        plain_attention, _lm_train_opt(),
+        step_ctx=lambda: cast_step(torch.bfloat16))
+    n = b["depth"] * CARD_CPU_STEPS
+    for sym in ("flash_attention_lse_f32", "flash_attention_bwd_f32"):
+        check(counts["chatglm3_bf16_step_vs_cpu"][sym] == n,
+              f"chatglm3 bf16 step: {sym} launched "
+              f"{counts['chatglm3_bf16_step_vs_cpu'][sym]} times, not {n}")
+    del card
+    torch.cuda.empty_cache()
+    return counts, {"mamba2_bf16_step_train": {k: out[k] for k in (
+        "n_layers", "losses", "step_s", "max_memory_allocated")},
+        "chatglm3_bf16_step_vs_cpu": summary}
+
+
+def bf16_grad_refused(dev):
+    """Phase 21 (e): bf16 CUDA inputs that require grad, with grad on: the
+    flash op raises ValueError (no bf16 backward kernel), launches nothing
+    and casts nothing."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    q, k, v = (torch.randn(1, 9, 4, 32, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    q.requires_grad_(True)
+    reset_launch_counts()
+    try:
+        flash_attention(q, k, v)
+    except ValueError as e:
+        print(f"  bf16 flash_attention with grad on: ValueError ({e})")
+    else:
+        raise SmokeFailure("bf16 flash_attention with grad on was not "
+                           "refused")
+    check(not any(launch_counts().values()), "bf16 flash_attention with "
+          f"grad on launched {launch_counts()}")
+
+
+def bf16_phase(dev, smi, fp32_serving):
+    """Phase 21: the LM zoo in bf16, (a) through (e).  Returns the launch
+    counts by path, the serving numbers and a summary."""
+    t21 = time.perf_counter()
+    counts, serving, summary = {}, {}, {}
+    print("[21a] chatglm3-6b in bf16, full width and depth, through "
+          f"ServingEngine(max_slots={SERVE_SLOTS}, s_max={SERVE_S_MAX}, "
+          "dtype=bfloat16)")
+    serving["chatglm3_bf16_serve"], counts["chatglm3_bf16_serve"], \
+        summary["chatglm3_bf16_serve"] = chatglm3_bf16(dev, fp32_serving)
+    print(f"[21b] moonshot-v1-16b-a3b in bf16, full width, "
+          f"{MOONSHOT_BF16_DEPTH} layers")
+    serving["moonshot_bf16_serve"], counts["moonshot_bf16_serve"], \
+        summary["moonshot_bf16_serve"] = moonshot_bf16(dev)
+    print("[21c] card vs CPU at bf16: five LMs at full width, depth 2")
+    summary["card_vs_cpu"] = bf16_card_vs_cpu(dev)
+    print("[21d] the bf16 step: mamba2-130m through launch/train.py, "
+          "chatglm3-6b depth 2 card vs CPU")
+    more, summary["bf16_step"] = bf16_step_train(dev, smi)
+    counts.update(more)
+    print("[21e] a bf16 flash_attention with grad on is refused")
+    bf16_grad_refused(dev)
+    summary["seconds"] = time.perf_counter() - t21
+    print(f"[21] {summary['seconds']:.1f} s; {smi}")
+    return counts, serving, summary
+
+
 def training_phase(dev, rows, q8_random_score, smi):
     """Phase 18: (a) the flash_attention backward, (f) the ssd_scan
     backward, (g) mamba2-130m's training steps at full width and card ==
@@ -4517,6 +5034,13 @@ def main() -> int:
         encdec_counts, encdec_serving, encdec_summary = encdec_phase(dev, smi)
         counts.update(encdec_counts)
         serving.update(encdec_serving)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print("[21] the LM zoo in bf16")
+        bf16_counts, bf16_serving, bf16_summary = bf16_phase(
+            dev, smi, serving["chatglm3_serve"])
+        counts.update(bf16_counts)
+        serving.update(bf16_serving)
     except (SmokeFailure, RuntimeError, ValueError, KeyError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
@@ -4568,11 +5092,14 @@ def main() -> int:
     print(json.dumps({"training": train_summary}, default=str))
     print(json.dumps({"moe": moe_summary}, default=str))
     print(json.dumps({"encdec": encdec_summary}, default=str))
+    print(json.dumps({"bf16": {**bf16_summary, "kernels_vs_float64":
+                               BF16_F64}}, default=str))
     print(f"[total] {time.perf_counter() - t_start:.1f} s (phase 17 "
           f"{serve_summary['seconds']:.1f} s, phase 18 "
           f"{train_summary['seconds']:.1f} s, phase 19 "
           f"{moe_summary['seconds']:.1f} s, phase 20 "
-          f"{encdec_summary['seconds']:.1f} s)")
+          f"{encdec_summary['seconds']:.1f} s, phase 21 "
+          f"{bf16_summary['seconds']:.1f} s)")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,14 @@ Every Pallas kernel of the JAX package has its counterpart here:
   flash_attention  — causal/local GQA attention with online softmax
                      (the MLLM extract's attention), and its backward
                      (``csrc/flash_attention_bwd.cu``, no Pallas
-                     counterpart: the training path's gradient)
+                     counterpart: the training path's gradient); fp32,
+                     and bf16 for serving (``flash_attention_bf16``)
   fused_prefix     — a plan's whole pixel prefix (diff grid, colour
                      fractions, crop/preprocess, signature) in one pass
   decode_attention — one query token per sequence against its KV cache
                      (splits of the live keys merged by logsumexp in
-                     one launch; the served LMs' decode step)
+                     one launch; the served LMs' decode step); fp32 and
+                     bf16 (``decode_attention_bf16``)
   ssd_scan         — Mamba2's within-chunk SSD terms (the served SSMs'
                      prefill), and their backward (``csrc/ssd_scan_bwd.cu``,
                      no Pallas counterpart: the Mamba2 layers' training

@@ -92,12 +92,16 @@
 // Two entry points run this kernel: flash_attention_f32 (serving, no
 // log-sum-exp) and flash_attention_lse_f32 (training), which also writes
 // each live row's m + log l, the log-sum-exp of its scaled and capped
-// logits, for the backward (flash_attention_bwd.cu).
+// logits, for the backward (flash_attention_bwd.cu).  A third,
+// flash_attention_bf16, serves bf16 inputs (flash_fwd_bf16_kernel, below;
+// the Pallas kernel's bf16 half): 2 bytes an element, its operations at
+// the bf16 tensor cores' 989 TFLOP/s.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "tf32.cuh"
 
 namespace {
@@ -468,6 +472,263 @@ int flash_forward(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 inputs and output (flash_attention_bf16): the same tiles, masks,
+// online softmax and pipeline as flash_fwd_kernel, on bf16 tensor cores.
+//
+// Q.K^T is one mma.sync.m16n8k16 bf16 term a 16-wide d step: the product of
+// two bf16 values is exact in fp32, so it is the Pallas kernel's fp32 dot
+// (which upcasts its bf16 tiles) up to the order of the sums.  P stays fp32
+// through the softmax and enters P.V as two bf16 terms, its rounding hi
+// and the rounding of the rest lo (bf16.cuh), V exact: within ~2^-17 of
+// fp32's P.V, far below the output's one bf16 rounding.  O and l are fp32
+// in registers; P.V accumulates into O after it is rescaled, and O / l is
+// rounded to bf16 once, at the store.  Q, K and V are staged as bf16 (half
+// the fp32 kernel's bytes) through the same single K and V buffers with
+// cp.async (16 bytes, or 4 where a base is not 16-byte aligned); rows are
+// padded by 8 values (16 bytes), so the 32-bit fragment loads of Q and K and
+// ldmatrix's transposed 16-byte rows of V (P.V's B operand from row-major
+// V) are free of bank conflicts.  Nothing is split in place, so each tile
+// takes two barriers fewer.  The S accumulators of two 8-key column tiles
+// are P.V's A operand over their 16 keys as they stand (bf16.cuh).
+// ---------------------------------------------------------------------------
+
+using bf16mma::bf16;
+
+template <int D>
+struct CfgB {
+  static constexpr int BK = 32;             // keys per tile
+  // blocks per SM the registers must allow (2 caps them at 128 a thread;
+  // at D 128 ptxas then spills 184 bytes to keep two blocks an SM)
+  static constexpr int MINB = D <= 128 ? 2 : 1;
+  static constexpr int L = D + 8;           // row stride of Q, K, V (values)
+  static constexpr int NT = BK / 8;         // 8-key column tiles of S
+  static constexpr int KS = D / 16;         // 16-wide d steps of Q.K^T
+  static constexpr int DK = D / 8;          // 8-wide d tiles of O
+  static constexpr size_t smem = sizeof(bf16) * (size_t)(kRows + 2 * BK) * L;
+};
+
+// N rows of D values into s: row j from src(j), or zeros where src(j) is
+// null (the copy then reads nothing; `base` stands in as its address)
+template <int D, int N, typename Src>
+__device__ __forceinline__ void stage_rows(bf16* s, Src src, const bf16* base,
+                                           bool vec) {
+  const int w = vec ? 8 : 2, per_row = D / w;   // values a copy
+  for (int e = threadIdx.x; e < N * per_row; e += kThreads) {
+    const int j = e / per_row, c = (e % per_row) * w;
+    const bf16* p = src(j);
+    cp_async(reinterpret_cast<float*>(s + j * CfgB<D>::L + c),
+             reinterpret_cast<const float*>(p != nullptr ? p + c : base),
+             p != nullptr, vec);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, CfgB<D>::MINB)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      int Sq, int Sk, int H, int Hk, int G, int BQ,
+                      int causal, float cap, int window, float scale,
+                      bool vec) {
+  using namespace bf16mma;
+  using C = CfgB<D>;
+  constexpr int BK = C::BK, L = C::L, NT = C::NT, KS = C::KS, DK = C::DK;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_b);   // [kRows][L]
+  bf16* k_s = q_s + kRows * L;                   // [BK][L]
+  bf16* v_s = k_s + BK * L;                      // [BK][L]
+
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int R = G * BQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;  // fragment row and column group
+
+  // query rows: row r = g*BQ + i is position q0+i of head hk*G+g; a fresh
+  // (empty) source is a row past R or Sq, staged as zeros
+  stage_rows<D, kRows>(q_s, [&](int r) -> const bf16* {
+    const int pos = q0 + r % BQ;
+    return r < R && pos < Sq
+               ? q + (((size_t)b * Sq + pos) * H + hk * G + r / BQ) * D
+               : nullptr;
+  }, q, vec);
+  auto keys = [&](const bf16* src, int k0) {
+    return [=](int j) -> const bf16* {
+      const int pos = k0 + j;
+      return pos < Sk ? src + (((size_t)b * Sk + pos) * Hk + hk) * D
+                      : nullptr;
+    };
+  };
+  const int kend = causal ? min(Sk, q0 + BQ) : Sk;
+  int kbeg = window > 0 ? max(0, q0 - window + 1) : 0;
+  kbeg -= kbeg % BK;
+  stage_rows<D, BK>(k_s, keys(k, kbeg), k, vec);
+  cp_commit();
+
+  // this thread's two rows (fragment rows gq and gq+8 of the warp's 16)
+  int qpos[2];
+  bool live[2];
+  int lo_pos = INT_MAX, hi_pos = -1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gq + 8 * i;
+    qpos[i] = q0 + r % BQ;
+    live[i] = r < R && qpos[i] < Sq;
+    if (live[i]) {
+      lo_pos = min(lo_pos, qpos[i]);
+      hi_pos = max(hi_pos, qpos[i]);
+    }
+  }
+  lo_pos = __reduce_min_sync(kFull, lo_pos);
+  hi_pos = __reduce_max_sync(kFull, hi_pos);
+
+  const bf16* qa = q_s + (warp * 16 + gq) * L + 2 * tq;   // A rows gq, gq+8
+  float oacc[DK][4];
+#pragma unroll
+  for (int dt = 0; dt < DK; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
+    stage_rows<D, BK>(v_s, keys(v, k0), v, vec);
+    cp_commit();
+    cp_wait<1>();  // Q and K(k0) have landed
+    __syncthreads();
+    const bool work = hi_pos >= 0 && (!causal || k0 <= hi_pos) &&
+                      (window <= 0 || k0 + BK - 1 > lo_pos - window);
+    // P as P.V's A operand, 16 keys a k step: hi and lo parts
+    uint32_t phi[BK / 16][4], plo[BK / 16][4];
+    float alpha[2];
+    if (work) {
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t a[4] = {ld32(qa + ks * 16), ld32(qa + 8 * L + ks * 16),
+                               ld32(qa + ks * 16 + 8),
+                               ld32(qa + 8 * L + ks * 16 + 8)};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const bf16* kr = k_s + (nt * 8 + gq) * L + ks * 16 + 2 * tq;
+          mma16(s[nt], a, ld32(kr), ld32(kr + 8));
+        }
+      }
+      // scale, cap, mask; s[nt][e] is row gq + 8*(e>>1), key
+      // k0 + nt*8 + 2*tq + (e&1)
+      float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, kpos = k0 + nt * 8 + 2 * tq + (e & 1);
+          float x = s[nt][e] * scale;
+          if (cap > 0.0f) x = cap * tanhf(x / cap);
+          const bool vis = live[i] && kpos < Sk &&
+                           (!causal || kpos <= qpos[i]) &&
+                           (window <= 0 || kpos > qpos[i] - window);
+          s[nt][e] = vis ? x : -INFINITY;
+          tmax[i] = fmaxf(tmax[i], s[nt][e]);
+        }
+      float mu[2], rsum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(kFull, tmax[i], 1));
+        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(kFull, tmax[i], 2));
+        const float m_new = fmaxf(m[i], tmax[i]);
+        mu[i] = m_new == -INFINITY ? 0.0f : m_new;  // a row seeing nothing yet
+        alpha[i] = expf(m[i] - mu[i]);              // 0 before its first key
+        m[i] = m_new;
+      }
+      float p[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[nt][e] = expf(s[nt][e] - mu[e >> 1]);
+          rsum[e >> 1] += p[nt][e];
+        }
+      // key tiles 2j and 2j+1 are k step j: registers 0/1 from tile 2j's
+      // rows gq and gq+8, 2/3 from tile 2j+1's
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            pack_split(p[2 * j + h][2 * i], p[2 * j + h][2 * i + 1],
+                       phi[j][2 * h + i], plo[j][2 * h + i]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rsum[i];
+    }
+    __syncthreads();  // every warp is done with K(k0)
+    if (k0 + BK < kend) stage_rows<D, BK>(k_s, keys(k, k0 + BK), k, vec);
+    cp_commit();
+    cp_wait<1>();  // V(k0) has landed
+    __syncthreads();
+    if (work) {
+#pragma unroll
+      for (int dt = 0; dt < DK; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[dt][e] *= alpha[e >> 1];
+      // V's B operands two d tiles at a time: lanes 0-15 give keys
+      // 16j .. 16j+15 at d tile dt, lanes 16-31 the same keys at dt+1
+      const bf16* vr = v_s + (lane & 15) * L + (lane >> 4) * 8;
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+        for (int dt = 0; dt < DK; dt += 2) {
+          uint32_t r[4];
+          ldsm4t(r, vr + j * 16 * L + dt * 8);
+          mma16(oacc[dt], plo[j], r[0], r[1]);
+          mma16(oacc[dt], phi[j], r[0], r[1]);
+          mma16(oacc[dt + 1], plo[j], r[2], r[3]);
+          mma16(oacc[dt + 1], phi[j], r[2], r[3]);
+        }
+    }
+    __syncthreads();  // every warp is done with V(k0)
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+    if (!live[i]) continue;
+    const int r = warp * 16 + gq + 8 * i;
+    bf16* orow =
+        o + (((size_t)b * Sq + qpos[i]) * H + hk * G + r / BQ) * D + 2 * tq;
+#pragma unroll
+    for (int dt = 0; dt < DK; ++dt)
+      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
+          pack(oacc[dt][2 * i] / l[i], oacc[dt][2 * i + 1] / l[i]);
+  }
+}
+
+template <int D>
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
+                int Sq, int Sk, int H, int Hk, int causal, float cap,
+                int window, cudaStream_t stream) {
+  const int G = H / Hk;
+  const int BQ = kRows / G;
+  const size_t smem = CfgB<D>::smem;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const bool vec = (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15u) == 0;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hk, B);
+  const float scale = (float)(1.0 / sqrt((double)D));
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, Sq, Sk, H, Hk, G, BQ, causal, cap, window, scale, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The serving forward: no log-sum-exp.
@@ -477,6 +738,32 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    float cap, int window, void* stream) {
   return flash_forward(q, k, v, o, nullptr, B, Sq, Sk, H, Hk, D, causal, cap,
                        window, stream);
+}
+
+// The serving forward on bf16 q, k, v (B, Sq, H, D) / (B, Sk, Hk, D) into a
+// bf16 o, fp32 inside (flash_fwd_bf16_kernel); every base 4-byte aligned.
+extern "C" int flash_attention_bf16(const void* q, const void* k,
+                                    const void* v, void* o, int B, int Sq,
+                                    int Sk, int H, int Hk, int D, int causal,
+                                    float cap, int window, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hk <= 0 || H % Hk || H / Hk > kRows ||
+      B > 65535 || Hk > 65535 || (Sq != Sk && (causal || window > 0)) ||
+      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 3u))
+    return (int)cudaErrorInvalidValue;
+  const bf16* qb = (const bf16*)q;
+  const bf16* kb = (const bf16*)k;
+  const bf16* vb = (const bf16*)v;
+  bf16* ob = (bf16*)o;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 16: return launch_bf16<16>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
+    case 32: return launch_bf16<32>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
+    case 64: return launch_bf16<64>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
+    case 96: return launch_bf16<96>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
+    case 128: return launch_bf16<128>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
+    case 256: return launch_bf16<256>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The training forward: o and each row's log-sum-exp, lse (B, H, Sq), which

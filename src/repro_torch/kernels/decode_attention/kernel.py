@@ -15,6 +15,9 @@ _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 KERNEL = CudaKernel("decode_attention", "decode_attention_f32",
                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _F, _I])
+#: the same on bf16 q, k, v and output (K/V tiles in bf16, sums in fp32)
+KERNEL_BF16 = CudaKernel("decode_attention", "decode_attention_bf16",
+                         KERNEL.argtypes[:-1])
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 #: query heads per kv head at most: the tensor cores' 16 rows
 MAX_GROUP = 16
@@ -23,8 +26,9 @@ MAX_GROUP = 16
 #: split takes, a sequence's splits at most (the merge's shared memory)
 TILE, MIN_KEYS_PER_SPLIT, MAX_SPLITS = 32, 128, 64
 
-#: per (device, head dim, route): the card's SMs and the blocks one holds
-_OCCUPANCY: Dict[Tuple[int, int, int], Tuple[int, int]] = {}
+#: per (device, head dim, route, bf16): the card's SMs and the blocks one
+#: holds
+_OCCUPANCY: Dict[Tuple[int, int, int, bool], Tuple[int, int]] = {}
 #: per (device, stream): the merge counters, one per (sequence, kv head),
 #: zero between launches (the last block of each pair resets its own)
 _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -69,21 +73,22 @@ def split_plan(lives: Sequence[int], nb: int) -> List[Tuple[int, int]]:
     return out
 
 
-def _occupancy(dev: torch.device, d: int, g: int) -> Tuple[int, int]:
+def _occupancy(dev: torch.device, d: int, g: int,
+               bf16: bool = False) -> Tuple[int, int]:
     """The card's SMs and the blocks of the kernel's instance for (d, g)
-    one SM holds at once (``decode_attention_occupancy``; shared memory
-    sets it: one block at D 256 or with the group of 16 at D 128, two at
-    phi3-mini's D 96)."""
-    key = (dev.index, d, g if g <= 2 else 0)
+    and the type one SM holds at once (``decode_attention_occupancy``;
+    shared memory sets it: in fp32 one block at D 256 or with the group of
+    16 at D 128, two at phi3-mini's D 96)."""
+    key = (dev.index, d, g if g <= 2 else 0, bf16)
     if key not in _OCCUPANCY:
         KERNEL._bind()
         fn = load_library(KERNEL.source).decode_attention_occupancy
-        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         blocks = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            rc = fn(d, g, ctypes.byref(blocks))
+            rc = fn(d, g, int(bf16), ctypes.byref(blocks))
         if rc != 0 or blocks.value < 1:
             raise RuntimeError(f"decode_attention_occupancy: CUDA error {rc}"
                                f" ({blocks.value} blocks an SM)")
@@ -105,15 +110,21 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_len: torch.Tensor, *,
                           cap: Optional[float] = None,
                           window: Optional[int] = None) -> torch.Tensor:
-    """Model layout on CUDA, fp32: q (B, 1, H, D), k/v (B, S, Hk, D),
-    kv_len (B, 1) int32 -> (B, 1, H, D).  Any S; D in ``HEAD_DIMS``;
+    """Model layout on CUDA, fp32 or bf16: q (B, 1, H, D), k/v (B, S, Hk,
+    D), kv_len (B, 1) int32 -> (B, 1, H, D) in their dtype (bf16:
+    ``decode_attention_bf16``, fp32 inside).  Any S; D in ``HEAD_DIMS``;
     H/Hk up to ``MAX_GROUP``.  kv_len is read on the card (no host sync)
     and must be at least 1, as it is in a decode step (a sequence with no
     visible key gets zeros here; the plain version averages V)."""
     dev = require_cuda("decode_attention", q, k, v, kv_len)
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise ValueError("decode_attention: the CUDA kernel takes float32 "
-                         f"(got {q.dtype}, {k.dtype}, {v.dtype})")
+    if not (q.dtype == k.dtype == v.dtype
+            and q.dtype in (torch.float32, torch.bfloat16)):
+        raise ValueError("decode_attention: the CUDA kernel takes q, k and "
+                         "v all float32 or all bfloat16 (got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype})")
+    if any(t.data_ptr() % 4 for t in (q, k, v)):
+        raise ValueError("decode_attention: the CUDA kernel needs 4-byte "
+                         "aligned tensors")
     if kv_len.dtype != torch.int32:
         raise ValueError("decode_attention: kv_len must be int32")
     b, one, h, d = q.shape
@@ -135,10 +146,11 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0:
         return out
     g = h // hk
-    nb = split_blocks(b, hk, s, window, *_occupancy(dev, d, g))
+    bf16 = q.dtype == torch.bfloat16
+    nb = split_blocks(b, hk, s, window, *_occupancy(dev, d, g, bf16))
     ws = torch.empty(hk * max(nb, b) * (g * d + 2 * g), dtype=torch.float32,
                      device=dev)
-    KERNEL.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    (KERNEL_BF16 if bf16 else KERNEL).launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
                   _counters(dev, b * hk).data_ptr(), b, s, h, hk, d, nb,
                   0.0 if cap is None else float(cap),

@@ -1,8 +1,9 @@
 """Bindings of ``csrc/flash_attention.cu`` (the forward, with or without
-each row's log-sum-exp) and ``csrc/flash_attention_bwd.cu`` (its gradient);
-see the sources for the design notes.  Queries and keys may differ in
-length (Sq != Sk, cross attention) where no positional mask applies:
-``causal=False`` and no window."""
+each row's log-sum-exp, and the serving forward on bf16 inputs) and
+``csrc/flash_attention_bwd.cu`` (its gradient, fp32); see the sources for
+the design notes.  Queries and keys may differ in length (Sq != Sk, cross
+attention) where no positional mask applies: ``causal=False`` and no
+window."""
 from __future__ import annotations
 
 import ctypes
@@ -17,6 +18,9 @@ from repro_torch.kernels.flash_attention.ref import check_lengths
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 KERNEL = CudaKernel("flash_attention", "flash_attention_f32",
                     [_P] * 4 + [_I] * 7 + [_F, _I])
+#: the serving forward on bf16 q, k, v into a bf16 output (fp32 inside)
+KERNEL_BF16 = CudaKernel("flash_attention", "flash_attention_bf16",
+                         [_P] * 4 + [_I] * 7 + [_F, _I])
 #: the training forward: the output and each row's log-sum-exp
 KERNEL_LSE = CudaKernel("flash_attention", "flash_attention_lse_f32",
                         [_P] * 5 + [_I] * 7 + [_F, _I])
@@ -107,11 +111,16 @@ def _sms(index: int) -> int:
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool, cap: Optional[float],
-           window: Optional[int]) -> torch.device:
+           causal: bool, cap: Optional[float], window: Optional[int],
+           dtypes=(torch.float32,)) -> torch.device:
     dev = require_cuda(name, q, k, v)
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise ValueError(f"{name}: the CUDA kernel takes float32")
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in dtypes):
+        raise ValueError(f"{name}: the CUDA kernel takes q, k and v all in "
+                         f"one of {dtypes} (got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype})")
+    if any(t.data_ptr() % 4 for t in (q, k, v)):
+        raise ValueError(f"{name}: the CUDA kernel needs 4-byte aligned "
+                         "tensors")
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     if k.shape != (b, sk, hk, d) or v.shape != k.shape or (sq and not sk):
@@ -136,14 +145,21 @@ def _options(causal: bool, cap: Optional[float], window: Optional[int]):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, cap: Optional[float] = None,
                          window: Optional[int] = None, lse: bool = False):
-    """Model layout on CUDA, fp32: q (B, Sq, H, D); k, v (B, Sk, Hk, D) ->
-    (B, Sq, H, D).  Any Sq, Sk (Sk != Sq with ``causal=False`` and no
-    window); D in ``HEAD_DIMS``; H/Hk at most ``MAX_GROUP``.  With ``lse``
+    """Model layout on CUDA, fp32 or bf16: q (B, Sq, H, D); k, v (B, Sk,
+    Hk, D) -> (B, Sq, H, D) in their dtype.  Any Sq, Sk (Sk != Sq with
+    ``causal=False`` and no window); D in ``HEAD_DIMS``; H/Hk at most
+    ``MAX_GROUP``.  bf16 runs ``flash_attention_bf16`` (fp32 inside, the
+    output rounded once).  With ``lse`` (fp32 only: the training forward)
     returns (out, lse) where lse (B, H, Sq) is each row's log-sum-exp of
     its scaled (and capped) logits, which ``flash_attention_bwd_cuda``
     takes (``flash_attention_lse_f32``; the output is the same
     kernel's)."""
-    dev = _check("flash_attention", q, k, v, causal, cap, window)
+    dev = _check("flash_attention", q, k, v, causal, cap, window,
+                 (torch.float32, torch.bfloat16))
+    if lse and q.dtype != torch.float32:
+        raise ValueError("flash_attention: the log-sum-exp (training) "
+                         "forward takes float32; bf16 has a serving forward "
+                         "only")
     b, s, h, d = q.shape
     out = torch.empty_like(q)
     rows = torch.empty((b, h, s), device=dev) if lse else None
@@ -154,7 +170,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             KERNEL_LSE.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               out.data_ptr(), rows.data_ptr(), *dims)
         else:
-            KERNEL.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kernel = KERNEL if q.dtype == torch.float32 else KERNEL_BF16
+            kernel.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), *dims)
     return (out, rows) if lse else out
 

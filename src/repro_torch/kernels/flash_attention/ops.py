@@ -46,12 +46,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensor takes the plain version, which autograd differentiates; a CUDA
     one takes the forward kernel, and, when grad mode is on and an input
     requires grad, ``FlashAttentionFn`` (the forward kernel with its
-    log-sum-exp, then the backward kernel)."""
+    log-sum-exp, then the backward kernel).  The backward kernel takes
+    fp32: bf16 CUDA inputs that require grad raise ``ValueError``."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, cap=cap,
                                      window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if torch.float32 != q.dtype or q.dtype != k.dtype \
+                or q.dtype != v.dtype:
+            raise ValueError(
+                f"flash_attention: no bf16 backward kernel yet "
+                f"(csrc/flash_attention_bwd.cu takes float32): {q.dtype} "
+                "inputs that require grad on the card are refused, not "
+                "cast; train in float32 or run under torch.no_grad()")
         return FlashAttentionFn.apply(q, k, v, causal, cap, window)
     return flash_attention_cuda(q, k, v, causal=causal, cap=cap,
                                 window=window)

@@ -52,9 +52,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, L, H, P); dt (B, L, H) fp32 (softplus'd); a (H,) fp32
     (negative); bmat/cmat (B, L, G, N); d_skip (H,).  L must be a multiple
-    of ``chunk`` (the model passes ``min(chunk, L)``).
+    of ``chunk`` (the model passes ``min(chunk, L)``).  x, B and C are
+    upcast to fp32 around the within-chunk terms (the kernel takes fp32),
+    as the reference's ``_ssd_chunked`` computes in fp32.
 
-    Returns (y (B, L, H, P), final_state (B, H, P, N))."""
+    Returns (y (B, L, H, P), final_state (B, H, P, N)), both in x's
+    dtype."""
     b, l, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
     if l % chunk:
@@ -71,8 +74,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         return t.reshape(b, nc, q, heads, -1).permute(0, 1, 3, 2, 4) \
             .reshape(b * nc, heads, q, -1).contiguous()
 
-    xk = chunks(x, h)
-    bk, ck = chunks(bmat, g), chunks(cmat, g)
+    xk = chunks(x.to(f32), h)
+    bk, ck = chunks(bmat.to(f32), g), chunks(cmat.to(f32), g)
     csk = cs.permute(0, 1, 3, 2).reshape(b * nc, h, 1, q).contiguous()
     dtk = dt.reshape(b, nc, q, h).permute(0, 1, 3, 2) \
         .reshape(b * nc, h, 1, q).contiguous()

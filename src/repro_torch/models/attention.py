@@ -46,9 +46,10 @@ def attention_spec(d_model: int, att: AttentionConfig,
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
-    """x (B, S, d), w (d, H, Dh) -> (B, S, H, Dh)."""
+    """x (B, S, d), w (d, H, Dh) cast to x's dtype -> (B, S, H, Dh)."""
     d, h, dh = w.shape
-    return mm(x, w.reshape(d, h * dh)).reshape(*x.shape[:-1], h, dh)
+    return mm(x, w.to(x.dtype).reshape(d, h * dh)).reshape(
+        *x.shape[:-1], h, dh)
 
 
 def _project_qkv(params: Dict[str, torch.Tensor], xq: torch.Tensor,
@@ -66,10 +67,10 @@ def _project_qkv(params: Dict[str, torch.Tensor], xq: torch.Tensor,
 
 def _out_proj(params: Dict[str, torch.Tensor],
               out: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
-    """out (B, S, H, Dh) -> (B, S, d)."""
+    """out (B, S, H, Dh) -> (B, S, d); ``wo`` cast to out's dtype."""
     h, dh, d = params["wo"].shape
     return mm(out.reshape(*out.shape[:-2], h * dh),
-              params["wo"].reshape(h * dh, d))
+              params["wo"].to(out.dtype).reshape(h * dh, d))
 
 
 def attend_prefill(params: Dict[str, torch.Tensor], att: AttentionConfig,

@@ -33,7 +33,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, mlp_spec, norm, norm_spec
-from repro_torch.models.param import stack
+from repro_torch.models.param import stack, step_cast
 
 MIXERS = ("attn", "attn_local", "attn_global", "mamba")
 MODES = ("causal", "prefill_cache", "decode", "encode")
@@ -191,19 +191,27 @@ class _PeriodSlice(torch.autograd.Function):
         return None, None
 
 
-def _periods(tree: Any, n: int):
+def _periods(tree: Any, n: int, cast: bool = True):
     """``i -> period i's tree`` of a stacked tree.  A leaf without a graph
     is split once (``leaf.unbind(0)``, the views ``leaf[i]``).  A leaf
     that requires grad gets its period's ``_PeriodSlice`` only when that
     period runs: autograd's ready queue runs later-made nodes first, so a
     slice made before the whole stack would wait until the end of the
-    backward, holding every period's gradient."""
+    backward, holding every period's gradient.  Under the cast step
+    (``param.cast_step``) a weight's slice is cast after its
+    ``_PeriodSlice`` (``cast``; a cache's leaves are not), so the rounded
+    gradient still reaches the stacked leaf's ``.grad``."""
     if isinstance(tree, dict):
-        subs = {k: _periods(v, n) for k, v in tree.items()}
+        subs = {k: _periods(v, n, cast) for k, v in tree.items()}
         return lambda i: {k: f(i) for k, f in subs.items()}
+    nd = tree.dim()
     if torch.is_grad_enabled() and tree.requires_grad:
+        if cast:
+            return lambda i: step_cast(_PeriodSlice.apply(tree, i), nd)
         return lambda i: _PeriodSlice.apply(tree, i)
     views = tree.unbind(0)
+    if cast:
+        return lambda i: step_cast(views[i], nd)
     return lambda i: views[i]
 
 
@@ -247,7 +255,7 @@ def apply_stack(cfg: ArchConfig, stacked: Dict[str, Any], x: torch.Tensor,
         raise ValueError(f"{len(cross_kv)} periods of cross (K, V) for a "
                          f"stack of {n}")
     period = _periods(stacked, n)
-    cache_at = None if cache is None else _periods(cache, n)
+    cache_at = None if cache is None else _periods(cache, n, cast=False)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
         p_params = period(i)

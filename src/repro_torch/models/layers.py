@@ -2,6 +2,10 @@
 
 Counterpart of ``repro/models/layers.py``.  Plain functions on tensors;
 weights are passed explicitly and keep the reference's (in, out) storage.
+The activations' dtype is the compute dtype: a matmul weight is cast to it
+where it is used (``w.to(x.dtype)``, a no-op when they agree), as the
+reference's ``w.astype(dtype)``; norms, rotary angles and the
+cross-entropy compute in fp32 and return the input's dtype.
 """
 from __future__ import annotations
 
@@ -120,7 +124,13 @@ def frame_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     frame's product has the same shape whatever B is (on the H100, rows
     of 4-32 frames equal their rows in a 64-frame call, where the plain
     GEMM moved them by up to 1.7e-4).  The stream MLLM uses it, so a frame
-    coalesced by the extract server gets its solo logits bit for bit."""
+    coalesced by the extract server gets its solo logits bit for bit.
+
+    bf16 products: cuBLAS may reduce a split-K GEMM's partial sums in bf16
+    when ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_
+    reduction`` is True (PyTorch's default); the reference accumulates in
+    fp32, so the port turns it off wherever it computes in bf16
+    (``models/model.py::bf16_matmul_fp32_sums``)."""
     return torch.bmm(x, w.expand(x.shape[0], *w.shape))
 
 
@@ -129,13 +139,15 @@ def apply_mlp(w_in: torch.Tensor, w_gate: Optional[torch.Tensor],
               act: str = "silu", mm=torch.matmul) -> torch.Tensor:
     """``(act(x·w_in) * (x·w_gate))·w_out``, the activation on ``w_in``;
     ungated when ``w_gate`` is None.  ``act="gelu"`` is the tanh
-    approximation, as ``jax.nn.gelu``'s default.  Weights are (in, out);
-    ``mm`` computes each product (``frame_matmul`` for the stream MLLM)."""
-    h = mm(x, w_in)
+    approximation, as ``jax.nn.gelu``'s default.  Weights are (in, out),
+    cast to x's dtype; ``mm`` computes each product (``frame_matmul`` for
+    the stream MLLM)."""
+    dt = x.dtype
+    h = mm(x, w_in.to(dt))
     h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
     if w_gate is not None:
-        h = h * mm(x, w_gate)
-    return mm(h, w_out)
+        h = h * mm(x, w_gate.to(dt))
+    return mm(h, w_out.to(dt))
 
 
 # --------------------------------------------------------------------------
@@ -153,21 +165,27 @@ def embed_spec(vocab: int, d_model: int,
 
 
 def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor,
-                 scale: Optional[float] = None) -> torch.Tensor:
-    """tokens (B, S) int -> (B, S, d), times ``scale`` when given."""
-    x = params["table"][tokens]
+                 scale: Optional[float] = None,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """tokens (B, S) int -> (B, S, d) in ``dtype`` (default the table's),
+    times ``scale`` rounded to that dtype when given, as the reference's
+    ``take(table.astype(dtype))`` and ``x * asarray(scale, dtype)``.  The
+    table is cast before the gather (a no-op where it is already in
+    ``dtype``), so a cast step's gradient reaches it as the reference's."""
+    table = params["table"]
+    x = (table if dtype is None else table.to(dtype))[tokens]
     if scale is not None:
-        x = x * scale
+        x = x * torch.tensor(scale, dtype=x.dtype).item()
     return x
 
 
 def unembed(params: Dict[str, Any], x: torch.Tensor,
             final_cap: Optional[float] = None) -> torch.Tensor:
-    """x (B, S, d) -> logits (B, S, V) over the padded vocab, through the
-    unembedding where there is one, else the tied table."""
+    """x (B, S, d) -> logits (B, S, V) in x's dtype over the padded vocab,
+    through the unembedding where there is one, else the tied table."""
     if "unembed" in params:
-        return softcap(x @ params["unembed"], final_cap)
-    return softcap(x @ params["table"].t(), final_cap)
+        return softcap(x @ params["unembed"].to(x.dtype), final_cap)
+    return softcap(x @ params["table"].to(x.dtype).t(), final_cap)
 
 
 # --------------------------------------------------------------------------

@@ -18,6 +18,22 @@ tree key for key.  The cache is a dict ``{"layers": {"i{j}":
 {leaf: (n_periods, B, ...)}}}``, as the reference's, with ``"cross":
 {"i{j}": {"k", "v": (n_periods, B, T_src, Hk, Dh)}}`` for an
 encoder-decoder; prefill and decode write it in place and return it.
+
+The compute dtype: ``logits_causal``, ``loss``, ``init_cache``,
+``prefill`` and ``decode`` take ``dtype=`` as the reference's methods do,
+but default to ``torch.float32`` where the reference defaults to
+``jnp.bfloat16`` (its engine, launcher and tests pass fp32, and so does
+every caller of the port); a model made float64 by ``.double()`` defaults
+to float64.  At ``dtype`` the embeddings, activations,
+projections and the KV cache are in that dtype, each matmul weight cast to
+it where it is used (``CAST_LEAVES``, the leaves the reference casts with
+``.astype(dtype)``); norms, rotary angles, soft-caps' inputs, the router,
+the SSD and the cross-entropy compute in fp32.  ``cast_`` casts those
+leaves once (the served model: 2 bytes a weight), and a model built with
+``LM(cfg, dtype=...)`` holds them in that dtype from the start (one whose
+fp32 weights would not fit the card); either then refuses calls at another
+dtype.  On the card a bf16 call turns off cuBLAS' reduced-precision bf16
+split-K sums (``bf16_matmul_fp32_sums``).
 """
 from __future__ import annotations
 
@@ -32,21 +48,53 @@ from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (cross_entropy, embed_spec,
                                        embed_tokens, norm, norm_spec,
                                        unembed)
-from repro_torch.models.param import ParamTree, init_params
+from repro_torch.models.param import ParamTree, init_params, step_cast
 
 #: the batch keys of the stub frontends' inputs, beside tokens and labels
 FRONTEND_KEYS = ("frames", "patch_embeds", "patch_pos")
+#: the leaves (by their last name) the reference casts to the compute dtype
+#: where it uses them: embeddings, attention and MLP projections, experts,
+#: the SSM's projections and convolutions.  Norm scales and biases, qk-norm,
+#: the router, ``A_log``, ``D`` and ``dt_bias`` stay fp32.
+CAST_LEAVES = frozenset({
+    "table", "unembed", "wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out",
+    "shared_in", "shared_gate", "shared_out", "z_proj", "x_proj", "B_proj",
+    "C_proj", "dt_proj", "conv_w_x", "conv_b_x", "conv_w_B", "conv_b_B",
+    "conv_w_C", "conv_b_C", "out_proj"})
+
+
+def cast_leaf(name: str) -> bool:
+    """Whether the dotted parameter ``name`` is cast to the compute dtype."""
+    return name.rsplit(".", 1)[-1] in CAST_LEAVES
+
+
+def bf16_matmul_fp32_sums() -> None:
+    """cuBLAS sums a split-K bf16 GEMM's partials in bf16 while PyTorch's
+    ``allow_bf16_reduced_precision_reduction`` is True (its default); the
+    reference accumulates in fp32, so a bf16 call on the card turns it
+    off (process-wide, as PyTorch keeps it)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
 
 
 class LM(ParamTree):
     """An LM (decoder-only or encoder-decoder) as one module of
     parameters."""
 
-    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
+                 dtype: Optional[torch.dtype] = None):
+        """``dtype`` (other than fp32): ``CAST_LEAVES`` are held in it from
+        the start, each drawn in fp32 by ``init`` and rounded, and the
+        model computes at that dtype only."""
         dev = resolve_device(device)
-        super().__init__(self.spec(cfg), dev)
+        low = dtype is not None and dtype != torch.float32
+        super().__init__(self.spec(cfg), dev,
+                         (lambda n: dtype if cast_leaf(n) else None)
+                         if low else None)
         self.cfg = cfg
         self.device = dev
+        #: the dtype the cast leaves are held in (None: fp32, any dtype)
+        self.compute_dtype: Optional[torch.dtype] = dtype if low else None
 
     @staticmethod
     def spec(cfg: ArchConfig) -> Dict[str, Any]:
@@ -71,17 +119,62 @@ class LM(ParamTree):
         init_params(self, generator)
         return self
 
+    @torch.no_grad()
+    def cast_(self, dtype: torch.dtype) -> "LM":
+        """Cast ``CAST_LEAVES`` to ``dtype`` once, in place (leaf by leaf:
+        each fp32 leaf is freed as its copy is made), with the values of
+        the reference's ``w.astype(dtype)`` at use; the other leaves stay
+        fp32.  The model then computes at ``dtype`` only."""
+        if self.compute_dtype not in (None, dtype):
+            raise ValueError(f"{self.cfg.name}: cast to "
+                             f"{self.compute_dtype} already")
+        for name, p in self.named_parameters():
+            if cast_leaf(name):
+                p.data = p.data.to(dtype)
+        self.compute_dtype = None if dtype == torch.float32 else dtype
+        return self
+
+    def _dtype(self, dtype: Optional[torch.dtype]) -> torch.dtype:
+        """The compute dtype of a call: ``dtype``, or by default fp32 (the
+        reference's default is bf16), float64 for a model made float64 by
+        ``.double()`` (a float64 witness); checked against the cast
+        leaves'.  A bf16 call on the card gets fp32 sums in cuBLAS' bf16
+        GEMMs."""
+        if dtype is None:
+            dtype = torch.float64 if self.embed.table.dtype == torch.float64 \
+                else torch.float32
+        if self.compute_dtype is not None and dtype != self.compute_dtype:
+            raise ValueError(f"{self.cfg.name}: the weights are cast to "
+                             f"{self.compute_dtype}; a call at {dtype} "
+                             "would compute on rounded weights")
+        if dtype == torch.bfloat16 and self.device.type == "cuda":
+            bf16_matmul_fp32_sums()
+        return dtype
+
+    def _params(self) -> Dict[str, Any]:
+        """The parameter tree; under the cast step (``param.cast_step``)
+        the leaves outside the stacks (the embeddings) are cast here, the
+        stacks' period by period in ``blocks.apply_stack``."""
+        def walk(tree):
+            return {k: v if k == "stack" else
+                    (walk(v) if isinstance(v, dict) else step_cast(v))
+                    for k, v in tree.items()}
+        return walk(self.tree())
+
     # ------------------------------------------------------------------
     def _embed(self, params: Dict[str, Any], tokens: torch.Tensor,
                patch_embeds: Optional[torch.Tensor] = None,
-               patch_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Token embeddings (B, S, d), plus ``patch_embeds`` (B, P, d) added
-        at ``patch_pos`` (B, P) for the patch frontend: a position given
-        twice takes both (``index_put(..., accumulate=True)``, out of
-        place, as the reference's ``.at[].add``)."""
+               patch_pos: Optional[torch.Tensor] = None,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Token embeddings (B, S, d) in ``dtype`` (default the table's),
+        plus ``patch_embeds`` (B, P, d), cast to it, added at
+        ``patch_pos`` (B, P) for the patch frontend: a position given twice
+        takes both (``index_put(..., accumulate=True)``, out of place, as
+        the reference's ``.at[].add``)."""
         cfg = self.cfg
         scale = math.sqrt(float(cfg.d_model)) if cfg.embed_scale else None
-        x = embed_tokens(params["embed"], tokens.to(self.device), scale)
+        x = embed_tokens(params["embed"], tokens.to(self.device), scale,
+                         dtype)
         if patch_embeds is None:
             return x
         if cfg.frontend != "patch" or patch_pos is None:
@@ -110,7 +203,8 @@ class LM(ParamTree):
         return blk.cross_kv_stack(self.cfg, params["stack"], enc_out)
 
     def _cross_from_frames(self, params: Dict[str, Any],
-                           frames: Optional[torch.Tensor]
+                           frames: Optional[torch.Tensor],
+                           dtype: torch.dtype
                            ) -> Optional[List[blk.CrossKV]]:
         if not self.cfg.encoder_decoder:
             if frames is not None:
@@ -119,49 +213,58 @@ class LM(ParamTree):
         if frames is None:
             raise ValueError(f"{self.cfg.name}: the encoder-decoder takes "
                              "frames (B, T, d)")
-        return self._cross_kv_stack(params, self._encode(params, frames))
+        return self._cross_kv_stack(
+            params, self._encode(params, frames.to(dtype=dtype)))
 
     def _head(self, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
         x = norm(params["final_norm"], x, self.cfg.norm)
         return unembed(params["embed"], x, self.cfg.final_softcap)
 
     def logits_and_aux(self, tokens: torch.Tensor, *,
+                       dtype: Optional[torch.dtype] = None,
                        frames: Optional[torch.Tensor] = None,
                        patch_embeds: Optional[torch.Tensor] = None,
                        patch_pos: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) (with ``frames`` for an encoder-decoder, patches
-        for the patch frontend) -> (logits (B, S, padded vocab), the MoE
-        aux loss (0 without MoE blocks)), no cache; differentiable in the
-        parameters that require grad (training)."""
-        params = self.tree()
-        x = self._embed(params, tokens, patch_embeds, patch_pos)
+        for the patch frontend) -> (logits (B, S, padded vocab) in
+        ``dtype``, the MoE aux loss (fp32; 0 without MoE blocks)), no
+        cache; differentiable in the parameters that require grad
+        (training)."""
+        dtype = self._dtype(dtype)
+        params = self._params()
+        x = self._embed(params, tokens, patch_embeds, patch_pos, dtype)
         positions = torch.arange(tokens.shape[1], device=self.device)[None]
         x, aux = blk.apply_stack(
             self.cfg, params["stack"], x, positions, return_aux=True,
-            cross_kv=self._cross_from_frames(params, frames))
+            cross_kv=self._cross_from_frames(params, frames, dtype))
         return self._head(params, x), aux
 
     def forward(self, tokens: torch.Tensor, **inputs) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, padded vocab), no cache;
         differentiable in the parameters that require grad (training).
-        ``inputs``: ``logits_and_aux``'s frontend keywords."""
+        ``inputs``: ``logits_and_aux``'s keywords (``dtype``, the
+        frontends')."""
         return self.logits_and_aux(tokens, **inputs)[0]
 
     @torch.no_grad()
-    def logits_causal(self, tokens: torch.Tensor, **inputs) -> torch.Tensor:
-        """``forward`` without a graph, for serving."""
-        return self(tokens, **inputs)
+    def logits_causal(self, tokens: torch.Tensor,
+                      dtype: Optional[torch.dtype] = None,
+                      **inputs) -> torch.Tensor:
+        """``forward`` at ``dtype`` without a graph, for serving."""
+        return self(tokens, dtype=dtype, **inputs)
 
-    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def loss(self, batch: Dict[str, torch.Tensor],
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Next-token loss of ``{"tokens", "labels"}`` (B, S), with
         ``"frames"`` or ``"patch_embeds"`` / ``"patch_pos"`` where the
-        model takes them: mean nll + z-loss + the MoE aux loss (router
-        z-loss and load balance, 0 without MoE blocks); labels below 0 are
-        read as 0, as the reference does."""
+        model takes them, the model run at ``dtype``: mean nll + z-loss (in
+        fp32) + the MoE aux loss (router z-loss and load balance, 0 without
+        MoE blocks); labels below 0 are read as 0, as the reference
+        does."""
         logits, aux = self.logits_and_aux(
-            batch["tokens"], **{k: batch[k] for k in FRONTEND_KEYS
-                                if k in batch})
+            batch["tokens"], dtype=dtype,
+            **{k: batch[k] for k in FRONTEND_KEYS if k in batch})
         labels = batch["labels"].to(self.device).long().clamp_min(0)
         nll, zl = cross_entropy(logits, labels)
         return nll + zl + aux
@@ -184,10 +287,13 @@ class LM(ParamTree):
                             for j in range(len(cfg.block_pattern))}
         return out
 
-    def init_cache(self, batch: int, s_max: int,
-                   t_src: int = 0) -> Dict[str, Any]:
-        """A zeroed fp32 cache (the kernels take fp32)."""
-        return {part: {key: {leaf: torch.zeros(shape, device=self.device)
+    def init_cache(self, batch: int, s_max: int, t_src: int = 0,
+                   dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+        """A zeroed cache in ``dtype`` (the default as ``prefill``'s: fp32,
+        where the reference's is bf16)."""
+        dtype = self._dtype(dtype)
+        return {part: {key: {leaf: torch.zeros(shape, device=self.device,
+                                               dtype=dtype)
                              for leaf, shape in leaves.items()}
                        for key, leaves in tree.items()}
                 for part, tree in self.cache_shapes(batch, s_max,
@@ -207,6 +313,7 @@ class LM(ParamTree):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: Dict[str, Any],
                 last_pos: Optional[torch.Tensor] = None, *,
+                dtype: Optional[torch.dtype] = None,
                 frames: Optional[torch.Tensor] = None,
                 patch_embeds: Optional[torch.Tensor] = None,
                 patch_pos: Optional[torch.Tensor] = None
@@ -217,14 +324,17 @@ class LM(ParamTree):
         encoder-decoder encodes ``frames`` and puts each period's cross
         (K, V) in ``cache["cross"]`` (replacing its leaves, whatever their
         T_src); without frames it reuses the cache's, as the reference
-        does.  Returns (logits (B, 1, V), cache)."""
-        params = self.tree()
-        x = self._embed(params, tokens, patch_embeds, patch_pos)
+        does.  The model runs at ``dtype`` (the cache's leaves keep theirs:
+        K/V are cast as they are written).  Returns (logits (B, 1, V),
+        cache)."""
+        dtype = self._dtype(dtype)
+        params = self._params()
+        x = self._embed(params, tokens, patch_embeds, patch_pos, dtype)
         positions = torch.arange(tokens.shape[1], device=self.device)[None]
         cross = None
         if self.cfg.encoder_decoder:
             if frames is not None:
-                cross = self._cross_from_frames(params, frames)
+                cross = self._cross_from_frames(params, frames, dtype)
                 cache["cross"] = {
                     key: {"k": torch.stack([p[key][0] for p in cross]),
                           "v": torch.stack([p[key][1] for p in cross])}
@@ -244,15 +354,18 @@ class LM(ParamTree):
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: Dict[str, Any],
-               lens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """One decode step.  tokens (B, 1); lens (B,) int, each sequence's
-        length so far (a scalar is broadcast).  An encoder-decoder's cross
-        attention reads ``cache["cross"]`` (decode writes none).  Returns
-        (logits (B, 1, V), cache advanced in place)."""
-        params = self.tree()
+               lens: torch.Tensor, *, dtype: Optional[torch.dtype] = None
+               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One decode step at ``dtype``.  tokens (B, 1); lens (B,) int, each
+        sequence's length so far (a scalar is broadcast).  An
+        encoder-decoder's cross attention reads ``cache["cross"]`` (decode
+        writes none).  Returns (logits (B, 1, V), cache advanced in
+        place)."""
+        dtype = self._dtype(dtype)
+        params = self._params()
         b = tokens.shape[0]
         lens = lens.to(self.device).long().reshape(-1).expand(b)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, dtype=dtype)
         cross = self._cache_cross(cache) if self.cfg.encoder_decoder \
             else None
         x = blk.apply_stack(self.cfg, params["stack"], x, lens[:, None],

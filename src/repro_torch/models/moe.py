@@ -1,7 +1,7 @@
 """Mixture-of-Experts FFN on one device.
 
 Counterpart of ``repro/models/moe.py``'s single-device path
-(``apply_moe`` with no mesh): an fp32 router with top-k routing,
+(``apply_moe`` with no mesh), in the activations' dtype: an fp32 router with top-k routing,
 renormalised weights and the Switch load-balance + z-loss aux; each expert
 takes at most ``C = int(ceil(k·T / E)·capacity_factor) + 1`` of the T
 tokens of the call, assigned in the order of the flat (token, k) list, and
@@ -84,10 +84,12 @@ def dispatch_slots(idx: torch.Tensor, n_experts: int, cap: int
 
 def _expert_ffn(w_in: torch.Tensor, w_gate: torch.Tensor,
                 w_out: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
-    """xb (E, C, d) -> (E, C, d): each expert's SwiGLU on its slots."""
-    h = torch.bmm(xb, w_in)
-    g = torch.bmm(xb, w_gate)
-    return torch.bmm(F.silu(h) * g, w_out)
+    """xb (E, C, d) -> (E, C, d): each expert's SwiGLU on its slots, the
+    weights cast to xb's dtype."""
+    dt = xb.dtype
+    h = torch.bmm(xb, w_in.to(dt))
+    g = torch.bmm(xb, w_gate.to(dt))
+    return torch.bmm(F.silu(h) * g, w_out.to(dt))
 
 
 def apply_moe(params: Dict[str, Any], x: torch.Tensor, moe: MoEConfig
@@ -113,7 +115,8 @@ def apply_moe(params: Dict[str, Any], x: torch.Tensor, moe: MoEConfig
         y = y + contrib[:, i]
     y = y.reshape(b, s, d)
     if moe.n_shared_experts:
-        h = x @ params["shared_in"]
-        g = x @ params["shared_gate"]
-        y = y + (F.silu(h) * g) @ params["shared_out"]
+        dt = x.dtype
+        h = x @ params["shared_in"].to(dt)
+        g = x @ params["shared_gate"].to(dt)
+        y = y + (F.silu(h) * g) @ params["shared_out"].to(dt)
     return y, aux

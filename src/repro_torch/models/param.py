@@ -6,16 +6,54 @@ whose leaves are ``ParamSpec``.  ``ParamTree`` turns it into an
 (``backbone.stack.i0.mixer.wq``), so the reference's parameter tree maps onto
 it key for key (``repro_torch.bridge``).  ``init_params`` fills it with the
 reference's init scheme from an explicit ``torch.Generator``; the numbers
-differ from ``jax.random``'s, the distributions do not.
+differ from ``jax.random``'s, the distributions do not.  A leaf may be
+held in a lower precision (``ParamTree(..., dtypes=...)``: an LM served in
+bf16); it is still drawn in fp32 and then rounded.
+
+``cast_step`` is the reference trainer's ``REPRO_CAST_BF16_STEP``: while it
+is active, ``step_cast`` gives every fp32 leaf of two or more dims (by the
+stacked leaf's dims for a period's slice) as a bf16 copy inside autograd,
+whose gradient is rounded to bf16 on its way back into the fp32 leaf, as
+the transpose of JAX's convert.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
+
+#: the most values of a low-precision leaf drawn in fp32 at once
+INIT_CHUNK = 1 << 28
+#: the cast step's dtype while ``cast_step`` is active, else None
+_STEP_DTYPE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_step_dtype", default=None)
+
+
+@contextlib.contextmanager
+def cast_step(dtype: torch.dtype = torch.bfloat16) -> Iterator[None]:
+    """Within the block, ``step_cast`` casts the leaves the reference's
+    cast step casts to ``dtype``."""
+    token = _STEP_DTYPE.set(dtype)
+    try:
+        yield
+    finally:
+        _STEP_DTYPE.reset(token)
+
+
+def step_cast(w: torch.Tensor, ndim: Optional[int] = None) -> torch.Tensor:
+    """``w`` in the cast step's dtype where the step casts it: an fp32 leaf
+    of ``ndim`` (default ``w.dim()``; a period's slice passes its stacked
+    leaf's) two or more; else ``w``."""
+    dtype = _STEP_DTYPE.get()
+    if dtype is None or w.dtype != torch.float32 or \
+            (w.dim() if ndim is None else ndim) < 2:
+        return w
+    return w.to(dtype)
 
 
 @dataclass(frozen=True)
@@ -37,19 +75,24 @@ def stack(spec: Any, n: int) -> Any:
 
 
 class ParamTree(nn.Module):
-    """Nested parameters built from a spec tree (uninitialised)."""
+    """Nested parameters built from a spec tree (uninitialised), fp32, or
+    ``dtypes(dotted name)`` where that gives a dtype (None: fp32)."""
 
-    def __init__(self, spec: Dict[str, Any], device: torch.device):
+    def __init__(self, spec: Dict[str, Any], device: torch.device,
+                 dtypes: Optional[Callable[[str], Optional[torch.dtype]]]
+                 = None, prefix: str = ""):
         super().__init__()
         self._specs: Dict[str, ParamSpec] = {}
         for name, s in spec.items():
             if isinstance(s, ParamSpec):
                 self._specs[name] = s
+                dtype = (dtypes and dtypes(prefix + name)) or torch.float32
                 self.register_parameter(name, nn.Parameter(
-                    torch.empty(s.shape, device=device),
+                    torch.empty(s.shape, device=device, dtype=dtype),
                     requires_grad=False))
             else:
-                self.add_module(name, ParamTree(s, device))
+                self.add_module(name, ParamTree(s, device, dtypes,
+                                                f"{prefix}{name}."))
 
     def tree(self) -> Dict[str, Any]:
         """The parameters as a nested dict of tensors."""
@@ -88,7 +131,21 @@ def init_params(tree: ParamTree, generator: torch.Generator) -> None:
     ``generator`` on its device and copied to the parameters' device: a CPU
     generator gives the same weights on every device; a CUDA generator
     draws a full-width model in a fraction of the time, with other
-    numbers."""
+    numbers.  A leaf held in a lower precision is drawn in fp32 and
+    rounded (``copy_``), in slices of its leading axis of at most
+    ``INIT_CHUNK`` values (a whole fp32 draw of moonshot's stacked experts
+    would be 35 GB), so a leaf of more values than that has other numbers
+    than an fp32 leaf at the same seed."""
     params = dict(tree.named_parameters())
     for name, s in sorted(tree.specs().items()):
-        params[name].copy_(_init_one(s, generator))
+        p = params[name]
+        if p.dtype == torch.float32 or p.dim() < 2:
+            p.copy_(_init_one(s, generator))
+            continue
+        fan_in = s.fan_in or (s.shape[-2] if len(s.shape) >= 2
+                              else s.shape[-1])
+        rows = max(1, INIT_CHUNK // max(1, math.prod(s.shape[1:])))
+        for i in range(0, s.shape[0], rows):
+            part = ParamSpec((min(rows, s.shape[0] - i),) + s.shape[1:],
+                             s.init, s.scale, fan_in)
+            p[i:i + rows].copy_(_init_one(part, generator))

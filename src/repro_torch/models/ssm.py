@@ -5,7 +5,10 @@ port runs on one card).  The prefills compute the chunked SSD through
 ``kernels.ssd_scan.ops.ssd``, whose within-chunk terms are the ``ssd_scan``
 kernel on CUDA tensors and its plain version on CPU tensors, where the
 reference calls its plain jnp ``_ssd_chunked``.  Decode is one recurrent
-step on the O(1) state and has no kernel, as in the reference.
+step on the O(1) state and has no kernel, as in the reference.  The
+projections and the conv run in x's dtype (their weights cast to it); dt,
+A, the SSD and the state update in fp32, the outputs and the cached state
+in x's dtype, as the reference's.
 """
 from __future__ import annotations
 
@@ -51,9 +54,9 @@ def mamba_spec(d_model: int, ssm: SSMConfig) -> Dict[str, ParamSpec]:
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., d) times w (d, *out) -> (..., *out)."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
-                                                   *w.shape[1:])
+    """x (..., d) times w (d, *out) cast to x's dtype -> (..., *out)."""
+    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).reshape(
+        *x.shape[:-1], *w.shape[1:])
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -70,15 +73,20 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def _project_and_conv(params: Dict[str, torch.Tensor], x: torch.Tensor):
-    """Shared projection + conv of the prefills.  x (B, L, d)."""
+    """Shared projection + conv of the prefills.  x (B, L, d); the conv
+    weights and biases cast to x's dtype, as the reference's."""
+    dtp = x.dtype
     z = _proj(x, params["z_proj"])
     xs0 = _proj(x, params["x_proj"])
     Bm0 = _proj(x, params["B_proj"])
     Cm0 = _proj(x, params["C_proj"])
     dt = _proj(x, params["dt_proj"])
-    xs = F.silu(_causal_conv(xs0, params["conv_w_x"], params["conv_b_x"]))
-    Bm = F.silu(_causal_conv(Bm0, params["conv_w_B"], params["conv_b_B"]))
-    Cm = F.silu(_causal_conv(Cm0, params["conv_w_C"], params["conv_b_C"]))
+    xs = F.silu(_causal_conv(xs0, params["conv_w_x"].to(dtp),
+                             params["conv_b_x"].to(dtp)))
+    Bm = F.silu(_causal_conv(Bm0, params["conv_w_B"].to(dtp),
+                             params["conv_b_B"].to(dtp)))
+    Cm = F.silu(_causal_conv(Cm0, params["conv_w_C"].to(dtp),
+                             params["conv_b_C"].to(dtp)))
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"].to(torch.float32))
     return z, xs, Bm, Cm, dt, (xs0, Bm0, Cm0)
 
@@ -107,9 +115,10 @@ def _ssd_mix(params, ssm: SSMConfig, x: torch.Tensor):
 
 
 def _proj_out(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """y (..., H, P) times out_proj (H, P, d) -> (..., d)."""
+    """y (..., H, P) times out_proj (H, P, d) cast to y's dtype -> (...,
+    d)."""
     h, p, d = w.shape
-    return y.reshape(*y.shape[:-2], h * p) @ w.reshape(h * p, d)
+    return y.reshape(*y.shape[:-2], h * p) @ w.to(y.dtype).reshape(h * p, d)
 
 
 def mamba_prefill(params: Dict[str, torch.Tensor], ssm: SSMConfig,
@@ -161,12 +170,13 @@ def mamba_decode(params: Dict[str, torch.Tensor], ssm: SSMConfig,
             acc = acc + full[:, i] * w[..., i]
         return acc
 
-    xs = F.silu(conv_step(cache["conv_x"], xs0, params["conv_w_x"],
-                          params["conv_b_x"]))
-    Bm = F.silu(conv_step(cache["conv_B"], Bm0, params["conv_w_B"],
-                          params["conv_b_B"]))
-    Cm = F.silu(conv_step(cache["conv_C"], Cm0, params["conv_w_C"],
-                          params["conv_b_C"]))
+    dtp = x.dtype
+    xs = F.silu(conv_step(cache["conv_x"], xs0, params["conv_w_x"].to(dtp),
+                          params["conv_b_x"].to(dtp)))
+    Bm = F.silu(conv_step(cache["conv_B"], Bm0, params["conv_w_B"].to(dtp),
+                          params["conv_b_B"].to(dtp)))
+    Cm = F.silu(conv_step(cache["conv_C"], Cm0, params["conv_w_C"].to(dtp),
+                          params["conv_b_C"].to(dtp)))
     dt = F.softplus(dt.to(f32) + params["dt_bias"].to(f32))       # (B, H)
     A = -torch.exp(params["A_log"].to(f32))
     dA = torch.exp(dt * A)

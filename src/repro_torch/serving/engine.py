@@ -19,7 +19,11 @@ is garbage until ``_insert_slot`` overwrites the whole slot.
 
 The reference jits its two programs; the port runs eagerly.  The cache and
 the slot lengths stay on the model's device between ticks; only the
-sampled tokens are copied to the host.
+sampled tokens are copied to the host.  ``dtype`` is the compute dtype of
+every prefill and decode and the cache's, as the reference's (by default
+the LM's, fp32; a bf16 engine serves an LM cast with ``LM.cast_(torch.bfloat16)``
+or built in bf16, or, slowly, an fp32 one whose weights are cast at every
+use).
 """
 from __future__ import annotations
 
@@ -53,7 +57,7 @@ def _bucket(n: int, lo: int = 16) -> int:
 
 class ServingEngine:
     def __init__(self, lm: LM, *, max_slots: int = 4, s_max: int = 512,
-                 eos_id: int = 1):
+                 dtype: Optional[torch.dtype] = None, eos_id: int = 1):
         if lm.cfg.encoder_decoder:
             raise ValueError(f"{lm.cfg.name}: the engine serves decoder-only "
                              "archs (an encoder-decoder's requests carry "
@@ -64,10 +68,11 @@ class ServingEngine:
         self.device = lm.device
         self.max_slots = max_slots
         self.s_max = s_max
+        self.dtype = lm._dtype(dtype)
         self.eos_id = eos_id
         self.exact_prefill = self.cfg.has_mamba
 
-        self.cache = lm.init_cache(max_slots, s_max)
+        self.cache = lm.init_cache(max_slots, s_max, dtype=self.dtype)
         self.lens = torch.zeros((max_slots,), dtype=torch.int32,
                                 device=self.device)
         self.slot_req: List[Optional[Request]] = [None] * max_slots
@@ -78,13 +83,15 @@ class ServingEngine:
     # the two programs
     # ------------------------------------------------------------------
     def _prefill(self, tokens: torch.Tensor, last_pos: torch.Tensor):
-        cache1 = self.lm.init_cache(1, self.s_max)
-        logits, cache1 = self.lm.prefill(tokens, cache1, last_pos=last_pos)
+        cache1 = self.lm.init_cache(1, self.s_max, dtype=self.dtype)
+        logits, cache1 = self.lm.prefill(tokens, cache1, last_pos=last_pos,
+                                         dtype=self.dtype)
         return logits[:, 0], cache1                      # (1, V), cache
 
     def _decode_step(self, tokens: torch.Tensor,
                      active: torch.Tensor) -> torch.Tensor:
-        logits, self.cache = self.lm.decode(tokens, self.cache, self.lens)
+        logits, self.cache = self.lm.decode(tokens, self.cache, self.lens,
+                                            dtype=self.dtype)
         next_tok = sample_logits(logits[:, 0])
         self.lens = torch.where(active, self.lens + 1, self.lens)
         return next_tok

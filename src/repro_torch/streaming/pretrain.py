@@ -116,6 +116,11 @@ def _train(model_loss: Callable[[Batch], torch.Tensor],
     """``steps`` AdamW steps of ``model_loss`` over ``batches(i)``,
     updating ``params`` (a module's named parameters) in place; grad is on
     for them only while training.  Returns (params, per-step losses)."""
+    if os.environ.get("REPRO_CAST_BF16_STEP") == "1":
+        raise NotImplementedError(
+            "REPRO_CAST_BF16_STEP: the bf16 step casts the LM's weights "
+            "(models/model.py, models/blocks.py); the stream models' layers "
+            "do not take the cast, so they pretrain in fp32 only: unset it")
     opt_cfg = OptimizerConfig(lr=lr, warmup_steps=20, total_steps=steps,
                               weight_decay=0.01)
     state = adamw_init(params, opt_cfg)

@@ -12,9 +12,15 @@ parameters, passed as ``{dotted name: nn.Parameter}``; gradients come from
 ``loss.backward()`` into ``.grad`` (the only place a stacked layer
 weight's gradient lands: ``models/blocks.py::_PeriodSlice`` adds it there
 from inside autograd, so ``torch.autograd.grad`` would see none); the
-step updates the parameters in place.  There is no jit and no buffer donation: the reference's
-``REPRO_CAST_BF16_STEP`` (a bf16 copy of the weights inside the step) is
-not ported, and setting it raises.
+step updates the parameters in place.  There is no jit and no buffer
+donation.  ``REPRO_CAST_BF16_STEP=1`` is the reference's bf16 step: the
+loss runs under ``models.param.cast_step``, so every fp32 leaf of two or
+more dims enters the model as a bf16 copy made inside autograd (a stacked
+leaf's period slice after its ``_PeriodSlice``), the loss at the caller's
+dtype; the gradient comes back rounded to bf16 and accumulates into the
+fp32 ``.grad``, and AdamW updates the fp32 masters.  The LM
+(``models/model.py``, ``models/blocks.py``) takes the cast; a loss over
+other modules sees none of it.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.param import cast_step
 from repro_torch.training.checkpoint import CheckpointManager, nest
 from repro_torch.training.optimizer import (
     OptimizerConfig,
@@ -58,11 +65,15 @@ def make_train_step(loss_fn: Callable[[Dict[str, Any]], torch.Tensor],
     """``train_step(opt_state, batch) -> (opt_state, metrics)``: the
     parameters' gradients of ``loss_fn`` (accumulated over ``grad_accum``
     micro-batches, then divided by it), then one AdamW update of
-    ``params`` in place.  ``metrics``: loss, grad_norm, lr (tensors)."""
+    ``params`` in place.  ``metrics``: loss, grad_norm, lr (tensors).
+    Under ``REPRO_CAST_BF16_STEP=1`` ``loss_fn`` runs under
+    ``cast_step(torch.bfloat16)`` (the module docstring)."""
     if os.environ.get("REPRO_CAST_BF16_STEP") == "1":
-        raise NotImplementedError(
-            "REPRO_CAST_BF16_STEP: the bf16 step is not ported (it waits "
-            "for the bf16 kernels); unset it to train in fp32")
+        plain_loss = loss_fn
+
+        def loss_fn(batch):
+            with cast_step(torch.bfloat16):
+                return plain_loss(batch)
 
     def train_step(opt_state: Dict[str, Any], batch: Dict[str, Any]):
         for p in params.values():

@@ -958,3 +958,100 @@ def _stream_mllm_card_vs_cpu(dev):
         err = (g_k[n] - g).abs().max().item()
         witness = (g_p[n] - g).abs().max().item()
         assert err <= max(1e-4 * scale, 2 * witness), (n, err, witness)
+
+
+# ---------------------------------------------------------------------------
+# bf16: flash_attention_bf16 and decode_attention_bf16 against their plain
+# versions (fp32 inside, the output rounded to bf16 once) at the reference
+# sweep's bf16 tolerances, 2e-2 and 3e-2
+# ---------------------------------------------------------------------------
+
+BF16_FLASH = [(b, s, g * hk, hk, d, kw)
+              for d in (16, 32, 64, 96, 128, 256)
+              for b, s, g, hk in ((2, 33, 1, 2), (1, 257, 16, 2),
+                                  (1, 70, 64, 1), (2, 100, 2, 4))
+              for kw in (dict(causal=True), dict(causal=False),
+                         dict(causal=True, cap=20.0),
+                         dict(causal=True, window=7))
+              if not (g == 64 and d == 256 and kw.get("window"))]
+
+
+def _bf16(gen, *shape):
+    return torch.randn(shape, generator=gen).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,kw", BF16_FLASH)
+def test_flash_attention_bf16_kernel(dev, b, s, h, hk, d, kw):
+    gen = torch.Generator().manual_seed(21)
+    q, k, v = _bf16(gen, b, s, h, d), _bf16(gen, b, s, hk, d), \
+        _bf16(gen, b, s, hk, d)
+    reset_launch_counts()
+    got = flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw).cpu()
+    assert got.dtype == torch.bfloat16
+    assert launch_counts() == _counts(flash_attention_bf16=1)
+    torch.testing.assert_close(got.float(),
+                               flash_attention(q, k, v, **kw).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,d,kw", [
+    (4, 16, 1024, 16, 16, 64, {}), (2, 45, 130, 8, 4, 32, {}),
+    (2, 33, 257, 4, 2, 128, dict(cap=20.0)), (2, 200, 77, 8, 8, 64, {})])
+def test_flash_attention_bf16_cross_kernel(dev, b, sq, sk, h, hk, d, kw):
+    gen = torch.Generator().manual_seed(22)
+    q, k, v = _bf16(gen, b, sq, h, d), _bf16(gen, b, sk, hk, d), \
+        _bf16(gen, b, sk, hk, d)
+    got = flash_attention(q.to(dev), k.to(dev), v.to(dev), causal=False,
+                          **kw).cpu()
+    torch.testing.assert_close(
+        got.float(), flash_attention(q, k, v, causal=False, **kw).float(),
+        atol=2e-2, rtol=2e-2)
+
+
+def test_flash_attention_bf16_refuses_grad_and_lse(dev):
+    """No bf16 backward: bf16 inputs that require grad raise, with no
+    launch and no cast; the log-sum-exp (training) forward takes fp32."""
+    gen = torch.Generator().manual_seed(23)
+    q, k, v = (_bf16(gen, 1, 9, 4, 32).to(dev) for _ in range(3))
+    q.requires_grad_(True)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="bf16 backward"):
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        with torch.no_grad():
+            flash_attention_cuda(q, k, v, lse=True)
+    assert not any(launch_counts().values())
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,lens,kw", [
+    (4, 8192, 8, 4, 256, [7, 23, 30, 4206], dict(cap=50.0, window=4096)),
+    (4, 8192, 8, 4, 256, [7, 23, 30, 4206], dict(cap=50.0)),
+    (4, 8192, 32, 2, 128, [7, 23, 30, 4206], {}),
+    (4, 8192, 32, 2, 128, [6, 14, 23, 35], {}),
+    (4, 8192, 32, 32, 96, [7, 23, 30, 4206], {}),
+    (4, 1024, 16, 16, 64, [1024] * 4, {}),
+    (2, 64, 4, 2, 32, [1, 1], {}),
+    (2, 64, 4, 4, 32, [17, 3], dict(cap=20.0)),
+    (3, 300, 8, 2, 64, [1, 9, 300], dict(window=8)),
+    (2, 1000, 8, 8, 16, [999, 161], dict(window=517)),
+    (2, 100, 6, 2, 64, [100, 37], {}),
+    (1, 300, 32, 2, 256, [300], dict(cap=50.0)),
+    (40, 700, 32, 32, 64, [1 + (37 * i) % 700 for i in range(40)], {})])
+def test_decode_attention_bf16_kernel(dev, b, s, h, hk, d, lens, kw):
+    """As the fp32 kernel's test, on bf16: NaN keys past kv_len never read,
+    one launch of decode_attention_bf16."""
+    gen = torch.Generator().manual_seed(24)
+    q = _bf16(gen, b, 1, h, d)
+    k, v = _bf16(gen, b, s, hk, d), _bf16(gen, b, s, hk, d)
+    kv_len = torch.tensor(lens, dtype=torch.int32)[:, None]
+    want = decode_attention(q, k, v, kv_len, **kw)
+    for i, n in enumerate(lens):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    reset_launch_counts()
+    got = decode_attention_cuda(q.to(dev), k.to(dev), v.to(dev),
+                                kv_len.to(dev), **kw).cpu()
+    assert got.dtype == torch.bfloat16
+    assert launch_counts() == _counts(decode_attention_bf16=1)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)

@@ -84,8 +84,9 @@ def test_decode_attention_sweep(b, s, h, hk, d, nsplit, kw):
 @pytest.mark.parametrize("b,s,h,hk,d,nsplit", SWEEP)
 def test_decode_attention_bf16(b, s, h, hk, d, nsplit):
     """bf16 inputs: the plain version (fp32 inside) against the Pallas
-    kernel at the reference sweep's bf16 tolerance.  The CUDA kernel takes
-    fp32 only."""
+    kernel at the reference sweep's bf16 tolerance.  The CUDA kernel's
+    bf16 entry point is held to this plain version on the card
+    (``tests/test_torch_cuda.py``)."""
     q, k, v = randn(0, (b, 1, h, d)), randn(1, (b, s, hk, d)), \
         randn(2, (b, s, hk, d))
     kv_len = lengths(0, b, s)

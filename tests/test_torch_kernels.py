@@ -229,13 +229,18 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
         x[:, :, :1], x[:, :, :1], torch.ones(2), chunk=16)[0].sum().backward()
     matmul_int8_dynamic(q[0, :, 0], torch.ones(32, 8, dtype=torch.int8),
                         torch.ones(1, 8))
+    qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    flash_attention(qb, kb, kb)
+    decode_attention(qb[:, :1], kb, kb, torch.tensor([[28]],
+                                                     dtype=torch.int32))
     assert launch_counts() == before
     assert set(before) == {"frame_diff_u8", "fused_preprocess_u8",
                            "flash_attention_f32", "flash_attention_lse_f32",
                            "flash_attention_bwd_f32", "fused_prefix_launch",
                            "decode_attention_f32", "ssd_scan_f32",
                            "ssd_scan_bwd_f32", "int8_transpose_kn",
-                           "int8_mma_f32"}
+                           "int8_mma_f32", "flash_attention_bf16",
+                           "decode_attention_bf16"}
 
 
 @pytest.mark.parametrize("call", ["frame_diff", "fused_preprocess", "flash",

@@ -437,9 +437,14 @@ def test_trainer_restore_replays_exactly(reference_lm):
 
 
 def test_bf16_step_is_refused(monkeypatch):
+    """The bf16 step is ported for the LM (``tests/test_torch_bf16.py``);
+    the stream models' pretraining, whose layers do not take the cast,
+    refuses it before any step."""
+    from repro_torch.streaming import pretrain
+
     monkeypatch.setenv("REPRO_CAST_BF16_STEP", "1")
     with pytest.raises(NotImplementedError, match="bf16"):
-        make_train_step(lambda b: b, {}, OptimizerConfig())
+        pretrain._train(lambda b: b, {}, lambda i: {}, 1)
 
 
 def test_train_launcher_on_the_cpu(tmp_path, capsys):
