@@ -11,7 +11,8 @@ Phases (any failure exits non-zero and prints no result line):
      fails), and the tensor-core instructions in the built libraries
      counted with ``cuobjdump --dump-sass`` (HMMA in flash_attention's,
      decode_attention's and ssd_scan's, IMMA in int8_matmul's; none
-     fails);
+     fails), and HGMMA in each bf16 flash forward function (one a head
+     dim);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the main path's shapes and at ragged ones, with its device
      time, its roofline bound and a yardstick: PyTorch's SDPA for
@@ -237,11 +238,17 @@ Phases (any failure exits non-zero and prints no result line):
      then chatglm3-6b at depth 2 card == CPU on three steps
      (``chatglm3_bf16_step_vs_cpu``); (e) a bf16 flash_attention with grad
      on is refused.  Phase 2 also holds the bf16 kernels
-     (flash_attention_bf16 at the fp32 sweep's head dims, groups and
-     options and ``CROSS_SHAPES``; decode_attention_bf16 at gemma2's,
-     chatglm3's, phi3-mini's and seamless's cross decode shapes) to their
-     plain versions (2e-2, 3e-2) and to float64 on the same bf16 inputs
-     (``bf16_vs_float64``), timed beside SDPA in bf16 (a yardstick).
+     (flash_attention_bf16, on wgmma, TMA and mbarriers, at every head dim,
+     groups 1-64 and the fp32 sweep's options, lengths about its 64-row
+     warpgroups and 128-key tiles and windows a key either side of a tile
+     (``bf16_flash_cases``), ``CROSS_SHAPES`` and ``MAG_SHAPES``'
+     magnitudes, its host plan against the library's figures, two launches
+     equal bit for bit; decode_attention_bf16 at gemma2's, chatglm3's,
+     phi3-mini's and seamless's cross decode shapes) to their plain
+     versions (2e-2, 3e-2) and to float64 on the same bf16 inputs
+     (``bf16_vs_float64``), timed beside SDPA in bf16 (a yardstick) at
+     ``BF16_TIMED``; phase 1 finds HGMMA (wgmma) in each of
+     flash_attention_bf16's functions.
 
 Each phase that drives a plan zeroes the kernels' launch counts first and
 reads them after; a kernel of the plan that was never launched fails the
@@ -355,6 +362,9 @@ COMPANIONS = {"int8_matmul": ("int8_transpose_kn",)}
 SASS_MMA = {"flash_attention": "HMMA", "flash_attention_bwd": "HMMA",
             "decode_attention": "HMMA", "ssd_scan": "HMMA",
             "ssd_scan_bwd": "HMMA", "int8_matmul": "IMMA"}
+#: the functions that must hold HGMMA (wgmma), by library: name -> count
+#: (phase 1; the bf16 flash forward, one a head dim)
+SASS_WGMMA = {"flash_attention": {"flash_fwd_bf16_kernel": 6}}
 #: the paths driven end to end, by the name used in ``launches_by_path``
 PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
          "catalog", "mq_tollbooth", "mq_volleyball", "mq_reduced",
@@ -549,7 +559,9 @@ def no_stack(report, name):
 
 def sass_mma_counts():
     """Phase 1: each library of ``SASS_MMA`` holds its tensor-core
-    instruction (``cuobjdump --dump-sass``); a count of 0 fails."""
+    instruction (``cuobjdump --dump-sass``); a count of 0 fails.  In
+    flash_attention's library, each function of ``SASS_WGMMA`` (one a
+    head dim) holds HGMMA (wgmma), counted function by function."""
     from repro_torch.kernels._build import library_path, nvcc
 
     exe = shutil.which("cuobjdump") or os.path.join(
@@ -561,6 +573,16 @@ def sass_mma_counts():
         n = len(re.findall(rf"\b{op}\b", sass))
         print(f"[1] {name}: {n} {op} instructions (cuobjdump --dump-sass)")
         check(n > 0, f"{name}: no {op} instruction in its library")
+        for fn, want in SASS_WGMMA.get(name, {}).items():
+            # the dump's sections, one a function: "Function : <name>"
+            parts = [p for p in sass.split("Function : ")[1:]
+                     if fn in p.split(None, 1)[0]]
+            counts = [len(re.findall(r"\bHGMMA\b", p)) for p in parts]
+            print(f"[1] {name}: {fn}: {len(parts)} functions, HGMMA "
+                  f"{counts}")
+            check(len(parts) == want and all(counts),
+                  f"{name}: {fn} wants {want} functions with HGMMA, has "
+                  f"{counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -1389,107 +1411,203 @@ def flash_mask(sq, sk, kw, dev):
     return mask[None]
 
 
+#: flash_attention_bf16's sweep (phase 2): groups of queries on a kv head,
+#: and lengths about its 64-row warpgroups and 128-key tiles (64 keys at D
+#: 256, ``fwd_bf16_plan``'s "keys"), one of them a multiple of neither
+BF16_GROUPS = (1, 2, 4, 8, 16, 64)
+BF16_EDGE_S = (63, 64, 65, 127, 128, 129, 1000)
+#: flash_attention_bf16's timed shapes (phase 2): the served LMs' prefill
+#: of an 8192 bucket (chatglm3-6b first: phase 21's path), moonshot's (16
+#: heads of 128, G 1) and chatglm3's at a short prompt's bucket of 64
+#: tokens; (B, S, H, Hk, D, options)
+BF16_TIMED = {
+    "chatglm3_prefill": (1, 8192, 32, 2, 128, dict(causal=True)),
+    "phi3_prefill": (1, 8192, 32, 32, 96, dict(causal=True)),
+    "gemma2_prefill": (1, 8192, 8, 4, 256,
+                       dict(causal=True, cap=50.0, window=4096)),
+    "moonshot_prefill": (1, 8192, 16, 16, 128, dict(causal=True)),
+    "short_prefill": (1, 64, 32, 2, 128, dict(causal=True))}
+
+
+def bf16_flash_cases():
+    """(B, Sq, Sk, H, Hk, D, options) of phase 2's flash_attention_bf16
+    sweep: every head dim and group of ``BF16_GROUPS`` (one kv head at G
+    64, else two) at S 1, 33 and 257, bidirectional, capped and with a
+    window of 7, and causal at ``BF16_EDGE_S``; at S 1000, groups 1, 4 and
+    16 with a window one key shorter and one longer than a key tile; groups
+    3 and 6 (which do not divide the 128-row tile, so its last rows stay
+    unloaded) at S 65 and 257, causal and with a window of 7."""
+    from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
+                                                            fwd_bf16_plan)
+
+    cases = []
+    for d in HEAD_DIMS:
+        for g in BF16_GROUPS:
+            hk = 1 if g == 64 else 2
+            for s in (1, 33, 257):
+                for kw in (dict(causal=False), dict(causal=True, cap=20.0),
+                           dict(causal=True, window=7)):
+                    cases.append((1, s, s, g * hk, hk, d, kw))
+            for s in BF16_EDGE_S:
+                cases.append((1, s, s, g * hk, hk, d, dict(causal=True)))
+        bk = fwd_bf16_plan(1, 1000, 1000, 2, 2, d)["keys"]
+        for g in (1, 4, 16):
+            for w in (bk - 1, bk + 1):
+                cases.append((1, 1000, 1000, 2 * g, 2, d,
+                              dict(causal=True, window=w)))
+        for g in (3, 6):
+            for s in (65, 257):
+                for kw in (dict(causal=True), dict(causal=True, window=7)):
+                    cases.append((1, s, s, 2 * g, 2, d, kw))
+    return cases
+
+
+def bf16_plan_match():
+    """The host plan (``kernel.py::fwd_bf16_plan``) is the built library's
+    (``flash_attention_bf16_config``) at every head dim; printed side by
+    side."""
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.flash_attention.kernel import (
+        BF16_CONFIG_KEYS, HEAD_DIMS, fwd_bf16_plan)
+
+    fn = load_library("flash_attention").flash_attention_bf16_config
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for d in HEAD_DIMS:
+        got = (ctypes.c_int * len(BF16_CONFIG_KEYS))()
+        check(fn(d, got) == 0, f"flash_attention_bf16_config({d}) failed")
+        plan = fwd_bf16_plan(1, 8192, 8192, 32, 2, d)
+        want = [plan[k] for k in BF16_CONFIG_KEYS]
+        print(f"  flash_attention_bf16 D{d}: the library's "
+              f"{dict(zip(BF16_CONFIG_KEYS, got))}, the plan's "
+              f"{dict(zip(BF16_CONFIG_KEYS, want))}")
+        check(list(got) == want, f"flash_attention_bf16 D{d}: the library "
+              f"{list(got)}, the plan {want}")
+
+
 def bf16_kernel_checks(compare, gen, dev, rows):
     """flash_attention_bf16 and decode_attention_bf16 on bf16 inputs: the
-    flash cases of the fp32 sweep (every head dim, groups 1, 2, 16 and 64,
-    S 1, 33, 257, bidirectional, capped, windowed) and ``CROSS_SHAPES``;
-    decode at gemma2's (local and global), chatglm3's and phi3-mini's
-    decode shapes (the served ticks' two classes and ragged slots) and the
-    seamless cross decode.  Each held to its plain version (TOL) and to
-    float64 on the same inputs (``bf16_vs_float64``); timed at the served
-    LMs' shapes beside PyTorch's SDPA in bf16 (a yardstick only), bound by
-    2 bytes an element and 989 TFLOP/s.  Adds rows["flash_attention_bf16"]
-    and rows["decode_attention_bf16"]."""
+    flash plan against the library's figures, the flash sweep
+    (``bf16_flash_cases``) and ``CROSS_SHAPES``, and the flash kernel at
+    ``MAG_SHAPES``' magnitudes (a causal prefill of 2048, scores in the
+    hundreds); decode at gemma2's (local and global), chatglm3's and
+    phi3-mini's decode shapes (the served ticks' two classes and ragged
+    slots) and the seamless cross decode.  Each held to its plain version
+    (TOL) and to float64 on the same inputs (``bf16_vs_float64``); the
+    flash kernel's two launches equal bit for bit at every timed shape;
+    timed at the served LMs' shapes (``BF16_TIMED``) beside PyTorch's SDPA
+    in bf16 (a yardstick only), bound by 2 bytes an element and 989
+    TFLOP/s, the flash kernel's own ceiling (6 D operations a pair: P.V
+    on two terms) beside it.  Adds rows["flash_attention_bf16"] and
+    rows["decode_attention_bf16"]."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.kernel import \
         decode_attention_cuda
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_plain
-    from repro_torch.kernels.flash_attention.kernel import (
-        HEAD_DIMS, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     bf = torch.bfloat16
+    cgen = torch.Generator(device=dev).manual_seed(27)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen).to(dev, bf)
+    def randn(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen)).to(dev, bf)
 
-    def flash_case(b, sq, sk, h, hk, d, kw, label, rows64=None):
-        q, k, v = randn(b, sq, h, d), randn(b, sk, hk, d), randn(b, sk, hk, d)
+    def randn_dev(*shape):
+        return torch.randn(shape, generator=cgen, device=dev).to(bf)
+
+    def flash_case(q, k, v, kw, label, rows64=None):
         got = flash_attention_cuda(q, k, v, **kw)
         plain = flash_attention_plain(q, k, v, **kw)
         check(got.dtype == bf, f"flash_attention_bf16 {label}: {got.dtype}")
         compare("flash_attention_bf16", got, plain, label)
+        sq, sk = q.shape[1], k.shape[1]
         r0 = 0 if rows64 is None else sq - rows64
         exact = attention64(q[:, r0:], k, v,
                             flash_mask(sq, sk, kw, dev)[:, r0:],
                             kw.get("cap"))
         bf16_vs_float64("flash_attention_bf16", got[:, r0:], plain[:, r0:],
                         exact, label)
-        return q, k, v
+        return got
 
+    bf16_plan_match()
     t0 = time.perf_counter()
-    for d in HEAD_DIMS:
-        for g in (1, 2, 16, 64):
-            hk = 1 if g == 64 else 2
-            for s in (1, 33, 257):
-                for kw in (dict(causal=False), dict(causal=True, cap=20.0),
-                           dict(causal=True, window=7)):
-                    flash_case(1, s, s, g * hk, hk, d, kw,
-                               f"B1 S{s} H{g * hk}/{hk} D{d} {kw}")
+    cases = bf16_flash_cases()
+    for b, sq, sk, h, hk, d, kw in cases:
+        # the edge lengths' inputs are drawn on the card (large ones at S
+        # 1000 would take seconds on the CPU generator)
+        draw = randn if sq in (1, 33, 257) else randn_dev
+        flash_case(draw(b, sq, h, d), draw(b, sk, hk, d), draw(b, sk, hk, d),
+                   kw, f"B{b} S{sq} H{h}/{hk} D{d} {kw}")
     for label, (b, sq, sk, h, hk, d, kw) in CROSS_SHAPES.items():
-        flash_case(b, sq, sk, h, hk, d, dict(causal=False, **kw),
+        flash_case(randn(b, sq, h, d), randn(b, sk, hk, d),
+                   randn(b, sk, hk, d), dict(causal=False, **kw),
                    f"{label} B{b} Sq{sq} Sk{sk} H{h}/{hk} D{d}")
-    print(f"  flash_attention_bf16: {len(HEAD_DIMS) * 4 * 9} sweep and "
-          f"{len(CROSS_SHAPES)} cross cases in "
-          f"{time.perf_counter() - t0:.1f} s; against float64 at most "
+    for name, (dm, h, hk, d) in MAG_SHAPES.items():
+        s = 2048
+        q = randn(1, s, h, d, std=math.sqrt(dm / h))
+        k, v = (randn(1, s, hk, d, std=math.sqrt(dm / hk)) for _ in range(2))
+        flash_case(q, k, v, dict(causal=True),
+                   f"magnitudes {name} prefill B1 S{s} H{h}/{hk} D{d}, q std "
+                   f"{math.sqrt(dm / h):.2f}, k/v std "
+                   f"{math.sqrt(dm / hk):.2f}")
+        del q, k, v
+    torch.cuda.empty_cache()
+    print(f"  flash_attention_bf16: {len(cases)} sweep, "
+          f"{len(CROSS_SHAPES)} cross and {len(MAG_SHAPES)} magnitude cases "
+          f"in {time.perf_counter() - t0:.1f} s; against float64 at most "
           f"{BF16_F64['flash_attention_bf16']:.3f} of the bar")
 
-    # timed: the served LMs' prefill of an 8192 bucket (chatglm3-6b first:
-    # phase 21's path), and seamless's prefill cross attention
+    # timed (the 8192 buckets held to float64 on their last rows), each
+    # launched twice more: equal bit for bit
     flash_rows = {}
-    s = 8192
-    for which, h, hk, d, kw in (
-            ("chatglm3_prefill", 32, 2, 128, dict(causal=True)),
-            ("phi3_prefill", 32, 32, 96, dict(causal=True)),
-            ("gemma2_prefill", 8, 4, 256,
-             dict(causal=True, cap=50.0, window=4096))):
-        label = f"{which} B1 S{s} H{h}/{hk} D{d} {kw}"
-        q, k, v = flash_case(1, s, s, h, hk, d, kw, label,
-                             rows64=BF16_F64_ROWS)
+    for which, (b, s, h, hk, d, kw) in BF16_TIMED.items():
+        label = f"{which} B{b} S{s} H{h}/{hk} D{d} {kw}"
+        q, k, v = randn(b, s, h, d), randn(b, s, hk, d), randn(b, s, hk, d)
+        got = flash_case(q, k, v, kw, label,
+                         rows64=BF16_F64_ROWS if s > BF16_F64_ROWS else None)
+        check(torch.equal(got, flash_attention_cuda(q, k, v, **kw)) and
+              torch.equal(got, flash_attention_cuda(q, k, v, **kw)),
+              f"flash_attention_bf16 {label}: two launches differ")
         w = kw.get("window")
         pairs = (w * (w + 1) // 2 + (s - w) * w) if w else s * (s + 1) // 2
         nbytes, ops = 2 * (2 * q.numel() + 2 * k.numel()), 4 * d * pairs * h
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         mask = flash_mask(s, s, kw, dev)[0] if w else None
+        n, reps = (2, 3) if s > 1024 else (40, 5)
         t = dict(ms=device_ms(lambda: flash_attention_cuda(q, k, v, **kw),
-                              n=2, reps=3),
+                              n=n, reps=reps),
                  plain_ms=device_ms(lambda: flash_attention_plain(
-                     q, k, v, **kw), n=1, reps=3),
+                     q, k, v, **kw), n=1 if s > 1024 else 8, reps=3),
                  library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                      qh, kh, vh, attn_mask=mask, is_causal=mask is None,
-                     enable_gqa=True), n=2, reps=3),
+                     enable_gqa=True), n=n, reps=reps),
                  bound=bound(nbytes, ops, BF16_OPS_S))
         flash_rows[which] = t
         print(f"  flash_attention_bf16 {label}: kernel {t['ms']:.4f} ms, "
               f"plain {t['plain_ms']:.4f} ms, SDPA bf16"
               f"{' without the cap' if kw.get('cap') else ''} "
               f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
-              f"({t['bound'][1]}, bf16 at {BF16_OPS_S / 1e12:.0f} TFLOP/s)")
-        del q, k, v, qh, kh, vh, mask
+              f"({t['bound'][1]}, bf16 at {BF16_OPS_S / 1e12:.0f} TFLOP/s), "
+              f"the kernel's own ceiling {1.5 * ops / BF16_OPS_S * 1e3:.5f} "
+              f"ms (6 D "
+              f"operations a pair); two launches equal bit for bit")
+        del q, k, v, qh, kh, vh, mask, got
         torch.cuda.empty_cache()
     b, sq, sk, h, hk, d, kw = CROSS_SHAPES["seamless_prefill_cross"]
     q, k, v = randn(b, sq, h, d), randn(b, sk, hk, d), randn(b, sk, hk, d)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ops = 4 * d * sq * sk * h * b
     t = dict(ms=device_ms(lambda: flash_attention_cuda(q, k, v,
                                                        causal=False)),
              plain_ms=device_ms(lambda: flash_attention_plain(
                  q, k, v, causal=False), n=8),
              library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                  qh, kh, vh, enable_gqa=True)),
-             bound=bound(2 * (2 * q.numel() + 2 * k.numel()),
-                         4 * d * sq * sk * h * b, BF16_OPS_S))
+             bound=bound(2 * (2 * q.numel() + 2 * k.numel()), ops,
+                         BF16_OPS_S))
     flash_rows["seamless_prefill_cross"] = t
     print(f"  flash_attention_bf16 seamless_prefill_cross: kernel "
           f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA bf16 "

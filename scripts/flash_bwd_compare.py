@@ -5,6 +5,7 @@
     python scripts/flash_bwd_compare.py --variants     # split-term counts
     python scripts/flash_bwd_compare.py --splits       # split counts
     python scripts/flash_bwd_compare.py --profile      # each kernel's time
+    python scripts/flash_bwd_compare.py --bf16 --tree OLD   # bf16 forward
 
 A tree is a checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into a gitignored directory); each builds its
@@ -41,6 +42,15 @@ build the others.
 ``--splits`` times this tree's backward with the split count of the
 group's heads forced to 1, 2, 4, 8 and 16 (up to the group) at every
 ``BWD_PATH`` shape, beside the plan's own choice.
+
+``--bf16`` times the bf16 serving forward (``flash_attention_bf16``)
+instead, at phase 2's timed bf16 shapes (``chip_smoke.BF16_TIMED`` and
+seamless's prefill cross attention), of the other trees and this one in
+turns as above: each run checks its output against the plain version
+(``chip_smoke.TOL``: 2e-2, absolute plus relative) and that two launches
+are equal bit for bit, and prints ptxas' registers and spills for the bf16
+functions of its flash_attention library; SDPA's bf16 time is printed
+once (this tree's first run).  Exits non-zero if a check fails.
 """
 from __future__ import annotations
 
@@ -85,7 +95,7 @@ def _ptxas(log: str) -> dict:
         if m:
             # the anonymous namespace's mangled name carries a hash of the
             # source file: drop it, so trees compare by function
-            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "_GLOBAL__N_",
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_GLOBAL__N_",
                           m.group(1))
             # and its parameter list, so that a kernel that gained an
             # argument compares by name and template
@@ -229,22 +239,123 @@ def worker(tree: str, sdpa: bool) -> dict:
     return out
 
 
-def compare(trees) -> int:
+def _bf16_shapes(cs) -> dict:
+    """label -> (B, Sq, Sk, H, Hk, D, options) of the bf16 timed shapes."""
+    shapes = {k: (b, s, s, h, hk, d, kw)
+              for k, (b, s, h, hk, d, kw) in cs.BF16_TIMED.items()}
+    b, sq, sk, h, hk, d, kw = cs.CROSS_SHAPES["seamless_prefill_cross"]
+    shapes["seamless_prefill_cross"] = (b, sq, sk, h, hk, d,
+                                        dict(causal=False, **kw))
+    return shapes
+
+
+def bf16_worker(tree: str, sdpa: bool) -> dict:
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs       # puts this tree's src first on the path
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    report = build(["flash_attention"], force=True)
+    ptxas = {k: v for k, v in _ptxas(str(report["flash_attention"]["log"]))
+             .items() if "bf16" in k}
+    out = {"times": {}, "errs": {}, "sdpa": {}, "ptxas": ptxas,
+           "failed": []}
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    tol = cs.TOL["flash_attention_bf16"]
+    for label, (b, sq, sk, h, hk, d, kw) in _bf16_shapes(cs).items():
+        q, k, v = (torch.randn(x, generator=gen, device="cuda").to(
+            torch.bfloat16) for x in ((b, sq, h, d), (b, sk, hk, d),
+                                      (b, sk, hk, d)))
+        got = flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw).float()
+        bad = ((got.float() - want).abs() > tol + tol * want.abs()).sum()
+        out["errs"][label] = (got.float() - want).abs().max().item()
+        if bad or not torch.equal(got, flash_attention_cuda(q, k, v, **kw)):
+            out["failed"].append(f"{label}: {int(bad)} values outside "
+                                 f"{tol}, or two launches differ")
+        big = sq > 1024
+        n, reps = (2, 3) if big else (40, 5)
+        out["times"][label] = cs.device_ms(
+            lambda: flash_attention_cuda(q, k, v, **kw), n=n, reps=reps)
+        if sdpa:
+            qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+            w = kw.get("window")
+            mask = cs.flash_mask(sq, sk, kw, "cuda")[0] if w else None
+            causal = kw.get("causal", True) and mask is None
+            out["sdpa"][label] = cs.device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, is_causal=causal,
+                    enable_gqa=True), n=n, reps=reps)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def compare_bf16(trees) -> int:
+    results = _turns(trees, "--bf16-worker")
+    if results is None:
+        return 1
+    this = results["."]
+    sdpa = next(r["sdpa"] for r in this if r["sdpa"])
+    print("flash_attention_bf16 device ms per call (the two turns); max "
+          "error against the plain version")
+    ok = True
+    for shape in this[0]["times"]:
+        print(f"{shape}: SDPA bf16 {sdpa[shape]:.4f}")
+        for label, rs in results.items():
+            t = ", ".join("%.4f" % r["times"][shape] for r in rs)
+            print(f"  {label:30s} {t} (err {rs[0]['errs'][shape]:.2e})")
+        for label, rs in results.items():
+            if label != ".":
+                ratio = min(r["times"][shape] for r in this) / min(
+                    r["times"][shape] for r in rs)
+                print(f"  this tree / {label} = {ratio:.3f} (the better "
+                      f"turn of each)")
+    for label, rs in results.items():
+        for r in rs:
+            for f in r["failed"]:
+                ok = False
+                print(f"FAILED {label}: {f}")
+        print(f"bf16 functions' ptxas, {label}:")
+        for fn, lines in sorted(rs[0]["ptxas"].items()):
+            print(f"  {fn}: {'; '.join(lines)}")
+    print(json.dumps({k: [r["times"] for r in v] for k, v in
+                      results.items()}))
+    return 0 if ok else 1
+
+
+def _turns(trees, flag: str):
+    """Each tree's worker (``flag`` TREE, a process of its own) in turns:
+    the other trees and this one, then in reverse order, this tree's first
+    run also timing SDPA.  {label: [result, result]}, or None where a run
+    failed (its output printed)."""
     runs = list(trees) + [ROOT]
     results, first_here = {}, True
     for tree in runs + runs[::-1]:
         here = os.path.samefile(tree, ROOT)
-        args = [sys.executable, os.path.abspath(__file__), "--worker", tree]
+        args = [sys.executable, os.path.abspath(__file__), flag, tree]
         if here and first_here:
             args.append("--sdpa")
             first_here = False
         proc = subprocess.run(args, capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-            return 1
+            return None
         label = os.path.relpath(tree, ROOT)
         results.setdefault(label, []).append(
             json.loads(proc.stdout.strip().splitlines()[-1]))
+    return results
+
+
+def compare(trees) -> int:
+    results = _turns(trees, "--worker")
+    if results is None:
+        return 1
     this = results["."]
     sdpa = next(r["times"] for r in this if "sdpa" in
                 next(iter(r["times"].values())))
@@ -521,7 +632,10 @@ def main() -> int:
                     help="each kernel's device time (torch.profiler)")
     ap.add_argument("--splits", action="store_true",
                     help="time the split counts of SPLITS")
+    ap.add_argument("--bf16", action="store_true",
+                    help="time the bf16 forward instead")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--bf16-worker", help=argparse.SUPPRESS)
     ap.add_argument("--sdpa", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -531,6 +645,9 @@ def main() -> int:
         return 2
     if args.worker:
         print(json.dumps(worker(args.worker, args.sdpa)))
+        return 0
+    if args.bf16_worker:
+        print(json.dumps(bf16_worker(args.bf16_worker, args.sdpa)))
         return 0
     if args.variants:
         return variants()
@@ -542,7 +659,7 @@ def main() -> int:
     import chip_smoke as cs
 
     print(cs.smi_line())
-    rc = compare(args.tree)
+    rc = (compare_bf16 if args.bf16 else compare)(args.tree)
     print(cs.smi_line())
     return rc
 

@@ -1,9 +1,9 @@
 // bf16.cuh: bf16 tensor-core products with fp32 accumulators, shared by
-// flash_attention.cu (flash_attention_bf16) and decode_attention.cu
-// (decode_attention_bf16): the mma.sync m16n8k16 and m16n8k8 bf16
-// products, ldmatrix's transposed loads (a row-major V tile as the B
-// operand of P.V), and the packing of two fp32 values into a bf16x2
-// register.
+// decode_attention.cu (decode_attention_bf16: the mma.sync m16n8k16 and
+// m16n8k8 bf16 products, ldmatrix's transposed loads of a row-major V tile
+// as the B operand of P.V) and flash_attention.cu (flash_attention_bf16,
+// on wgmma: P's packing), and the packing of two fp32 values into a
+// bf16x2 register.
 //
 // The product of two bf16 values is exact in fp32 (8 + 8 significant bits),
 // so a bf16 mma differs from an fp32 dot of the same values only in how it
@@ -20,7 +20,8 @@
 // registers 0 and 1 and B's register 0.  So an accumulator tile of S
 // (16 rows x 8 keys) is, packed pairwise, the A operand of P.V over those
 // 8 keys (k8), and two adjacent tiles the A operand over 16 keys (k16):
-// no shuffle.
+// no shuffle.  wgmma's accumulator and register A operand are these
+// layouts a warp (hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,17 +38,13 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 }
 
 // p0, p1 -> their bf16 roundings (hi) and the bf16 roundings of the rests
-// (lo), each pair packed
+// (lo), each pair packed: one conversion a pair for each part, hi's values
+// back to fp32 by a shift and a mask
 __device__ __forceinline__ void pack_split(float p0, float p1, uint32_t& hi,
                                            uint32_t& lo) {
-  const bf16 h0 = __float2bfloat16_rn(p0), h1 = __float2bfloat16_rn(p1);
-  __nv_bfloat162 h, l;
-  h.x = h0;
-  h.y = h1;
-  l.x = __float2bfloat16_rn(p0 - __bfloat162float(h0));
-  l.y = __float2bfloat16_rn(p1 - __bfloat162float(h1));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+  hi = pack(p0, p1);
+  lo = pack(p0 - __uint_as_float(hi << 16),
+            p1 - __uint_as_float(hi & 0xffff0000u));
 }
 
 // two adjacent bf16 in shared memory as one register
@@ -74,20 +71,10 @@ __device__ __forceinline__ void mma8(float (&c)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(b0));
 }
 
-// four 8x8 bf16 matrices from shared memory, transposed: lanes 8i .. 8i+7
-// give the 16-byte rows of matrix i, and r[i] holds rows 2t and 2t+1 of
-// its column g: with rows as keys and columns as head dims, B operands of
-// P.V from a row-major V tile
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* row) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(row);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// two such matrices (lanes 0-15 give the rows)
+// two 8x8 bf16 matrices from shared memory, transposed: lanes 8i .. 8i+7
+// (i = 0, 1) give the 16-byte rows of matrix i, and r[i] holds rows 2t and
+// 2t+1 of its column g: with rows as keys and columns as head dims, B
+// operands of P.V from a row-major V tile
 __device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], const bf16* row) {
   const uint32_t a = (uint32_t)__cvta_generic_to_shared(row);
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];"

@@ -93,15 +93,17 @@
 // log-sum-exp) and flash_attention_lse_f32 (training), which also writes
 // each live row's m + log l, the log-sum-exp of its scaled and capped
 // logits, for the backward (flash_attention_bwd.cu).  A third,
-// flash_attention_bf16, serves bf16 inputs (flash_fwd_bf16_kernel, below;
-// the Pallas kernel's bf16 half): 2 bytes an element, its operations at
-// the bf16 tensor cores' 989 TFLOP/s.
+// flash_attention_bf16, serves bf16 inputs with a kernel of its own
+// (flash_fwd_bf16_kernel, below, on wgmma, TMA and mbarriers; the Pallas
+// kernel's bf16 half): 2 bytes an element, its operations at the bf16
+// tensor cores' 989 TFLOP/s.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "bf16.cuh"
+#include "hopper.cuh"
 #include "tf32.cuh"
 
 namespace {
@@ -473,260 +475,448 @@ int flash_forward(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs and output (flash_attention_bf16): the same tiles, masks,
-// online softmax and pipeline as flash_fwd_kernel, on bf16 tensor cores.
+// bf16 inputs and output (flash_attention_bf16), on Hopper's asynchronous
+// machinery (hopper.cuh): the Pallas kernel's bf16 half.
 //
-// Q.K^T is one mma.sync.m16n8k16 bf16 term a 16-wide d step: the product of
-// two bf16 values is exact in fp32, so it is the Pallas kernel's fp32 dot
-// (which upcasts its bf16 tiles) up to the order of the sums.  P stays fp32
-// through the softmax and enters P.V as two bf16 terms, its rounding hi
-// and the rounding of the rest lo (bf16.cuh), V exact: within ~2^-17 of
-// fp32's P.V, far below the output's one bf16 rounding.  O and l are fp32
-// in registers; P.V accumulates into O after it is rescaled, and O / l is
-// rounded to bf16 once, at the store.  Q, K and V are staged as bf16 (half
-// the fp32 kernel's bytes) through the same single K and V buffers with
-// cp.async (16 bytes, or 4 where a base is not 16-byte aligned); rows are
-// padded by 8 values (16 bytes), so the 32-bit fragment loads of Q and K and
-// ldmatrix's transposed 16-byte rows of V (P.V's B operand from row-major
-// V) are free of bank conflicts.  Nothing is split in place, so each tile
-// takes two barriers fewer.  The S accumulators of two 8-key column tiles
-// are P.V's A operand over their 16 keys as they stand (bf16.cuh).
+// Arithmetic: Q.K^T in bf16 (the product of two bf16 values is exact in
+// fp32, so S is the Pallas kernel's fp32 dot of its upcast tiles up to the
+// order of the sums); the softmax in fp32; P enters P.V as two bf16 terms,
+// its rounding hi and the rounding of the rest lo (bf16.cuh), V exact:
+// within ~2^-17 of fp32's P.V, far below the output's one bf16 rounding; O
+// and l in fp32, O / l rounded to bf16 once, at the store.
+//
+// Bound on an H100: a visible (query, key) pair takes 2 D operations for
+// Q.K^T and 2 x 2 D for P.V's two terms, 6 D at the bf16 tensor cores'
+// 989 TFLOP/s (PERF.md's bound counts the function's 4 D); 2 bytes an
+// element of q, k, v and o.  At chatglm3-6b's causal prefill of 8192 (H
+// 32, D 128) that is 0.83 ms of products against 0.07 ms of bytes: the
+// products bound it, and only wgmma reaches that rate.  What the design
+// does about it:
+// - wgmma, two consumer warpgroups of 64 query rows each (a block's tile
+//   of 128 rows: G heads x BQ = 128 / G positions that share the kv head,
+//   row r = position q0 + r / G of head hk G + r % G, so K and V are read
+//   once a tile).  S = Q.K^T is m64nBKk16 with Q and K K-major in shared
+//   memory; P.V is m64nDPk16 with P's hi and lo terms from registers (S's
+//   accumulator, packed pairwise, is P.V's A operand as it stands) and V
+//   MN-major (the transpose bit), both terms into one fp32 O.
+// - One producer warp issues every load with TMA from tensor maps over
+//   the model layout (B, S, H, D), built on the host per launch: Q once,
+//   K and V through a ring of STAGES stages of BK keys with full and empty
+//   mbarriers; the boxes are 64 columns wide with the 128-byte swizzle
+//   (D 16 and 32: one box of D columns, the 32- and 64-byte swizzles), so
+//   the products read shared memory free of bank conflicts.  Rows past Sq
+//   and keys past Sk are TMA's zero fill, masked in the softmax; nothing is
+//   padded in device memory.  D 96 takes two boxes, the second's upper 32
+//   columns zero-filled: Q.K^T skips their k steps and P.V runs N 128,
+//   whose last 32 columns are not stored.
+// - setmaxnreg gives the producer's warpgroup 24 registers a thread and the
+//   consumers 240 (the 168 of the launch bounds before): O (DP / 2), S
+//   (BK / 2) and P's two terms (BK / 2) stay in registers.  ptxas spills
+//   only at D 96 and 128 (20 bytes, in the soft-capped path: tanhf's
+//   temporaries beside 192 registers of S, P and O; the served LMs cap
+//   only at D 256).
+// - The softmax works on S's accumulator in registers, one row's max over
+//   the four lanes of a quad: exp2 with the scale times log2 e folded into
+//   one FFMA, masks only on a tile that reaches past Sk, the causal
+//   diagonal or the window's lower edge (decided once a tile for the
+//   block), the soft-cap on the accurate tanhf (tanh.approx's ~2^-11
+//   would move a logit of 50 by ~0.02, several bf16 ulps of p).
+// - Overlap: each consumer issues S(j) = Q.K(j)^T and then P(j-1).V(j-1),
+//   and runs tile j's softmax (max, exponentials, row sums) while P.V is
+//   still in flight; it then rescales O and packs P(j).  The two
+//   warpgroups take turns to issue their products (ping-pong on two
+//   named barriers), so one's softmax also runs under the other's
+//   products (on an H100 SXM at 700 W: gemma2's S8192 prefill 6% faster,
+//   chatglm3's and phi3's ~1%, and fewer spills).
+// Q tiles run in reverse order (the longest causal rows first).  No
+// atomics and no split over keys: one input gives one output, launch to
+// launch.  A warpgroup whose rows are all past Sq or the tile only paces
+// the ring.
 // ---------------------------------------------------------------------------
 
 using bf16mma::bf16;
 
+constexpr int kRowsB = 128;                 // query rows a block
+constexpr int kConsumers = 2;               // consumer warpgroups
+constexpr int kThreadsB = 128 * (1 + kConsumers);
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kSmemBlock = 232448;          // the most a block may take
+constexpr float kLog2e = 1.4426950408889634f;
+
 template <int D>
 struct CfgB {
-  static constexpr int BK = 32;             // keys per tile
-  // blocks per SM the registers must allow (2 caps them at 128 a thread;
-  // at D 128 ptxas then spills 184 bytes to keep two blocks an SM)
-  static constexpr int MINB = D <= 128 ? 2 : 1;
-  static constexpr int L = D + 8;           // row stride of Q, K, V (values)
-  static constexpr int NT = BK / 8;         // 8-key column tiles of S
-  static constexpr int KS = D / 16;         // 16-wide d steps of Q.K^T
-  static constexpr int DK = D / 8;          // 8-wide d tiles of O
-  static constexpr size_t smem = sizeof(bf16) * (size_t)(kRows + 2 * BK) * L;
+  static constexpr int BOXC = D < 64 ? D : 64;         // columns a box
+  static constexpr int NBOX = (D + BOXC - 1) / BOXC;   // boxes a row
+  static constexpr int DP = NBOX * BOXC;               // D 96: 128
+  static constexpr int SPAN = 2 * BOXC;                // bytes a box row
+  static constexpr int BK = D == 256 ? 64 : 128;       // keys a tile
+  static constexpr int KSTEPS = D / 16;                // Q.K^T k steps
+  static constexpr int PSTEPS = BK / 16;               // P.V k steps
+  static constexpr int Q_BYTES = NBOX * kRowsB * SPAN;
+  static constexpr int KV_BYTES = NBOX * BK * SPAN;    // K or V, a stage
+  static constexpr int BARS = 1 + 3 * 4;               // Q, 3 a stage (<= 4)
+  static constexpr int FREE = kSmemBlock - 1024 - 8 * BARS - Q_BYTES;
+  static constexpr int STAGES =
+      FREE / (2 * KV_BYTES) < 4 ? FREE / (2 * KV_BYTES) : 4;
+  // 1024 bytes of slack to align the tiles, Q, the ring, the barriers
+  static constexpr size_t smem =
+      1024 + Q_BYTES + (size_t)STAGES * 2 * KV_BYTES + 8 * (1 + 3 * STAGES);
+  static_assert(STAGES >= 2, "flash_attention_bf16: two stages must fit");
+  static_assert(smem <= kSmemBlock, "flash_attention_bf16: shared memory");
 };
 
-// N rows of D values into s: row j from src(j), or zeros where src(j) is
-// null (the copy then reads nothing; `base` stands in as its address)
-template <int D, int N, typename Src>
-__device__ __forceinline__ void stage_rows(bf16* s, Src src, const bf16* base,
-                                           bool vec) {
-  const int w = vec ? 8 : 2, per_row = D / w;   // values a copy
-  for (int e = threadIdx.x; e < N * per_row; e += kThreads) {
-    const int j = e / per_row, c = (e % per_row) * w;
-    const bf16* p = src(j);
-    cp_async(reinterpret_cast<float*>(s + j * CfgB<D>::L + c),
-             reinterpret_cast<const float*>(p != nullptr ? p + c : base),
-             p != nullptr, vec);
+// 2^x (ex2.approx, relative error ~2^-22; subnormal results flush to 0)
+__device__ __forceinline__ float exp2f_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Tile j's softmax on S (in place: p, fp32) and the row state: each
+// thread's rows g and g + 8 (i = 0, 1) of its warp's 16.  t is the logit
+// (the capped one with CAP, else the raw product, whose max is the scaled
+// one's since scale > 0), c turns t into log2 units; masked keys are
+// -inf.  alpha rescales O.
+template <int N, bool MASK, bool CAP>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             float c, float scap, float cap,
+                                             int k0, int tq,
+                                             const int (&qpos)[2], int Sk,
+                                             int causal, int window) {
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const int i = (e >> 1) & 1;
+    float x = s[e];
+    if (CAP) x = cap * tanhf(x * scap);
+    if (MASK) {
+      const int kpos = k0 + (e >> 2) * 8 + 2 * tq + (e & 1);
+      const bool vis = kpos < Sk && (!causal || kpos <= qpos[i]) &&
+                       (window <= 0 || kpos > qpos[i] - window);
+      x = vis ? x : -INFINITY;
+    }
+    s[e] = x;
+    tmax[i] = fmaxf(tmax[i], x);
   }
+  float mc[2], rsum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(kFull, tmax[i], 1));
+    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(kFull, tmax[i], 2));
+    const float m_new = fmaxf(m[i], tmax[i]);
+    const float mu = m_new == -INFINITY ? 0.0f : m_new;  // nothing seen yet
+    alpha[i] = exp2f_approx((m[i] - mu) * c);            // 0 before a key
+    m[i] = m_new;
+    mc[i] = mu * c;
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const int i = (e >> 1) & 1;
+    s[e] = exp2f_approx(fmaf(s[e], c, -mc[i]));
+    rsum[i] += s[e];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rsum[i];
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, CfgB<D>::MINB)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      int Sq, int Sk, int H, int Hk, int G, int BQ,
-                      int causal, float cap, int window, float scale,
-                      bool vec) {
-  using namespace bf16mma;
+__global__ void __launch_bounds__(kThreadsB, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      bf16* __restrict__ o, int Sq, int Sk, int H, int G,
+                      int BQ, int causal, float cap, int window,
+                      float scale) {
+  using namespace hopper;
   using C = CfgB<D>;
-  constexpr int BK = C::BK, L = C::L, NT = C::NT, KS = C::KS, DK = C::DK;
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_b);   // [kRows][L]
-  bf16* k_s = q_s + kRows * L;                   // [BK][L]
-  bf16* v_s = k_s + BK * L;                      // [BK][L]
+  constexpr int BK = C::BK, ST = C::STAGES, SPAN = C::SPAN, NBOX = C::NBOX;
+  constexpr int KV = C::KV_BYTES, SW = swizzle_code(SPAN);
+  extern __shared__ unsigned char smem_raw[];
+  // shared addresses: Q's NBOX boxes of 128 rows; the ring, stage s's K at
+  // ring + 2 KV s and its V after it; the barriers
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t ring = q_s + C::Q_BYTES;
+  const uint32_t q_full = ring + ST * 2 * KV;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * ST,
+                 empty = v_full + 8 * ST;   // + 8 s: stage s's
 
   const int hk = blockIdx.y, b = blockIdx.z;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int R = G * BQ;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, tq = lane & 3;  // fragment row and column group
-
-  // query rows: row r = g*BQ + i is position q0+i of head hk*G+g; a fresh
-  // (empty) source is a row past R or Sq, staged as zeros
-  stage_rows<D, kRows>(q_s, [&](int r) -> const bf16* {
-    const int pos = q0 + r % BQ;
-    return r < R && pos < Sq
-               ? q + (((size_t)b * Sq + pos) * H + hk * G + r / BQ) * D
-               : nullptr;
-  }, q, vec);
-  auto keys = [&](const bf16* src, int k0) {
-    return [=](int j) -> const bf16* {
-      const int pos = k0 + j;
-      return pos < Sk ? src + (((size_t)b * Sk + pos) * Hk + hk) * D
-                      : nullptr;
-    };
-  };
+  // keys any row of this tile can see, in whole tiles from kbeg
   const int kend = causal ? min(Sk, q0 + BQ) : Sk;
   int kbeg = window > 0 ? max(0, q0 - window + 1) : 0;
   kbeg -= kbeg % BK;
-  stage_rows<D, BK>(k_s, keys(k, kbeg), k, vec);
-  cp_commit();
+  const int ntiles = (kend - kbeg + BK - 1) / BK;
 
-  // this thread's two rows (fragment rows gq and gq+8 of the warp's 16)
-  int qpos[2];
-  bool live[2];
-  int lo_pos = INT_MAX, hi_pos = -1;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + gq + 8 * i;
-    qpos[i] = q0 + r % BQ;
-    live[i] = r < R && qpos[i] < Sq;
-    if (live[i]) {
-      lo_pos = min(lo_pos, qpos[i]);
-      hi_pos = max(hi_pos, qpos[i]);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kConsumers);  // lane 0 of each consumer warp
     }
+    mbar_fence_init();
   }
-  lo_pos = __reduce_min_sync(kFull, lo_pos);
-  hi_pos = __reduce_max_sync(kFull, hi_pos);
+  __syncthreads();
 
-  const bf16* qa = q_s + (warp * 16 + gq) * L + 2 * tq;   // A rows gq, gq+8
-  float oacc[DK][4];
-#pragma unroll
-  for (int dt = 0; dt < DK; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.0f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    stage_rows<D, BK>(v_s, keys(v, k0), v, vec);
-    cp_commit();
-    cp_wait<1>();  // Q and K(k0) have landed
-    __syncthreads();
-    const bool work = hi_pos >= 0 && (!causal || k0 <= hi_pos) &&
-                      (window <= 0 || k0 + BK - 1 > lo_pos - window);
-    // P as P.V's A operand, 16 keys a k step: hi and lo parts
-    uint32_t phi[BK / 16][4], plo[BK / 16][4];
-    float alpha[2];
-    if (work) {
-      float s[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const uint32_t a[4] = {ld32(qa + ks * 16), ld32(qa + 8 * L + ks * 16),
-                               ld32(qa + ks * 16 + 8),
-                               ld32(qa + 8 * L + ks * 16 + 8)};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const bf16* kr = k_s + (nt * 8 + gq) * L + ks * 16 + 2 * tq;
-          mma16(s[nt], a, ld32(kr), ld32(kr + 8));
-        }
+  if (threadIdx.x < 128) {
+    // the producer: one thread issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, (uint32_t)(NBOX * R * SPAN));
+      for (int x = 0; x < NBOX; ++x)
+        tma_load_4d(q_s + x * kRowsB * SPAN, &tq, q_full, x * C::BOXC,
+                    hk * G, q0, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % ST, use = t / ST;
+        if (use > 0) mbar_wait(empty + 8 * s, (use - 1) & 1);
+        const int k0 = kbeg + t * BK;
+        const uint32_t ks = ring + s * 2 * KV;
+        mbar_expect_tx(k_full + 8 * s, (uint32_t)KV);
+        for (int x = 0; x < NBOX; ++x)
+          tma_load_4d(ks + x * BK * SPAN, &tk, k_full + 8 * s, x * C::BOXC,
+                      hk, k0, b);
+        mbar_expect_tx(v_full + 8 * s, (uint32_t)KV);
+        for (int x = 0; x < NBOX; ++x)
+          tma_load_4d(ks + KV + x * BK * SPAN, &tv, v_full + 8 * s,
+                      x * C::BOXC, hk, k0, b);
       }
-      // scale, cap, mask; s[nt][e] is row gq + 8*(e>>1), key
-      // k0 + nt*8 + 2*tq + (e&1)
-      float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1, kpos = k0 + nt * 8 + 2 * tq + (e & 1);
-          float x = s[nt][e] * scale;
-          if (cap > 0.0f) x = cap * tanhf(x / cap);
-          const bool vis = live[i] && kpos < Sk &&
-                           (!causal || kpos <= qpos[i]) &&
-                           (window <= 0 || kpos > qpos[i] - window);
-          s[nt][e] = vis ? x : -INFINITY;
-          tmax[i] = fmaxf(tmax[i], s[nt][e]);
-        }
-      float mu[2], rsum[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(kFull, tmax[i], 1));
-        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(kFull, tmax[i], 2));
-        const float m_new = fmaxf(m[i], tmax[i]);
-        mu[i] = m_new == -INFINITY ? 0.0f : m_new;  // a row seeing nothing yet
-        alpha[i] = expf(m[i] - mu[i]);              // 0 before its first key
-        m[i] = m_new;
-      }
-      float p[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          p[nt][e] = expf(s[nt][e] - mu[e >> 1]);
-          rsum[e >> 1] += p[nt][e];
-        }
-      // key tiles 2j and 2j+1 are k step j: registers 0/1 from tile 2j's
-      // rows gq and gq+8, 2/3 from tile 2j+1's
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            pack_split(p[2 * j + h][2 * i], p[2 * j + h][2 * i + 1],
-                       phi[j][2 * h + i], plo[j][2 * h + i]);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rsum[i];
     }
-    __syncthreads();  // every warp is done with K(k0)
-    if (k0 + BK < kend) stage_rows<D, BK>(k_s, keys(k, k0 + BK), k, vec);
-    cp_commit();
-    cp_wait<1>();  // V(k0) has landed
-    __syncthreads();
-    if (work) {
-#pragma unroll
-      for (int dt = 0; dt < DK; ++dt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) oacc[dt][e] *= alpha[e >> 1];
-      // V's B operands two d tiles at a time: lanes 0-15 give keys
-      // 16j .. 16j+15 at d tile dt, lanes 16-31 the same keys at dt+1
-      const bf16* vr = v_s + (lane & 15) * L + (lane >> 4) * 8;
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j)
-#pragma unroll
-        for (int dt = 0; dt < DK; dt += 2) {
-          uint32_t r[4];
-          ldsm4t(r, vr + j * 16 * L + dt * 8);
-          mma16(oacc[dt], plo[j], r[0], r[1]);
-          mma16(oacc[dt], phi[j], r[0], r[1]);
-          mma16(oacc[dt + 1], plo[j], r[2], r[3]);
-          mma16(oacc[dt + 1], phi[j], r[2], r[3]);
-        }
-    }
-    __syncthreads();  // every warp is done with V(k0)
+    return;
   }
-  cp_wait<0>();
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128 - 1;               // consumer 0 or 1
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int tq4 = lane % 4;
+  // this thread's rows g and g + 8 of its warp's 16
+  const int row0 = 64 * wg + 16 * warp + lane / 4;
+  const int qpos[2] = {q0 + row0 / G, q0 + (row0 + 8) / G};
+  // does any row of this warpgroup exist (its first has the lowest position)?
+  const bool wg_live = 64 * wg < R && q0 + 64 * wg / G < Sq;
+  const int qmax = min(q0 + BQ, Sq) - 1;
+  // t in log2 units: the raw product's scale, or the capped logit's 1
+  const float c = cap > 0.0f ? kLog2e : scale * kLog2e;
+  const float scap = cap > 0.0f ? scale / cap : 0.0f;
+
+  float oacc[C::DP / 2];
+#pragma unroll
+  for (int e = 0; e < C::DP / 2; ++e) oacc[e] = 0.0f;
+  float s_acc[BK / 2];
+  uint32_t phi[C::PSTEPS][4], plo[C::PSTEPS][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2];
+
+  // descriptors of this warpgroup's 64 rows of Q and of stage 0's K
+  // (K-major) and V (MN-major); a k step or a stage is an offset >> 4
+  const uint64_t q_desc = descriptor(q_s + 64 * wg * SPAN, 16, 8 * SPAN, SW);
+  const uint64_t k_desc = descriptor(ring, 16, 8 * SPAN, SW);
+  const uint64_t v_desc = descriptor(ring + KV, BK * SPAN, 8 * SPAN, SW);
+  auto qk = [&](int s) {  // S = Q.K(s)^T, committed
+    const uint64_t dq = opaque(q_desc), dk = opaque(k_desc) + s * 2 * KV / 16;
+#pragma unroll
+    for (int kk = 0; kk < C::KSTEPS; ++kk) {
+      const int x = kk / (SPAN / 32), off = (kk % (SPAN / 32)) * 32;
+      wgmma_ss<BK>(s_acc, dq + (x * kRowsB * SPAN + off) / 16,
+                   dk + (x * BK * SPAN + off) / 16, kk > 0);
+    }
+    wgmma_commit();
+  };
+  auto pv = [&](int s) {  // O += P_lo.V(s) + P_hi.V(s), committed
+    const uint64_t dv = opaque(v_desc) + s * 2 * KV / 16;
+#pragma unroll
+    for (int kk = 0; kk < C::PSTEPS; ++kk) {
+      wgmma_rs<C::DP>(oacc, plo[kk], dv + kk * SPAN);  // 16 keys on
+      wgmma_rs<C::DP>(oacc, phi[kk], dv + kk * SPAN);
+    }
+    wgmma_commit();
+  };
+  auto softmax = [&](int t) {
+    const int k0 = kbeg + t * BK;
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= qmax - window);
+    if (edge) {
+      if (cap > 0.0f)
+        softmax_tile<BK / 2, true, true>(s_acc, m, l, alpha, c, scap, cap, k0,
+                                         tq4, qpos, Sk, causal, window);
+      else
+        softmax_tile<BK / 2, true, false>(s_acc, m, l, alpha, c, scap, cap,
+                                          k0, tq4, qpos, Sk, causal, window);
+    } else {
+      if (cap > 0.0f)
+        softmax_tile<BK / 2, false, true>(s_acc, m, l, alpha, c, scap, cap,
+                                          k0, tq4, qpos, Sk, causal, window);
+      else
+        softmax_tile<BK / 2, false, false>(s_acc, m, l, alpha, c, scap, cap,
+                                           k0, tq4, qpos, Sk, causal, window);
+    }
+  };
+  auto pack_p = [&]() {  // P's A fragments: 16 keys a k step, hi and lo
+#pragma unroll
+    for (int kk = 0; kk < C::PSTEPS; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        bf16mma::pack_split(s_acc[8 * kk + 2 * r], s_acc[8 * kk + 2 * r + 1],
+                            phi[kk][r], plo[kk][r]);
+  };
+  auto release = [&](int s) {
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  };
+  // ping-pong: where both warpgroups have rows, they take turns to issue
+  // their products (named barrier 1 + w is warpgroup w's turn), so one's
+  // softmax runs under the other's products; warpgroup 0 goes first
+  const bool pingpong = R > 64 && q0 + 64 / G < Sq;
+  auto turn_wait = [&]() {
+    if (pingpong) asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");
+  };
+  auto turn_pass = [&]() {
+    if (pingpong) asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
+  };
+
+  if (!wg_live) {
+    // no row here: keep the ring's pace (each stage released once it has
+    // landed, so no arrival runs ahead into the stage's next phase)
+    for (int t = 0; t < ntiles; ++t) {
+      mbar_wait(v_full + 8 * (t % ST), (t / ST) & 1);
+      release(t % ST);
+    }
+    return;
+  }
+
+  if (pingpong && wg == 1) asm volatile("bar.arrive 1, 256;" ::: "memory");
+  mbar_wait(q_full, 0);
+  mbar_wait(k_full, 0);
+  turn_wait();
+  wgmma_fence();
+  qk(0);
+  turn_pass();
+  wgmma_wait<0>();
+  fence_regs(s_acc);
+  softmax(0);
+  pack_p();
+  for (int t = 1; t < ntiles; ++t) {
+    const int s = t % ST, sp = (t - 1) % ST;
+    mbar_wait(k_full + 8 * s, (t / ST) & 1);
+    mbar_wait(v_full + 8 * sp, ((t - 1) / ST) & 1);
+    turn_wait();
+    wgmma_fence();
+    qk(s);
+    pv(sp);
+    turn_pass();
+    wgmma_wait<1>();        // S(t) has landed; P(t-1).V runs on
+    fence_regs(s_acc);
+    softmax(t);
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    fence_regs(phi);
+    fence_regs(plo);
+    release(sp);
+#pragma unroll
+    for (int e = 0; e < C::DP / 2; ++e) oacc[e] *= alpha[(e >> 1) & 1];
+    pack_p();
+  }
+  {
+    const int sp = (ntiles - 1) % ST;
+    mbar_wait(v_full + 8 * sp, ((ntiles - 1) / ST) & 1);
+    wgmma_fence();
+    pv(sp);
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    release(sp);
+  }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(kFull, l[i], 1);
     l[i] += __shfl_xor_sync(kFull, l[i], 2);
-    if (!live[i]) continue;
-    const int r = warp * 16 + gq + 8 * i;
-    bf16* orow =
-        o + (((size_t)b * Sq + qpos[i]) * H + hk * G + r / BQ) * D + 2 * tq;
+    const int r = row0 + 8 * i;
+    if (r >= R || qpos[i] >= Sq) continue;
+    bf16* orow = o + (((size_t)b * Sq + qpos[i]) * H + (size_t)hk * G +
+                      r % G) * D + 2 * tq4;
 #pragma unroll
-    for (int dt = 0; dt < DK; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack(oacc[dt][2 * i] / l[i], oacc[dt][2 * i + 1] / l[i]);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) = bf16mma::pack(
+          oacc[4 * j + 2 * i] / l[i], oacc[4 * j + 2 * i + 1] / l[i]);
   }
+}
+
+// cuTensorMapEncodeTiled, from the driver the runtime has loaded (so the
+// library links the runtime alone)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+    if (err != cudaSuccess || got != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 (B, S, heads, D) tensor as a rank-4 map (D, heads, S, B), boxes of
+// (cols, box_heads, box_rows, 1) with the swizzle of `span` bytes; false
+// where the driver refuses it
+bool bf16_map(CUtensorMap* map, const void* p, int B, int S, int heads, int D,
+              int cols, int box_heads, int box_rows, int span) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)box_heads,
+                             (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = span == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
                 int Sq, int Sk, int H, int Hk, int causal, float cap,
                 int window, cudaStream_t stream) {
+  using C = CfgB<D>;
   const int G = H / Hk;
-  const int BQ = kRows / G;
-  const size_t smem = CfgB<D>::smem;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const bool vec = (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15u) == 0;
+  const int BQ = kRowsB / G;
+  CUtensorMap tq, tk, tv;
+  if (!bf16_map(&tq, q, B, Sq, H, D, C::BOXC, G, BQ, C::SPAN) ||
+      !bf16_map(&tk, k, B, Sk, Hk, D, C::BOXC, 1, C::BK, C::SPAN) ||
+      !bf16_map(&tv, v, B, Sk, Hk, D, C::BOXC, 1, C::BK, C::SPAN))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hk, B);
   const float scale = (float)(1.0 / sqrt((double)D));
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, Sq, Sk, H, Hk, G, BQ, causal, cap, window, scale, vec);
+  flash_fwd_bf16_kernel<D><<<grid, kThreadsB, C::smem, stream>>>(
+      tq, tk, tv, o, Sq, Sk, H, G, BQ, causal, cap, window, scale);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int config_bf16(int* out) {
+  using C = CfgB<D>;
+  const int v[] = {kRowsB, C::BK, C::STAGES, kConsumers, kThreadsB, C::NBOX,
+                   C::BOXC, C::SPAN, (int)C::smem, kProducerRegs,
+                   kConsumerRegs};
+  for (int i = 0; i < (int)(sizeof(v) / sizeof(v[0])); ++i) out[i] = v[i];
+  return 0;
 }
 
 }  // namespace
@@ -741,27 +931,49 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
 }
 
 // The serving forward on bf16 q, k, v (B, Sq, H, D) / (B, Sk, Hk, D) into a
-// bf16 o, fp32 inside (flash_fwd_bf16_kernel); every base 4-byte aligned.
+// bf16 o, fp32 inside (flash_fwd_bf16_kernel); q, k and v 16-byte aligned
+// (TMA's rule), o 4-byte.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int Sq,
                                     int Sk, int H, int Hk, int D, int causal,
                                     float cap, int window, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hk <= 0 || H % Hk || H / Hk > kRows ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hk <= 0 || H % Hk || H / Hk > kRowsB ||
       B > 65535 || Hk > 65535 || (Sq != Sk && (causal || window > 0)) ||
-      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 3u))
+      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15u) ||
+      ((uintptr_t)o & 3u))
     return (int)cudaErrorInvalidValue;
   const bf16* qb = (const bf16*)q;
   const bf16* kb = (const bf16*)k;
   const bf16* vb = (const bf16*)v;
   bf16* ob = (bf16*)o;
   cudaStream_t st = (cudaStream_t)stream;
+#define FLASH_BF16_CASE(DIM) \
+  case DIM:                  \
+    return launch_bf16<DIM>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
   switch (D) {
-    case 16: return launch_bf16<16>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
-    case 32: return launch_bf16<32>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
-    case 64: return launch_bf16<64>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
-    case 96: return launch_bf16<96>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
-    case 128: return launch_bf16<128>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
-    case 256: return launch_bf16<256>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
+    FLASH_BF16_CASE(16)
+    FLASH_BF16_CASE(32)
+    FLASH_BF16_CASE(64)
+    FLASH_BF16_CASE(96)
+    FLASH_BF16_CASE(128)
+    FLASH_BF16_CASE(256)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FLASH_BF16_CASE
+}
+
+// The bf16 forward's figures at head dim D that kernel.py::fwd_bf16_plan
+// mirrors: out[0..10] = query rows a block, keys a tile, stages, consumer
+// warpgroups, threads, boxes a row, columns a box, swizzle bytes, shared
+// memory bytes, the producer's and the consumers' registers a thread.
+extern "C" int flash_attention_bf16_config(int D, int* out) {
+  switch (D) {
+    case 16: return config_bf16<16>(out);
+    case 32: return config_bf16<32>(out);
+    case 64: return config_bf16<64>(out);
+    case 96: return config_bf16<96>(out);
+    case 128: return config_bf16<128>(out);
+    case 256: return config_bf16<256>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -105,6 +105,68 @@ def bwd_plan(b: int, sq: int, sk: int, h: int, hk: int, d: int, *,
                 scratch=2 * splits * b * sk * hk * d if splits > 1 else 0)
 
 
+#: the bf16 forward's block (``CfgB`` and the constants beside it in
+#: ``csrc/flash_attention.cu``): 128 query rows, two consumer warpgroups of
+#: 64 and a producer warpgroup, the producer's and consumers' registers
+#: after ``setmaxnreg``
+BF16_ROWS, BF16_CONSUMERS, BF16_PRODUCER_REGS, BF16_CONSUMER_REGS = \
+    128, 2, 24, 240
+#: barriers' room set aside in ``CfgB``: Q's and three a stage, at most 4
+BF16_MAX_STAGES = 4
+
+
+def fwd_bf16_plan(b: int, sq: int, sk: int, h: int, hk: int,
+                  d: int) -> Dict[str, object]:
+    """The bf16 forward's launch at one shape, mirroring ``CfgB<D>`` and
+    ``launch_bf16`` in ``csrc/flash_attention.cu``, which own them (the
+    card checks the mirror against the library's
+    ``flash_attention_bf16_config``).
+
+    A block takes ``rows`` query rows, ``bq`` = 128 // G positions of the G
+    heads on one kv head (``q_rows`` = G x bq of them live), in two
+    consumer warpgroups of 64 rows, beside a producer warpgroup whose
+    first thread issues the TMA loads: Q once, then K and V in tiles of
+    ``keys`` through a ring of ``stages``.  A row of D values is ``boxes``
+    TMA boxes of ``box_cols`` columns (``swizzle`` bytes a box row, the
+    swizzle's span; D 96 is two boxes of 64, the second half past D); the
+    wgmma shapes are m64n``keys``k16 (Q.K^T, ``qk_steps`` k steps) and
+    m64n``pv_n``k16 (P.V, ``pv_steps`` k steps a term).  Shared memory:
+    1024 bytes to align the tiles, Q's boxes of 128 rows, the ring's K
+    and V, 8 bytes a barrier.  Grid (query tiles, Hk, B)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bf16: head_dim {d} (takes "
+                         f"{HEAD_DIMS})")
+    if h % hk or not 0 < h // hk <= MAX_GROUP:
+        raise ValueError(f"flash_attention_bf16: {h} q heads over {hk} kv "
+                         f"heads (groups up to {MAX_GROUP})")
+    g = h // hk
+    box_cols = min(d, 64)
+    boxes = _cdiv(d, box_cols)
+    span = 2 * box_cols
+    keys = 64 if d == 256 else 128
+    q_bytes = boxes * BF16_ROWS * span
+    kv_bytes = boxes * keys * span
+    free = SMEM_BLOCK - 1024 - 8 * (1 + 3 * BF16_MAX_STAGES) - q_bytes
+    stages = min(BF16_MAX_STAGES, free // (2 * kv_bytes))
+    bq = BF16_ROWS // g
+    return dict(rows=BF16_ROWS, bq=bq, q_rows=g * bq, keys=keys,
+                stages=stages, warpgroups=BF16_CONSUMERS,
+                threads=128 * (1 + BF16_CONSUMERS), boxes=boxes,
+                box_cols=box_cols, swizzle=span, pv_n=boxes * box_cols,
+                qk_steps=d // 16, pv_steps=keys // 16,
+                smem=1024 + q_bytes + 2 * stages * kv_bytes
+                + 8 * (1 + 3 * stages),
+                producer_regs=BF16_PRODUCER_REGS,
+                consumer_regs=BF16_CONSUMER_REGS,
+                grid=(_cdiv(sq, bq), hk, b))
+
+
+#: the library's ``flash_attention_bf16_config`` figures, in its order
+BF16_CONFIG_KEYS = ("rows", "keys", "stages", "warpgroups", "threads",
+                    "boxes", "box_cols", "swizzle", "smem", "producer_regs",
+                    "consumer_regs")
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -118,9 +180,11 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: the CUDA kernel takes q, k and v all in "
                          f"one of {dtypes} (got {q.dtype}, {k.dtype}, "
                          f"{v.dtype})")
-    if any(t.data_ptr() % 4 for t in (q, k, v)):
-        raise ValueError(f"{name}: the CUDA kernel needs 4-byte aligned "
-                         "tensors")
+    # bf16 goes through TMA, which reads from 16-byte aligned bases
+    align = 16 if q.dtype == torch.bfloat16 else 4
+    if any(t.data_ptr() % align for t in (q, k, v)):
+        raise ValueError(f"{name}: the CUDA kernel needs {align}-byte "
+                         f"aligned {q.dtype} tensors")
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     if k.shape != (b, sk, hk, d) or v.shape != k.shape or (sq and not sk):

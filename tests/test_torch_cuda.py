@@ -1008,6 +1008,54 @@ def test_flash_attention_bf16_cross_kernel(dev, b, sq, sk, h, hk, d, kw):
         atol=2e-2, rtol=2e-2)
 
 
+#: the edges of the bf16 kernel's tiles (64-row warpgroups, 128-key tiles,
+#: 64 at D 256): lengths about them at groups 4 and 8, and windows one key
+#: either side of a tile at S 1000
+BF16_FLASH_EDGES = [(1, s, g * 2, 2, d, dict(causal=True))
+                    for d in (16, 32, 64, 96, 128, 256) for g in (4, 8)
+                    for s in (63, 64, 65, 127, 128, 129)] + [
+    (1, 1000, 2 * g, 2, d, dict(causal=True, window=w))
+    for d in (64, 96, 128, 256) for g in (1, 4)
+    for w in ((63, 65) if d == 256 else (127, 129))] + [
+    (1, s, 2 * g, 2, d, kw)
+    for d in (16, 32, 64, 96, 128, 256) for g in (3, 6) for s in (65, 257)
+    for kw in (dict(causal=True), dict(causal=True, window=7))]
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,kw", BF16_FLASH_EDGES)
+def test_flash_attention_bf16_tile_edges(dev, b, s, h, hk, d, kw):
+    """One launch of flash_attention_bf16 a call, within 2e-2 of the plain
+    version, and a second launch equal to the first bit for bit."""
+    gen = torch.Generator().manual_seed(27)
+    q, k, v = _bf16(gen, b, s, h, d), _bf16(gen, b, s, hk, d), \
+        _bf16(gen, b, s, hk, d)
+    qd, kd, vd = q.to(dev), k.to(dev), v.to(dev)
+    reset_launch_counts()
+    got = flash_attention(qd, kd, vd, **kw)
+    assert launch_counts() == _counts(flash_attention_bf16=1)
+    assert torch.equal(got, flash_attention(qd, kd, vd, **kw))
+    torch.testing.assert_close(got.cpu().float(),
+                               flash_attention(q, k, v, **kw).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_flash_attention_bf16_refuses_unaligned(dev):
+    """TMA reads from 16-byte aligned bases: a bf16 q, k or v that starts
+    2 bytes in raises, with no launch, no copy and no other kernel."""
+    gen = torch.Generator().manual_seed(28)
+    q, k, v = (_bf16(gen, 1, 9, 4, 32).to(dev) for _ in range(3))
+    for i in range(3):
+        args = [q, k, v]
+        raw = torch.empty(args[i].numel() + 1, dtype=torch.bfloat16,
+                          device=dev)
+        args[i] = raw[1:].view(args[i].shape)
+        args[i].copy_((q, k, v)[i])
+        reset_launch_counts()
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_cuda(*args)
+        assert not any(launch_counts().values())
+
+
 def test_flash_attention_bf16_refuses_grad_and_lse(dev):
     """No bf16 backward: bf16 inputs that require grad raise, with no
     launch and no cast; the log-sum-exp (training) forward takes fp32."""
