@@ -10,9 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
      of every fused_preprocess function (no stack frame, no spills, or it
      fails), and the tensor-core instructions in the built libraries
      counted with ``cuobjdump --dump-sass`` (HMMA in flash_attention's,
-     decode_attention's and ssd_scan's, IMMA in int8_matmul's; none
-     fails), and HGMMA in each bf16 flash forward function (one a head
-     dim);
+     decode_attention's, decode_attention_bf16's and ssd_scan's, IMMA
+     in int8_matmul's; none fails), HGMMA in each bf16 flash forward
+     function (one a head dim), and decode_attention_bf16's 16-byte
+     cp.async copies and cluster barrier (``SASS_ASYNC``);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the main path's shapes and at ragged ones, with its device
      time, its roofline bound and a yardstick: PyTorch's SDPA for
@@ -243,8 +244,14 @@ Phases (any failure exits non-zero and prints no result line):
      warpgroups and 128-key tiles and windows a key either side of a tile
      (``bf16_flash_cases``), ``CROSS_SHAPES`` and ``MAG_SHAPES``'
      magnitudes, its host plan against the library's figures, two launches
-     equal bit for bit; decode_attention_bf16 at gemma2's, chatglm3's,
-     phi3-mini's and seamless's cross decode shapes) to their plain
+     equal bit for bit; decode_attention_bf16, every warp streaming its
+     own keys with cp.async, a long slot's splits over the card merged in
+     thread-block clusters, at gemma2's, chatglm3's, phi3-mini's,
+     moonshot's and seamless's cross decode shapes and the design's edges
+     (``bf16_decode_edges``: a long slot one key either side of a split
+     and of a stage as the card's plan cuts it, its last cluster partly
+     empty, G 3, G 16 at D 256, G 1 at D 96, a window shorter than a
+     split), two launches equal bit for bit) to their plain
      versions (2e-2, 3e-2) and to float64 on the same bf16 inputs
      (``bf16_vs_float64``), timed beside SDPA in bf16 (a yardstick) at
      ``BF16_TIMED``; phase 1 finds HGMMA (wgmma) in each of
@@ -351,7 +358,7 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
                              "src/repro/kernels/flash_attention/kernel.py:94"),
     "decode_attention_bf16": ("decode_attention_bf16",
                               "src/repro_torch/kernels/csrc/"
-                              "decode_attention.cu",
+                              "decode_attention_bf16.cu",
                               "src/repro/kernels/decode_attention/"
                               "kernel.py:69"),
 }
@@ -360,8 +367,13 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
 COMPANIONS = {"int8_matmul": ("int8_transpose_kn",)}
 #: the tensor-core instruction each built library must hold (phase 1)
 SASS_MMA = {"flash_attention": "HMMA", "flash_attention_bwd": "HMMA",
-            "decode_attention": "HMMA", "ssd_scan": "HMMA",
-            "ssd_scan_bwd": "HMMA", "int8_matmul": "IMMA"}
+            "decode_attention": "HMMA", "decode_attention_bf16": "HMMA",
+            "ssd_scan": "HMMA", "ssd_scan_bwd": "HMMA", "int8_matmul": "IMMA"}
+#: the asynchronous instructions a library must hold (phase 1), by the
+#: names ``cuobjdump --dump-sass`` prints (a prefix of the opcode):
+#: decode_attention_bf16's 16-byte copies (``cp.async``) and its cluster
+#: barrier (``barrier.cluster``)
+SASS_ASYNC = {"decode_attention_bf16": ("LDGSTS", "UCGABAR")}
 #: the functions that must hold HGMMA (wgmma), by library: name -> count
 #: (phase 1; the bf16 flash forward, one a head dim)
 SASS_WGMMA = {"flash_attention": {"flash_fwd_bf16_kernel": 6}}
@@ -400,7 +412,7 @@ LONG_LENS, SHORT_LENS = [7, 23, 30, 4206], [6, 14, 23, 35]
 #: mamba prefill when it fills a whole chunk of 256
 SSD_CHUNK = 256
 #: the kernels whose launches the serving phases class by step
-CLASSED = ("decode_attention", "ssd_scan")
+CLASSED = ("decode_attention", "ssd_scan", "decode_attention_bf16")
 #: chatglm3-6b's quantized projections as (K, N) matrices, the operands of
 #: matmul_int8_dynamic (wq/wk/wv (d, H, Dh) and wo (H, Dh, d) reshaped)
 CHATGLM3_PROJ = {"wq": (4096, 4096), "wk": (4096, 256), "wv": (4096, 256),
@@ -559,7 +571,8 @@ def no_stack(report, name):
 
 def sass_mma_counts():
     """Phase 1: each library of ``SASS_MMA`` holds its tensor-core
-    instruction (``cuobjdump --dump-sass``); a count of 0 fails.  In
+    instruction, and of ``SASS_ASYNC`` its asynchronous ones (``cuobjdump
+    --dump-sass``); a count of 0 fails.  In
     flash_attention's library, each function of ``SASS_WGMMA`` (one a
     head dim) holds HGMMA (wgmma), counted function by function."""
     from repro_torch.kernels._build import library_path, nvcc
@@ -570,9 +583,11 @@ def sass_mma_counts():
         sass = subprocess.run([exe, "--dump-sass", str(library_path(name))],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
-        n = len(re.findall(rf"\b{op}\b", sass))
-        print(f"[1] {name}: {n} {op} instructions (cuobjdump --dump-sass)")
-        check(n > 0, f"{name}: no {op} instruction in its library")
+        for o in (op,) + SASS_ASYNC.get(name, ()):
+            n = len(re.findall(rf"\b{o}(?![A-Z0-9])", sass))
+            print(f"[1] {name}: {n} {o} instructions (cuobjdump "
+                  "--dump-sass)")
+            check(n > 0, f"{name}: no {o} instruction in its library")
         for fn, want in SASS_WGMMA.get(name, {}).items():
             # the dump's sections, one a function: "Function : <name>"
             parts = [p for p in sass.split("Function : ")[1:]
@@ -1485,6 +1500,69 @@ def bf16_plan_match():
               f"{list(got)}, the plan {want}")
 
 
+#: the served long ticks' shapes (B4 S8192) whose long slot
+#: ``bf16_decode_edges`` sets about the bf16 decode kernel's splits and
+#: stages: (H, Hk, D, options)
+BF16_EDGE_TICKS = {"chatglm3": (32, 2, 128, {}),
+                   "gemma2": (8, 4, 256, dict(cap=50.0, window=4096)),
+                   "phi3": (32, 32, 96, {}), "moonshot": (16, 16, 128, {})}
+
+
+def bf16_decode_edges(dev):
+    """decode_attention_bf16's edge cases, (B, S, H, Hk, D, lens, options,
+    label): at each of ``BF16_EDGE_TICKS`` the long slot's length one key
+    past and one short of a split boundary, and one key either side of a
+    stage (``BF16_STAGE`` keys) inside its last split, as this card's plan
+    cuts it (a last split of one key only where splits are a stage)
+    (``kernel.py``'s mirror, on the wrapper's occupancy figures); at
+    chatglm3's, lengths whose last cluster is partly empty; and G 3, G 16
+    at D 256, G 1 at D 96, windows shorter than a split."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+
+    cases = []
+    for model, (h, hk, d, kw) in BF16_EDGE_TICKS.items():
+        occ = dk._occupancy_bf16(dev, d, h // hk)
+        nb = dk.bf16_blocks(4, hk, 8192, kw.get("window"), *occ)
+        c, ncl = dk.bf16_grid(4, nb)
+        found = {}
+        for n_long in range(3500, 4800):
+            n, chunk, used = dk.bf16_plan([7, 23, 30, n_long], ncl, c)[-1]
+            if model == "chatglm3" and used % c == 0:
+                continue       # a last cluster partly empty
+            live = min(n_long, kw.get("window") or n_long)
+            rest = live - (used - 1) * chunk     # the last split's keys
+            # a stage boundary inside the split (at a split of one stage,
+            # the split's own)
+            st = dk.BF16_STAGE
+            inner = chunk == st or 1 < rest < chunk - 1
+            for key, hit in (("split+1", rest == 1),
+                             ("split-1", rest == chunk - 1),
+                             ("stage+1", rest % st == 1 and inner),
+                             ("stage-1", rest % st == st - 1 and inner)):
+                if hit and key not in found:
+                    found[key] = n_long
+        # a last split of one key exists only where splits are pinned at a
+        # stage (the plan balances longer ones: rest > chunk / 2)
+        check({"split-1", "stage+1", "stage-1"} <= set(found),
+              f"decode_attention_bf16 {model}: edges {found} (clusters of "
+              f"{c}, {ncl} a kv head)")
+        print(f"  decode_attention_bf16 {model}: clusters of {c}, {ncl} a "
+              f"kv head; the long slot's edge lengths {found}")
+        for n_long in sorted(set(found.values())):
+            keys = "/".join(k_ for k_, n_ in found.items() if n_ == n_long)
+            cases.append((4, 8192, h, hk, d, [7, 23, 30, n_long], kw,
+                          f"{model} {keys}"))
+    return cases + [
+        (4, 4096, 6, 2, 128, [7, 23, 30, 4000], {}, "G 3"),
+        (4, 2048, 32, 2, 256, [7, 23, 30, 2000], dict(cap=50.0),
+         "G 16 at D 256"),
+        (2, 2048, 4, 4, 96, [1, 2047], {}, "G 1 at D 96"),
+        (4, 8192, 32, 2, 128, LONG_LENS, dict(window=40),
+         "a window shorter than a split"),
+        (4, 8192, 8, 4, 256, LONG_LENS, dict(cap=50.0, window=100),
+         "a window shorter than a split")]
+
+
 def bf16_kernel_checks(compare, gen, dev, rows):
     """flash_attention_bf16 and decode_attention_bf16 on bf16 inputs: the
     flash plan against the library's figures, the flash sweep
@@ -1627,6 +1705,8 @@ def bf16_kernel_checks(compare, gen, dev, rows):
               "gemma2_short"),
              (4, 8192, 32, 32, 96, lens, {}, "phi3_decode"),
              (4, 8192, 32, 32, 96, short, {}, "phi3_short"),
+             (4, 8192, 16, 16, 128, lens, {}, "moonshot_decode"),
+             (4, 8192, 16, 16, 128, short, {}, "moonshot_short"),
              CROSS_DECODE + ([CROSS_DECODE[1]] * CROSS_DECODE[0], {},
                              "seamless_cross_decode"),
              (4, 8192, 32, 2, 128, [1, 1, 1, 1], {}, None),
@@ -1635,14 +1715,22 @@ def bf16_kernel_checks(compare, gen, dev, rows):
              (2, 64, 4, 4, 32, [17, 3], dict(cap=20.0), None),
              (3, 96, 8, 2, 64, [1, 9, 96], dict(window=8), None),
              (2, 100, 6, 2, 64, [100, 37], {}, None)]
+    # the design's edges, drawn on the card (their edge name kept apart
+    # from the timed labels)
+    edges = [case[:-1] + (None, case[-1]) for case in bf16_decode_edges(dev)]
     dec_rows = {}
-    for b, s, h, hk, d, ln, kw, which in cases:
-        q, k, v = randn(b, 1, h, d), randn(b, s, hk, d), randn(b, s, hk, d)
+    for b, s, h, hk, d, ln, kw, which, edge in ([c + (None,) for c in cases]
+                                                + edges):
+        draw = randn_dev if edge else randn
+        q, k, v = draw(b, 1, h, d), draw(b, s, hk, d), draw(b, s, hk, d)
         kv_len = torch.tensor(ln, dtype=torch.int32, device=dev)[:, None]
-        label = f"B{b} S{s} H{h}/{hk} D{d} len {ln} {kw}"
+        label = (f"{edge + ': ' if edge else ''}B{b} S{s} H{h}/{hk} D{d} "
+                 f"len {ln} {kw}")
         got = decode_attention_cuda(q, k, v, kv_len, **kw)
         plain = decode_attention_plain(q, k, v, kv_len, **kw)
         check(got.dtype == bf, f"decode_attention_bf16 {label}: {got.dtype}")
+        check(torch.equal(got, decode_attention_cuda(q, k, v, kv_len, **kw)),
+              f"decode_attention_bf16 {label}: two launches differ")
         compare("decode_attention_bf16", got, plain, label)
         kpos = torch.arange(s, device=dev)[None, None, :]
         mask = kpos < kv_len[:, :, None]
@@ -1671,7 +1759,9 @@ def bf16_kernel_checks(compare, gen, dev, rows):
               f"{' without the cap' if kw.get('cap') else ''} "
               f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
               f"({t['bound'][1]}, {nbytes} B)")
-    print(f"  decode_attention_bf16: against float64 at most "
+    print(f"  decode_attention_bf16: {len(cases)} cases and {len(edges)} "
+          f"edges within {TOL['decode_attention_bf16']} of the plain version,"
+          f" two launches equal bit for bit each; against float64 at most "
           f"{BF16_F64['decode_attention_bf16']:.3f} of the bar")
     rows["decode_attention_bf16"] = {**dec_rows.pop("chatglm3_decode"),
                                      **dec_rows}

@@ -3,6 +3,7 @@
     python scripts/decode_ssd_compare.py                   # this tree
     python scripts/decode_ssd_compare.py --tree OLD        # OLD, this, this, OLD
     python scripts/decode_ssd_compare.py --waves 1 --waves 2   # budgets
+    python scripts/decode_ssd_compare.py --bf16 --tree OLD [--sweep]
 
 A tree is a checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into a gitignored directory); each builds its
@@ -25,10 +26,21 @@ adds, for every tree whose wrapper has ``split_blocks``, decode_attention's
 time against the long slot's length beside three short slots, with the
 wrapper's plan and with one split a sequence (no merge): the time a block
 takes for its tiles apart from its fixed cost.
+
+``--bf16`` times decode_attention_bf16 instead, at phase 2's bf16 decode
+shapes (``BF16``: chatglm3-6b's, gemma2-2b's local and global and
+phi3-mini's long and short ticks, seamless's cross decode) and
+moonshot-v1-16b-a3b's (16 kv heads of 128, a group of 1), each held to
+the plain version within ``chip_smoke.TOL``; and, at the fp32 shapes
+above, times decode_attention_f32 and prints a hash of its outputs, so
+that two trees' fp32 kernels can be shown equal bit for bit.  Its
+``--sweep`` is decode_attention_bf16's, at chatglm3's, phi3's and
+moonshot's shapes.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -43,6 +55,102 @@ DECODE = {"gemma2": (8, 4, 256, dict(cap=50.0, window=4096)),
 
 TWO_LONG = [7, 30, 4100, 4250]
 SWEEP = (128, 512, 1024, 2048, 4206)
+#: decode_attention_bf16's timed shapes: (H, Hk, D, options, ticks)
+BF16 = {"chatglm3": (32, 2, 128, {}, ("long", "short")),
+        "gemma2": (8, 4, 256, dict(cap=50.0, window=4096),
+                   ("long", "short")),
+        "gemma2 global": (8, 4, 256, dict(cap=50.0), ("long",)),
+        "phi3": (32, 32, 96, {}, ("long", "short")),
+        "moonshot": (16, 16, 128, {}, ("long", "short"))}
+BF16_SWEEP = ("chatglm3", "phi3", "moonshot")
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    import torch
+    raw = t.contiguous().cpu().view(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
+
+
+def bf16_worker(tree: str, sweep: bool) -> dict:
+    """decode_attention_bf16's times and decode_attention_f32's output
+    hashes and times in ``tree`` (see the module's docstring)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels._build import CSRC
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_plain
+
+    build([n for n in ("decode_attention", "decode_attention_bf16")
+           if (CSRC / f"{n}.cu").exists()])
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+
+    def randn(dtype, *shape):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    def case(name, dtype, b, s, h, hk, d, lens, kw):
+        q = randn(dtype, b, 1, h, d)
+        k, v = randn(dtype, b, s, hk, d), randn(dtype, b, s, hk, d)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)[:, None]
+
+        def fn():
+            return dk.decode_attention_cuda(q, k, v, kv_len, **kw)
+
+        got = fn()
+        want = decode_attention_plain(q, k, v, kv_len, **kw)
+        tol = cs.TOL[name]
+        err = (got.float() - want.float()).abs()
+        if (err > tol + tol * want.float().abs()).any() \
+                or not torch.isfinite(got).all():
+            raise SystemExit(f"{tree}: {name} off by {err.max().item()}")
+        return fn, got, err.max().item()
+
+    ticks = {"long": cs.LONG_LENS, "short": cs.SHORT_LENS,
+             "two long": TWO_LONG}
+    with torch.no_grad():
+        for model, (h, hk, d, kw) in DECODE.items():
+            for cls in ("long", "two long", "short"):
+                fn, got, err = case("decode_attention", torch.float32, 4,
+                                    8192, h, hk, d, ticks[cls], kw)
+                out[f"fp32 {model} {cls}"] = (cs.device_ms(fn), err)
+                out[f"fp32 {model} {cls} hash"] = (digest(got), 0.0)
+        for model, (h, hk, d, kw, classes) in BF16.items():
+            for cls in classes:
+                fn, _, err = case("decode_attention_bf16", torch.bfloat16,
+                                  4, 8192, h, hk, d, ticks[cls], kw)
+                out[f"bf16 {model} {cls}"] = (cs.device_ms(fn), err)
+        b, s, h, hk, d = cs.CROSS_DECODE
+        fn, _, err = case("decode_attention_bf16", torch.bfloat16, b, s, h,
+                          hk, d, [s] * b, {})
+        out["bf16 seamless cross"] = (cs.device_ms(fn), err)
+        if not sweep:
+            return out
+        # one split a sequence: each tree's budget function set to one
+        # block (a tree without the bf16 plan takes split_blocks for both)
+        budgets = [n for n in ("split_blocks", "bf16_blocks")
+                   if hasattr(dk, n)]
+        saved = {n: getattr(dk, n) for n in budgets}
+        for model in BF16_SWEEP:
+            h, hk, d, kw, _ = BF16[model]
+            for n_long in SWEEP:
+                fn, _, _ = case("decode_attention_bf16", torch.bfloat16, 4,
+                                8192, h, hk, d, [7, 23, 30, n_long], kw)
+                for how in ("plan", "one split"):
+                    if how == "one split":
+                        for n in budgets:
+                            setattr(dk, n, lambda *a: 1)
+                    out[f"sweep bf16 {model} L{n_long} {how}"] = (
+                        cs.device_ms(fn), 0.0)
+                    for n, f in saved.items():
+                        setattr(dk, n, f)
+    return out
 
 
 def worker(tree: str, waves: int, sweep: bool) -> dict:
@@ -135,11 +243,15 @@ def main() -> int:
                          "default: the kernel's own rule)")
     ap.add_argument("--sweep", action="store_true",
                     help="time decode against the long slot's length")
+    ap.add_argument("--bf16", action="store_true",
+                    help="decode_attention_bf16's times and the fp32 "
+                         "kernel's output hashes")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.worker, (args.waves or [0])[0],
-                                args.sweep)))
+        print(json.dumps(
+            bf16_worker(args.worker, args.sweep) if args.bf16 else
+            worker(args.worker, (args.waves or [0])[0], args.sweep)))
         return 0
     runs = [(t, 0) for t in args.tree] + [(ROOT, w) for w in args.waves or [0]]
     results = {}
@@ -148,7 +260,8 @@ def main() -> int:
                                                if waves else "")
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", tree,
-             "--waves", str(waves)] + (["--sweep"] if args.sweep else []),
+             "--waves", str(waves)] + (["--sweep"] if args.sweep else [])
+            + (["--bf16"] if args.bf16 else []),
             capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
@@ -162,6 +275,10 @@ def main() -> int:
         print(f"{shape}:")
         for label, rs in results.items():
             if shape not in rs[0]:
+                continue
+            if shape.endswith("hash"):
+                print(f"  {label:50s} "
+                      + ", ".join(r[shape][0] for r in rs))
                 continue
             if "float64" in shape:
                 print(f"  {label:50s} {rs[0][shape][0]:.3e} "

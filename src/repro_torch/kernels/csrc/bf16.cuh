@@ -1,9 +1,8 @@
 // bf16.cuh: bf16 tensor-core products with fp32 accumulators, shared by
-// decode_attention.cu (decode_attention_bf16: the mma.sync m16n8k16 and
-// m16n8k8 bf16 products, ldmatrix's transposed loads of a row-major V tile
-// as the B operand of P.V) and flash_attention.cu (flash_attention_bf16,
-// on wgmma: P's packing), and the packing of two fp32 values into a
-// bf16x2 register.
+// decode_attention_bf16.cu (the mma.sync m16n8k16 bf16 products,
+// ldmatrix's transposed loads of a row-major V tile as the B operand of
+// P.V) and flash_attention.cu (flash_attention_bf16, on wgmma: P's
+// packing), and the packing of two fp32 values into a bf16x2 register.
 //
 // The product of two bf16 values is exact in fp32 (8 + 8 significant bits),
 // so a bf16 mma differs from an fp32 dot of the same values only in how it
@@ -11,17 +10,16 @@
 // of the rest, lo = bf16(p - hi): hi + lo keeps about 16 of p's bits, so
 // P.V as hi.V + lo.V (V exact in bf16) stays within ~2^-17 of fp32's P.V.
 //
-// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
-// "...m16n8k8", .bf16): lane = 4 * g + t.  A (16 x 16, row): register 0
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16", .bf16):
+// lane = 4 * g + t.  A (16 x 16, row): register 0
 // holds A[g][2t, 2t+1], 1 A[g+8][2t, 2t+1], 2 A[g][2t+8, 2t+9], 3
 // A[g+8][2t+8, 2t+9] (the lower column in the low half).  B (16 x 8, col):
 // register 0 holds B[2t, 2t+1][g], 1 B[2t+8, 2t+9][g].  C (16 x 8, fp32):
-// c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1].  m16n8k8 takes A's
-// registers 0 and 1 and B's register 0.  So an accumulator tile of S
-// (16 rows x 8 keys) is, packed pairwise, the A operand of P.V over those
-// 8 keys (k8), and two adjacent tiles the A operand over 16 keys (k16):
-// no shuffle.  wgmma's accumulator and register A operand are these
-// layouts a warp (hopper.cuh).
+// c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1].  So two adjacent
+// accumulator tiles of S (16 rows x 8 keys each) are, packed pairwise, the
+// A operand of P.V over those 16 keys (k16): no shuffle.  wgmma's
+// accumulator and register A operand are these layouts a warp
+// (hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,26 +59,18 @@ __device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// c += a.b: a 16x8 (row; registers 0 and 1 of the layout above), b 8x8
-// (col), c 16x8 fp32
-__device__ __forceinline__ void mma8(float (&c)[4], uint32_t a0, uint32_t a1,
-                                     uint32_t b0) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-// two 8x8 bf16 matrices from shared memory, transposed: lanes 8i .. 8i+7
-// (i = 0, 1) give the 16-byte rows of matrix i, and r[i] holds rows 2t and
-// 2t+1 of its column g: with rows as keys and columns as head dims, B
-// operands of P.V from a row-major V tile
-__device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], const bf16* row) {
+// four 8x8 bf16 matrices, transposed: lanes 8i .. 8i+7 give the rows of
+// matrix i; with rows as keys (matrices 0, 2: keys 0-7, 1, 3: keys 8-15)
+// and columns as head dims (0, 1: d tile dt, 2, 3: dt+1), r[0], r[1] are
+// m16n8k16's B operands of P.V over 16 keys at d tile dt, r[2], r[3] at
+// dt+1
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* row) {
   const uint32_t a = (uint32_t)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a)
-               : "memory");
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
 }
 
 }  // namespace bf16mma

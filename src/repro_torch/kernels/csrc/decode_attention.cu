@@ -74,15 +74,7 @@
 //    shuffles over its 8 keys, P through shared memory, P*V in fp32 with
 //    lane l on head dims l, l+32, ...  G*D fp64 multiply-adds a key at
 //    half the fp32 rate stay under the byte time.
-// bf16 (decode_attention_bf16, the served LMs' bf16 decode): q, the K/V
-// tiles and o in bf16, so a tick reads half the bytes; the workspace, the
-// merge and every sum stay fp32, and o is rounded once.  G >= 3 runs bf16
-// mma.sync: Q.K^T as one m16n8k16 term a 16-wide d step (bf16 products
-// are exact in fp32), P.V as m16n8k8 over the warp's 8 keys with P in a
-// bf16 hi and lo part and V exact (bf16.cuh), its B operands from the
-// row-major V tile by ldmatrix's transposed load; rows padded by 16 bytes.
-// G 1 and 2 keep the fp64 scores above on the bf16 values.  The tiles, the
-// plan and the merge are the fp32 kernel's.
+// The bf16 kernel (decode_attention_bf16) is decode_attention_bf16.cu.
 // The 4 warps' states merge in warp order at the end of a split.  An
 // empty warp, block or split carries m = -1e30, l = 0, acc = 0 (the
 // reference's NEG_INF, never -inf, so no exp(-inf - -inf) = NaN); a
@@ -91,13 +83,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "bf16.cuh"
-
 namespace {
-
-using bf16mma::bf16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -110,25 +96,20 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // R = 0: the tensor-core route, G <= 16 rows padded to the mma's 16;
 // R = G (1 or 2): fp64 scores on the CUDA cores.  T: the type of q, the
-// K/V tiles and o (float, or bf16: decode_attention_bf16)
+// K/V tiles and o (float)
 template <typename T, int D, int R>
 struct Cfg {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
   static constexpr bool kMma = R == 0;
-  // K's row stride: the fp32 mma route's 64-bit fragment loads, or the
+  // K's row stride: the mma route's 64-bit fragment loads, or the
   // CUDA-core route's 16-byte loads (two keys a quarter warp, 64 bytes
-  // apart in the banks), free of bank conflicts; V's: 32-bit loads.  bf16:
-  // 16 bytes of padding, for the 32-bit fragment loads of K and ldmatrix's
-  // 16-byte rows of V
-  static constexpr int LK = kBf16 ? D + 8 : kMma ? D + 8 : (D % 32 ? D : D + 16);
-  static constexpr int LV = kBf16 ? D + 8 : kMma ? D + 4 : D;
+  // apart in the banks), free of bank conflicts; V's: 32-bit loads
+  static constexpr int LK = kMma ? D + 8 : (D % 32 ? D : D + 16);
+  static constexpr int LV = kMma ? D + 4 : D;
   static constexpr int DK = D / 8;          // the mma's 8-wide d steps
   static constexpr int DT = (D + 31) / 32;  // CUDA cores: P*V dims a lane
-  // q (bytes): hi and lo in fp32 (fp32 mma), kRows rows of bf16 (bf16
-  // mma), or R rows of doubles
+  // q (bytes): hi and lo in fp32 (mma), or R rows of doubles
   static constexpr size_t q_bytes =
-      kMma ? (kBf16 ? sizeof(bf16) * kRows * LK : 2 * sizeof(float) * kRows * LK)
-           : sizeof(double) * R * D;
+      kMma ? 2 * sizeof(float) * kRows * LK : sizeof(double) * R * D;
   static constexpr size_t stage = sizeof(T) * kTile * (LK + LV);   // bytes
   // stages of K and V in the ring: kStages - 1 tiles in flight while one
   // is computed, as many as shared memory holds (227 KB a block)
@@ -236,17 +217,6 @@ __device__ __forceinline__ void load_tile(T* ks, const T* k, const T* v,
   }
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 template <typename T, int D, int R>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -351,14 +321,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // fp32 mma: [kRows][LK] q's hi, zero rows >= G, then [kRows][LK] q's lo
   float* qh_s = reinterpret_cast<float*>(smem);
   float* ql_s = qh_s + kRows * LK;
-  bf16* qb_s = reinterpret_cast<bf16*>(smem);   // bf16 mma: [kRows][LK] q
   double* qd_s = reinterpret_cast<double*>(smem);   // CUDA cores: [R][D]
-  if constexpr (C::kMma && C::kBf16) {
-    for (int e = tid; e < kRows * D; e += kThreads) {
-      const int r = e / D, d = e % D;
-      qb_s[r * LK + d] = r < G ? qb[e] : __float2bfloat16_rn(0.0f);
-    }
-  } else if constexpr (C::kMma) {
+  if constexpr (C::kMma) {
     for (int e = tid; e < kRows * D; e += kThreads) {
       const int r = e / D, d = e % D;
       float hi = 0.0f, lo_ = 0.0f;
@@ -367,7 +331,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ql_s[r * LK + d] = lo_;
     }
   } else {
-    for (int e = tid; e < R * D; e += kThreads) qd_s[e] = (double)to_f(qb[e]);
+    for (int e = tid; e < R * D; e += kThreads) qd_s[e] = (double)qb[e];
   }
 
   float acc[NA][NE], m[NR], l[NR];
@@ -391,76 +355,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_tile<T, D, R>(stage_at((t + NS - 1) % NS), k, v, base, row,
                          j0 + (NS - 1) * kTile, k_end, vec);
     cp_commit();
-    if constexpr (C::kMma && C::kBf16) {
-      using namespace bf16mma;
-      // S = Q.K^T on the warp's 8 keys, one m16n8k16 bf16 term a 16-wide
-      // d step (bf16 products are exact in fp32)
-      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      const bf16* qa = qb_s + gq * LK + 2 * tq;
-      const bf16* kr = ks + (warp * 8 + gq) * LK + 2 * tq;
-#pragma unroll
-      for (int d0 = 0; d0 < D; d0 += 16) {
-        const uint32_t a[4] = {ld32(qa + d0), ld32(qa + 8 * LK + d0),
-                               ld32(qa + d0 + 8), ld32(qa + 8 * LK + d0 + 8)};
-        mma16(s, a, ld32(kr + d0), ld32(kr + d0 + 8));
-      }
-      // scale, cap, mask; s[e] is row gq + 8*(e>>1), key 2*tq + (e&1) of
-      // the warp's 8
-      bool ok[4];
-      float tmax[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float x = s[e] * (float)scale;
-        if (cap > 0.0f) x = cap * tanhf(x / cap);
-        ok[e] = gq + 8 * i < G && j0 + warp * 8 + 2 * tq + (e & 1) < k_end;
-        s[e] = ok[e] ? x : kNegInf;
-        tmax[i] = fmaxf(tmax[i], s[e]);
-      }
-      float alpha[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(kFull, tmax[i], 1));
-        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(kFull, tmax[i], 2));
-        const float m_new = fmaxf(m[i], tmax[i]);
-        alpha[i] = expf(m[i] - m_new);   // 0 before the row's first key
-        m[i] = m_new;
-      }
-      // P (16 rows x the warp's 8 keys) as the m16n8k8 A operand, in a
-      // bf16 hi and lo part: the accumulator's rows gq and gq+8 are its
-      // registers 0 and 1
-      float p[4];
-      float rsum[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = ok[e] ? expf(s[e] - m[e >> 1]) : 0.0f;
-        rsum[e >> 1] += p[e];
-      }
-      uint32_t phi[2], plo[2];
-      pack_split(p[0], p[1], phi[0], plo[0]);
-      pack_split(p[2], p[3], phi[1], plo[1]);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rsum[i];
-      // P.V: V's B operands two d tiles at a time by ldmatrix (lanes 0-7
-      // give the warp's 8 keys at d tile dt, lanes 8-15 at dt+1); per d
-      // tile a fresh accumulator, added to O with an fp32 add.  A key past
-      // k_end has p = 0 and v = 0 (zero-filled): it adds exactly 0
-      const bf16* vr = vs + (warp * 8 + (lane & 7)) * LV + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int dt = 0; dt < DK; dt += 2) {
-        uint32_t r[2];
-        ldsm2t(r, vr + dt * 8);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float tb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma8(tb, plo[0], plo[1], r[h]);
-          mma8(tb, phi[0], phi[1], r[h]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[dt + h][e] = fmaf(acc[dt + h][e], alpha[e >> 1], tb[e]);
-        }
-      }
-    } else if constexpr (C::kMma) {
+    if constexpr (C::kMma) {
       // S = Q.K^T on the warp's 8 keys.  k-index t of each 8-wide d step
       // stands for d = 2t and t+4 for d = 2t+1 (Q and K alike).  Cross
       // terms in two accumulators over D; hi*hi in a fresh one per two d
@@ -565,19 +460,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const T* kr = ks + kq * LK + 4 * tq;
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) {
-        double k0, k1, k2, k3;
-        if constexpr (C::kBf16) {
-          const uint2 raw = *reinterpret_cast<const uint2*>(kr + 16 * c);
-          const __nv_bfloat162 lo2 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-          const __nv_bfloat162 hi2 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-          k0 = __bfloat162float(lo2.x);
-          k1 = __bfloat162float(lo2.y);
-          k2 = __bfloat162float(hi2.x);
-          k3 = __bfloat162float(hi2.y);
-        } else {
-          const float4 k4 = *reinterpret_cast<const float4*>(kr + 16 * c);
-          k0 = k4.x, k1 = k4.y, k2 = k4.z, k3 = k4.w;
-        }
+        const float4 k4 = *reinterpret_cast<const float4*>(kr + 16 * c);
+        const double k0 = k4.x, k1 = k4.y, k2 = k4.z, k3 = k4.w;
 #pragma unroll
         for (int g = 0; g < R; ++g) {
           const double* qr = qd_s + g * D + 16 * c + 4 * tq;
@@ -624,7 +508,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int t2 = 0; t2 < DT; ++t2) {
           const int d = lane + 32 * t2;
-          vv[t2] = d < D ? to_f(vr[d]) : 0.0f;
+          vv[t2] = d < D ? vr[d] : 0.0f;
         }
 #pragma unroll
         for (int g = 0; g < R; ++g) {
@@ -705,7 +589,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float a = 0.0f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) a += mrg_s[w * kRows * D + e];
-      ob[e] = from_f<T>(a / fmaxf(den_s[e / D], 1e-30f));
+      ob[e] = a / fmaxf(den_s[e / D], 1e-30f);
     }
     return;
   }
@@ -802,16 +686,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int e4 = tid + i * kThreads;
     if (4 * e4 < GD) {
       const float den = fmaxf(den_s[4 * e4 / D], 1e-30f);
-      if constexpr (C::kBf16) {
-        uint2 out;
-        out.x = bf16mma::pack(num[i].x / den, num[i].y / den);
-        out.y = bf16mma::pack(num[i].z / den, num[i].w / den);
-        *reinterpret_cast<uint2*>(ob + 4 * e4) = out;
-      } else {
-        *reinterpret_cast<float4*>(ob + 4 * e4) =
-            make_float4(num[i].x / den, num[i].y / den, num[i].z / den,
-                        num[i].w / den);
-      }
+      *reinterpret_cast<float4*>(ob + 4 * e4) =
+          make_float4(num[i].x / den, num[i].y / den, num[i].z / den,
+                      num[i].w / den);
     }
   }
   if (tid == 0) count[pair] = 0;         // ready for the next call
@@ -935,22 +812,8 @@ extern "C" int decode_attention_f32(const void* q, const void* k,
                              nb, cap, window, stream);
 }
 
-// The same on bf16 q, k, v and o (the K/V tiles staged as bf16; ws, the
-// merge and every sum fp32); bases 4-byte aligned.
-extern "C" int decode_attention_bf16(const void* q, const void* k,
-                                     const void* v, const void* kv_len,
-                                     void* o, void* ws, void* count, int B,
-                                     int S, int H, int Hk, int D, int nb,
-                                     float cap, int window, void* stream) {
-  return decode_entry<bf16>(q, k, v, kv_len, o, ws, count, B, S, H, Hk, D,
-                            nb, cap, window, stream);
-}
-
-// How many blocks of the instance for (D, G) and the type (bf16 != 0: the
-// bf16 kernel) one SM holds at once (shared memory and registers), for the
-// wrapper's grid rule.  No launch.
-extern "C" int decode_attention_occupancy(int D, int G, int is_bf16,
-                                          int* blocks) {
-  return is_bf16 ? occupancy_entry<bf16>(D, G, blocks)
-                 : occupancy_entry<float>(D, G, blocks);
+// How many blocks of the instance for (D, G) one SM holds at once (shared
+// memory and registers), for the wrapper's grid rule.  No launch.
+extern "C" int decode_attention_occupancy(int D, int G, int* blocks) {
+  return occupancy_entry<float>(D, G, blocks);
 }

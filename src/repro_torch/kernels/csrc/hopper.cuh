@@ -1,7 +1,8 @@
 // hopper.cuh: Hopper's asynchronous machinery for flash_attention.cu's bf16
-// forward (flash_attention_bf16): mbarriers, TMA tensor loads, warpgroup
-// register reallocation (setmaxnreg) and warpgroup products (wgmma) with
-// their shared-memory matrix descriptors.  sm_90a only.
+// forward (flash_attention_bf16) and decode_attention_bf16.cu: mbarriers,
+// TMA tensor loads, the cluster barrier, warpgroup register reallocation
+// (setmaxnreg) and warpgroup products (wgmma) with their shared-memory
+// matrix descriptors.  sm_90a only.
 //
 // wgmma (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"): four
 // warps issue one m64nNk16 product together.  D (64 x N, fp32) lives in
@@ -103,6 +104,19 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
       : "memory");
+}
+
+// ---- clusters --------------------------------------------------------------
+
+// The cluster barrier in two halves: once every (non-exited) thread of the
+// cluster has arrived, the shared- and global-memory writes each made
+// before arriving are visible to all that have passed the wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // ---- registers -------------------------------------------------------------

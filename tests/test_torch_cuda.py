@@ -22,6 +22,7 @@ from repro_torch.kernels.fused_prefix.kernel import (fused_prefix_cuda,  # noqa:
                                                      out_frame_shape,
                                                      prefix_kernel)
 from repro_torch.kernels.fused_prefix.ref import fused_prefix_ref  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as dk  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
 from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda  # noqa: E402
@@ -1084,7 +1085,20 @@ def test_flash_attention_bf16_refuses_grad_and_lse(dev):
     (2, 1000, 8, 8, 16, [999, 161], dict(window=517)),
     (2, 100, 6, 2, 64, [100, 37], {}),
     (1, 300, 32, 2, 256, [300], dict(cap=50.0)),
-    (40, 700, 32, 32, 64, [1 + (37 * i) % 700 for i in range(40)], {})])
+    (40, 700, 32, 32, 64, [1 + (37 * i) % 700 for i in range(40)], {}),
+    # moonshot-v1-16b-a3b's decode shape (16 kv heads of 128, G 1)
+    (4, 8192, 16, 16, 128, [7, 23, 30, 4206], {}),
+    (4, 8192, 16, 16, 128, [6, 14, 23, 35], {}),
+    # one key either side of a stage (64 keys): one split, 1-2 stages
+    (4, 256, 32, 2, 128, [63, 64, 65, 129], {}),
+    (4, 256, 8, 8, 96, [63, 64, 65, 127], {}),
+    # G 3, G 16 at D 256 beside short slots, G 1 at D 96
+    (4, 4096, 6, 2, 128, [7, 23, 30, 4000], {}),
+    (4, 2048, 32, 2, 256, [7, 23, 30, 2000], dict(cap=50.0)),
+    (2, 2048, 4, 4, 96, [1, 2047], {}),
+    # a window shorter than one split, at a long slot
+    (4, 8192, 32, 2, 128, [7, 23, 30, 4206], dict(window=40)),
+    (4, 8192, 8, 4, 256, [7, 23, 30, 4206], dict(cap=50.0, window=100))])
 def test_decode_attention_bf16_kernel(dev, b, s, h, hk, d, lens, kw):
     """As the fp32 kernel's test, on bf16: NaN keys past kv_len never read,
     one launch of decode_attention_bf16."""
@@ -1103,3 +1117,68 @@ def test_decode_attention_bf16_kernel(dev, b, s, h, hk, d, lens, kw):
     assert launch_counts() == _counts(decode_attention_bf16=1)
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
                                rtol=3e-2)
+
+
+def _bf16_long_plan(dev, b, s, h, hk, d, lens, kw):
+    """The bf16 kernel's plan of the last sequence, as the wrapper makes it
+    on this card: (cluster size, (clusters, keys a split, splits))."""
+    nb = dk.bf16_blocks(b, hk, s, kw.get("window"),
+                        *dk._occupancy_bf16(dev, d, h // hk))
+    c, ncl = dk.bf16_grid(b, nb)
+    return c, dk.bf16_plan(lens, ncl, c)[-1]
+
+
+#: the served long ticks' shapes (B4 S8192): chatglm3-6b, gemma2-2b's
+#: local layer, phi3-mini, moonshot-v1-16b-a3b
+BF16_TICKS = {"chatglm3": (32, 2, 128, {}),
+              "gemma2": (8, 4, 256, dict(cap=50.0, window=4096)),
+              "phi3": (32, 32, 96, {}), "moonshot": (16, 16, 128, {})}
+
+
+@pytest.mark.parametrize("model", sorted(BF16_TICKS))
+@pytest.mark.parametrize("edge", ["split", "stage"])
+def test_decode_attention_bf16_split_edges(dev, model, edge):
+    """The long slot's length one key either side of a split boundary
+    (its length 1 past and 1 short of a multiple of its split), or of a
+    stage boundary inside its last split (that split's length 1 past and
+    1 short of a multiple of a stage's keys), as this card's plan cuts
+    it: within 3e-2 of the plain version, one launch, two launches equal
+    bit for bit.  At chatglm3's shape the last cluster is partly empty."""
+    h, hk, d, kw = BF16_TICKS[model]
+    found = []
+    for n_long in range(3500, 4700):
+        lens = [7, 23, 30, n_long]
+        c, (n, chunk, used) = _bf16_long_plan(dev, 4, 8192, h, hk, d, lens,
+                                              kw)
+        live = min(n_long, kw.get("window") or n_long)
+        rest = live - (used - 1) * chunk      # the last split's keys
+        if edge == "split":
+            hit, key = rest in (1, chunk - 1), rest
+        else:
+            st = dk.BF16_STAGE
+            key = rest % st
+            hit = key in (1, st - 1) and (chunk == st or 1 < rest < chunk - 1)
+        # chatglm3's: lengths whose last cluster is partly empty
+        hit = hit and (model != "chatglm3" or used % c != 0)
+        if hit and key not in [f[1] for f in found]:
+            found.append((n_long, key))
+        if len(found) == 2:
+            break
+    assert len(found) == 2, (model, edge, found)
+    gen = torch.Generator().manual_seed(29)
+    for n_long, _ in found:
+        lens = [7, 23, 30, n_long]
+        q = _bf16(gen, 4, 1, h, d)
+        k, v = _bf16(gen, 4, 8192, hk, d), _bf16(gen, 4, 8192, hk, d)
+        kv_len = torch.tensor(lens, dtype=torch.int32)[:, None]
+        want = decode_attention(q, k, v, kv_len, **kw)
+        for i, n_ in enumerate(lens):
+            k[i, n_:] = float("nan")
+            v[i, n_:] = float("nan")
+        args = (q.to(dev), k.to(dev), v.to(dev), kv_len.to(dev))
+        reset_launch_counts()
+        got = decode_attention_cuda(*args, **kw)
+        assert launch_counts() == _counts(decode_attention_bf16=1)
+        assert torch.equal(got, decode_attention_cuda(*args, **kw))
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   atol=3e-2, rtol=3e-2)

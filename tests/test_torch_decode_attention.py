@@ -21,7 +21,9 @@ from repro.models import attention as jax_attn  # noqa: E402
 
 from repro_torch.common.config import AttentionConfig  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
-    MAX_SPLITS, MIN_KEYS_PER_SPLIT, TILE, grid_waves, split_blocks,
+    BF16_GROUP, BF16_MAX_CLUSTER, BF16_MAX_CLUSTERS, BF16_MIN_KEYS,
+    BF16_STAGE, MAX_SPLITS, MIN_KEYS_PER_SPLIT, TILE, bf16_blocks,
+    bf16_cluster, bf16_grid, bf16_plan, grid_waves, split_blocks,
     split_plan)
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
@@ -244,3 +246,124 @@ def test_num_splits_cover_the_cache():
     assert split_blocks(1, 1, 300, None, 132, 1) == 3
     assert split_blocks(1, 1, 64, None, 132, 1) == 1
     assert split_blocks(1, 1, 1 << 20, None, 132, 1) == MAX_SPLITS
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's plan (decode_attention_bf16.cu), mirrored on the host
+# ---------------------------------------------------------------------------
+
+def _ideal_clusters(sms, per_sm):
+    """Clusters of 2, 4 and 8 blocks a card of ``sms`` SMs holding
+    ``per_sm`` blocks each runs at once, where clusters pack perfectly."""
+    return {c: sms * per_sm // c for c in (2, 4, 8)}
+
+
+def _blocks_of(lives, ncl, c):
+    """The kernel's own walk of its grid (one kv head): cluster x is
+    sequence x's first where x < B, else the next of the sequences' other
+    clusters in order; rank r of a sequence's cluster ci takes split
+    ci * c + r.  Returns {(cluster, rank): (b, key range)} for the blocks
+    with a split."""
+    b_n = len(lives)
+    plan = bf16_plan(lives, ncl, c)
+    owner = {i: (i, 0) for i in range(b_n)}
+    x = b_n
+    for i, (n, _, _) in enumerate(plan):
+        for ci in range(1, n):
+            owner[x] = (i, ci)
+            x += 1
+    assert x <= max(ncl, b_n)
+    out = {}
+    for xcl, (i, ci) in owner.items():
+        _, chunk, used = plan[i]
+        for r in range(c):
+            si = ci * c + r
+            if si < used:
+                lo = si * chunk
+                out[(xcl, r)] = (i, range(lo, min(lives[i], lo + chunk)))
+    return out
+
+
+BF16_LIVES = ([0], [1], [1, 4, 35, 127], [7, 23, 30, 4206],
+              [7, 30, 4100, 4250], [6, 14, 23, 35], [64, 65, 128, 129],
+              [8192] * 4, [1 << 20, 5], list(range(0, 600, 37)),
+              [1 + (37 * i) % 700 for i in range(40)])
+
+
+@pytest.mark.parametrize("nb", [1, 3, 8, 16, 32, 33, 64, 128, 132, 264])
+@pytest.mark.parametrize("lives", BF16_LIVES,
+                         ids=lambda x: f"B{len(x)}-{max(x)}")
+def test_bf16_plan_covers_every_live_key(nb, lives):
+    """Every live key of every sequence is in exactly one block's split;
+    splits are whole 8-key groups of at least a stage (one shorter only
+    where the sequence is), each sequence's clusters hold its splits, and
+    the clusters fit the grid."""
+    c, ncl = bf16_grid(len(lives), nb)
+    assert c in (1, 2, 4, 8) and c <= BF16_MAX_CLUSTER
+    assert ncl >= len(lives) and (ncl == len(lives) or ncl * c <= nb)
+    plan = bf16_plan(lives, ncl, c)
+    assert sum(n for n, _, _ in plan) <= ncl
+    for live, (n, chunk, used) in zip(lives, plan):
+        assert chunk % BF16_GROUP == 0 and chunk >= BF16_MIN_KEYS
+        assert 1 <= n <= BF16_MAX_CLUSTERS and n == -(-used // c)
+        assert chunk * (used - 1) < max(live, 1) <= chunk * used
+    seen = [np.zeros(live, np.int64) for live in lives]
+    for (xcl, rank), (i, keys) in _blocks_of(lives, ncl, c).items():
+        assert 0 <= xcl < ncl and 0 <= rank < c
+        seen[i][list(keys)] += 1
+    assert all((s_ == 1).all() for s_ in seen)
+
+
+@pytest.mark.parametrize("hk,per_sm,window", [
+    (2, 1, None), (2, 2, None), (4, 1, 4096), (4, 1, None), (32, 2, None),
+    (32, 3, None), (16, 2, None), (16, 1, None)])
+def test_bf16_grid_fits_the_card(hk, per_sm, window):
+    """The wrapper's budget (``bf16_blocks``) and the launch's grid
+    (``bf16_grid``): at the served ticks (4 slots of an 8192-row cache) the
+    grid is one wave of the card (132 SMs) at the cluster size it takes,
+    a short slot is one cluster, and a tick of short slots has one
+    cluster a slot."""
+    sms = 132
+    clusters = _ideal_clusters(sms, per_sm)
+    nb = bf16_blocks(4, hk, 8192, window, sms, per_sm, clusters)
+    c, ncl = bf16_grid(4, nb)
+    assert ncl * c * hk <= sms * per_sm
+    if c > 1:
+        assert ncl * hk <= clusters[c]
+    for lives in ([7, 23, 30, 4206], [6, 14, 23, 35]):
+        plan = bf16_plan(lives, ncl, c)
+        assert [n for n, _, _ in plan][:3] == [1, 1, 1]
+        assert sum(n for n, _, _ in plan) <= ncl
+    assert [n for n, _, _ in bf16_plan([6, 14, 23, 35], ncl, c)] == [1] * 4
+
+
+@pytest.mark.parametrize("per_sm,clusters8", [(2, None), (2, 30), (2, 28),
+                                              (3, None)])
+def test_bf16_long_tick_covers_every_sm(per_sm, clusters8):
+    """chatglm3-6b's long tick (2 kv heads, slots of 7, 23, 30 and 4206
+    keys) on 132 SMs, two blocks an SM (the instance's launch bounds) or
+    more: the long slot's splits are at least as many as the SMs, a stage
+    or so each, so no block walks more than two stages; also where
+    clusters of 8 pack worse than perfectly (``clusters8``)."""
+    sms = 132
+    clusters = _ideal_clusters(sms, per_sm)
+    if clusters8 is not None:
+        clusters[8] = clusters8
+    nb = bf16_blocks(4, 2, 8192, None, sms, per_sm, clusters)
+    c, ncl = bf16_grid(4, nb)
+    n, chunk, used = bf16_plan([7, 23, 30, 4206], ncl, c)[-1]
+    assert 2 * used >= sms
+    assert chunk <= 2 * BF16_STAGE
+
+
+def test_bf16_cluster_rule():
+    """A cluster size is the largest whose one cluster a sequence takes at
+    most a third of the budget: 8 at chatglm3's tick two blocks an SM, 2
+    at gemma2-2b's (4 kv heads, one block an SM), none at phi3-mini's and
+    moonshot's (32 and 16 kv heads)."""
+    assert bf16_cluster(4, 120) == 8 and bf16_cluster(4, 95) == 4
+    assert bf16_cluster(4, 32) == 2 and bf16_cluster(4, 23) == 1
+    assert bf16_cluster(4, 8) == 1 and bf16_cluster(1, 1) == 1
+    assert bf16_grid(4, 128) == (8, 16) and bf16_grid(40, 8) == (1, 40)
+    # a sequence with no live key: one empty split
+    assert bf16_plan([0, 10], 4, 1) == [(1, BF16_MIN_KEYS, 1),
+                                        (1, BF16_MIN_KEYS, 1)]
