@@ -237,8 +237,7 @@ Phases (any failure exits non-zero and prints no result line):
      the CPU bf16 run's; (d) the bf16 step (``REPRO_CAST_BF16_STEP=1``):
      mamba2-130m through launch/train.py (``mamba2_bf16_step_train``),
      then chatglm3-6b at depth 2 card == CPU on three steps
-     (``chatglm3_bf16_step_vs_cpu``); (e) a bf16 flash_attention with grad
-     on is refused.  Phase 2 also holds the bf16 kernels
+     (``chatglm3_bf16_step_vs_cpu``).  Phase 2 also holds the bf16 kernels
      (flash_attention_bf16, on wgmma, TMA and mbarriers, at every head dim,
      groups 1-64 and the fp32 sweep's options, lengths about its 64-row
      warpgroups and 128-key tiles and windows a key either side of a tile
@@ -256,6 +255,41 @@ Phases (any failure exits non-zero and prints no result line):
      (``bf16_vs_float64``), timed beside SDPA in bf16 (a yardstick) at
      ``BF16_TIMED``; phase 1 finds HGMMA (wgmma) in each of
      flash_attention_bf16's functions.
+ 22. bf16 training (after 21): ``LM.loss(batch, dtype=torch.bfloat16)``
+     on the card, fp32 masters and gradients: (a) chatglm3-6b at full
+     width and depth through ``Trainer`` (int8 moments, 16 x 64 in 2
+     micro-batches), 8 steps on one repeated batch, its attention
+     ``conditioned`` (``chatglm3_bf16_train``: flash_attention_lse_bf16
+     and flash_attention_bwd_bf16 28 x 2 x 8 times, the fp32 pair never),
+     then the same recipe in fp32 and in bf16 on the attention's plain
+     versions as controls: every loss falls, the kernels' by at least
+     half the fp32 control's fall, peaks under 80 GB; (b) mamba2-130m
+     (``mamba2_bf16_train``), its loss falling, beside 18 (g); (c)
+     chatglm3-6b at depth 2, ``conditioned``, on two steps, each gradient
+     leaf on the card no farther from an fp32 run's on the CPU than twice
+     the CPU bf16 run's, as phase 21 (c) holds bf16 logits
+     (``chatglm3_bf16_train_vs_cpu``).  Phase 2 holds the bf16 training
+     pair (``BF16_TRAIN_CASES``: chatglm3's micro-batch, gemma2's
+     train_4k at a batch of one, phi3-mini's D 96, moonshot's heads,
+     seamless's training cross attention, the tiles' edges): lse within
+     2e-5 of max(1, |lse|) of the plain one, the output equal to the
+     serving kernel's bit for bit, dq, dk, dv within 3e-2 of the plain
+     autograd and within the float64 bar, two launches equal; prints the
+     delta choice (fp32 gradients with delta from the bf16 output and from
+     the unrounded one, against float64) and times the pair beside SDPA's
+     bf16 forward and backward.
+ 23. the dry run, the roofline and the pipeline (after 22): (a)
+     ``launch/dryrun.py::run_cell`` for every applicable cell of
+     gemma2-2b, mamba2-130m, phi3-mini-3.8b and chatglm3-6b: the step's
+     operations counted on meta tensors at the cell's global batch, then
+     the step at a batch of one on the card where its bytes fit (peak,
+     wall, launches; the path ``dryrun``; the train step recomputes each
+     period in its backward, the configs' remat), or
+     ``does_not_fit_one_card`` with the bytes; (b) the meta
+     counts of all ten assigned archs (a process of its own, started in
+     phase 1); (c) the roofline table at the H100 SXM's peaks; (d)
+     ``gpipe`` on a world of one (NCCL, ``launch/mesh.py``) equal to the
+     stack bit for bit.
 
 Each phase that drives a plan zeroes the kernels' launch counts first and
 reads them after; a kernel of the plan that was never launched fails the
@@ -267,6 +301,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -311,8 +346,11 @@ TOL = {"frame_diff": 1e-6, "fused_preprocess": 1e-5, "flash_attention": 2e-5,
        "fused_prefix": 1e-5, "decode_attention": 2e-5, "ssd_scan": 1e-4,
        "int8_matmul": 0.0, "flash_attention_lse": 2e-5,
        "flash_attention_bwd": 2e-5, "ssd_scan_bwd": 1e-4,
-       # bf16 (phase 2, 21): the reference sweep's bf16 tolerances
-       "flash_attention_bf16": 2e-2, "decode_attention_bf16": 3e-2}
+       # bf16 (phase 2, 21): the reference sweep's bf16 tolerances; the
+       # bf16 backward's, 3e-2; its lse forward's the fp32 one's (held to
+       # 2e-5 of max(1, |lse|) by bf16_train_check)
+       "flash_attention_bf16": 2e-2, "decode_attention_bf16": 3e-2,
+       "flash_attention_lse_bf16": 2e-5, "flash_attention_bwd_bf16": 3e-2}
 KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
     "frame_diff": ("frame_diff_u8",
                    "src/repro_torch/kernels/csrc/frame_diff.cu",
@@ -361,6 +399,18 @@ KERNELS = {   # name -> (C symbol, source, TPU kernel it replaces)
                               "decode_attention_bf16.cu",
                               "src/repro/kernels/decode_attention/"
                               "kernel.py:69"),
+    # bf16 training (phase 22, 23): the bf16 forward writing each row's
+    # log-sum-exp, and the bf16 backward (the gradient of kernel.py:94)
+    "flash_attention_lse_bf16": ("flash_attention_lse_bf16",
+                                 "src/repro_torch/kernels/csrc/"
+                                 "flash_attention.cu",
+                                 "src/repro/kernels/flash_attention/"
+                                 "kernel.py:94"),
+    "flash_attention_bwd_bf16": ("flash_attention_bwd_bf16",
+                                 "src/repro_torch/kernels/csrc/"
+                                 "flash_attention_bwd.cu",
+                                 "src/repro/kernels/flash_attention/"
+                                 "kernel.py:94"),
 }
 #: a kernel's other launches, each its own C entry point with its own
 #: count, made once with every launch of the kernel's entry above
@@ -390,7 +440,9 @@ PATHS = ("q8_naive", "q8_reduced", "q8_fused", "q8_unfused", "q8_optimized",
          "mamba2_train_vs_cpu", "moonshot_serve", "moonshot_train",
          "jamba_train", "seamless_serve", "pixtral_serve", "seamless_train",
          "pixtral_train", "chatglm3_bf16_serve", "moonshot_bf16_serve",
-         "mamba2_bf16_step_train", "chatglm3_bf16_step_vs_cpu")
+         "mamba2_bf16_step_train", "chatglm3_bf16_step_vs_cpu",
+         "chatglm3_bf16_train", "mamba2_bf16_train",
+         "chatglm3_bf16_train_vs_cpu", "dryrun")
 #: the volleyball stream's seed (Q10-Q13); TollBooth's is STREAM_SEED
 VOLLEYBALL_SEED = 3
 #: the semantic gate's threshold on the card (phase 15)
@@ -756,6 +808,7 @@ def kernel_checks(dev):
     cross_kernel_checks(compare, gen, dev, rows)
     magnitude_checks(gen, dev)
     bf16_kernel_checks(compare, gen, dev, rows)
+    bf16_train_kernel_checks(dev, rows)
     rows.update(int8_checks(dev))
     t = rows["frame_diff"]
     print(f"  frame_diff at the path's shape: kernel {t['ms']:.4f} ms, plain "
@@ -1396,19 +1449,20 @@ def bf16_ulp(top):
 
 
 #: the bf16 float64 gate's worst kernel distance over the bar, by kernel
-BF16_F64 = {"flash_attention_bf16": 0.0, "decode_attention_bf16": 0.0}
+BF16_F64 = {"flash_attention_bf16": 0.0, "decode_attention_bf16": 0.0,
+            "flash_attention_bwd_bf16": 0.0}
 
 
-def bf16_vs_float64(name, got, plain, exact, label):
+def bf16_vs_float64(name, got, plain, exact, label, floor=0.0):
     """The bf16 kernel's output ``got`` and the plain version's ``plain``
     against ``exact`` (float64 on the same bf16 inputs): the kernel within
     BF16_WITNESS times the plain version's distance plus one bf16 ulp of
-    the largest |exact|."""
+    the largest |exact| (plus ``floor``)."""
     got, plain, exact = (t.double().cpu() for t in (got, plain, exact))
     top = exact.abs().max().item()
     d_k = (got - exact).abs().max().item()
     d_p = (plain - exact).abs().max().item()
-    bar = BF16_WITNESS * d_p + bf16_ulp(top)
+    bar = BF16_WITNESS * d_p + bf16_ulp(top) + floor
     BF16_F64[name] = max(BF16_F64[name], d_k / bar if bar else 0.0)
     check(d_k <= bar, f"{name} {label}: {d_k:.3e} from float64, the plain "
           f"bf16 version {d_p:.3e} (bar {bar:.3e})")
@@ -1765,6 +1819,285 @@ def bf16_kernel_checks(compare, gen, dev, rows):
           f"{BF16_F64['decode_attention_bf16']:.3f} of the bar")
     rows["decode_attention_bf16"] = {**dec_rows.pop("chatglm3_decode"),
                                      **dec_rows}
+
+
+#: the bf16 training pair (phase 2), (B, Sq, Sk, H, Hk, D, options): the
+#: shapes its paths launch (chatglm3-6b's micro-batch, phase 22 (a);
+#: gemma2-2b's dry-run train_4k cell at a batch of one, cap 50, window
+#: 4096; phi3-mini's D 96; moonshot's 16 heads of 128 at G 1; seamless's
+#: training cross attention) and the tiles' edges (64 resident rows, 64
+#: streamed rows, 32 at D 256; G 64; S 1; Sk below Sq; a 14-head group)
+BF16_TRAIN_CASES = {
+    "chatglm3_train": (8, 64, 64, 32, 2, 128, dict(causal=True)),
+    "gemma2_train_4k": (1, 4096, 4096, 8, 4, 256,
+                        dict(causal=True, cap=50.0, window=4096)),
+    "phi3_train": (2, 512, 512, 32, 32, 96, dict(causal=True)),
+    "moonshot_train": (2, 512, 512, 16, 16, 128, dict(causal=True)),
+    "seamless_train_cross": (4, 128, 512, 16, 16, 64, dict(causal=False)),
+    "edge G64 D64 S130": (1, 130, 130, 64, 1, 64, dict(causal=True)),
+    "edge G64 D16 S33": (1, 33, 33, 64, 1, 16, dict(causal=True)),
+    "edge D96 cap 20": (2, 45, 45, 4, 2, 96, dict(causal=True, cap=20.0)),
+    "edge D256 window 7": (2, 63, 63, 4, 2, 256,
+                           dict(causal=True, window=7)),
+    "edge D32 S1": (1, 1, 1, 2, 1, 32, dict(causal=True)),
+    "edge D32 cross": (2, 45, 130, 8, 4, 32, dict(causal=False)),
+    "edge cross Sk<Sq": (2, 200, 77, 8, 8, 64, dict(causal=False)),
+    "edge G7 B32": (32, 64, 64, 14, 2, 128, dict(causal=True)),
+}
+#: the cases whose delta choice is measured and the timed ones
+BF16_TRAIN_PATH = ("chatglm3_train", "gemma2_train_4k", "phi3_train",
+                   "moonshot_train", "seamless_train_cross")
+BF16_TRAIN_TIMED = ("chatglm3_train", "gemma2_train_4k",
+                    "seamless_train_cross")
+#: the bf16 lse against the plain one: 2e-5 of max(1, |lse|)
+LSE_BF16_TOL = 2e-5
+#: the delta choice's distances from float64 (phase 2), by case
+BF16_DELTA = {}
+
+
+def flash_bwd_formula(q, k, v, dout, o_delta, kw, dt):
+    """dq, dk, dv of flash attention by its gradient's formulas in dtype
+    ``dt`` (the plain version's logits, then delta = rowsum(dO o_delta),
+    dS = P (dP - delta) times the cap's derivative): the same arithmetic
+    as the plain autograd but for delta's source."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    qg = q.to(dt).reshape(b, sq, hk, g, d)
+    do = dout.to(dt).reshape(b, sq, hk, g, d)
+    kk, vv = k.to(dt), v.to(dt)
+    mask = flash_mask(sq, sk, kw, q.device)[:, None, None]
+    cap = kw.get("cap")
+    c = torch.einsum("bqhgd,bkhd->bhgqk", qg, kk) / math.sqrt(d)
+    if cap is not None:
+        c = cap * torch.tanh(c / cap)
+    p = torch.softmax(c.masked_fill(~mask, float("-inf")), -1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, vv)
+    delta = torch.einsum("bqhgd,bqhgd->bhgq", do,
+                         o_delta.to(dt).reshape(b, sq, hk, g, d))
+    ds = p * (dp - delta[..., None])
+    if cap is not None:
+        ds = ds * (1 - (c / cap) ** 2)
+    ds = torch.where(mask, ds, torch.zeros_like(ds)) / math.sqrt(d)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kk).reshape(b, sq, h, d)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    return dq, dk, dv
+
+
+def bwd_bf16_tiles_match():
+    """The host plan's bf16 tiles (``kernel.py::bwd_bf16_tiles``) are the
+    built library's (``flash_attention_bwd_bf16_config``) at every head
+    dim."""
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
+                                                            bwd_bf16_tiles)
+
+    fn = load_library("flash_attention_bwd").flash_attention_bwd_bf16_config
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    keys = ("rows", "cols", "smem", "threads")
+    for d in HEAD_DIMS:
+        got = (ctypes.c_int * len(keys))()
+        check(fn(d, got) == 0, f"flash_attention_bwd_bf16_config({d}) failed")
+        want = bwd_bf16_tiles(d)
+        check(list(got) == [want[k] for k in keys],
+              f"flash_attention_bwd_bf16 D{d}: the library's tiles "
+              f"{list(got)}, the plan's {[want[k] for k in keys]}")
+    print(f"  flash_attention_bwd_bf16: the plan's tiles are the library's "
+          f"at D {HEAD_DIMS}")
+
+
+def bf16_train_check(label, q, k, v, dout, kw, delta):
+    """The bf16 training pair at one case: ``ops.flash_attention`` on bf16
+    inputs that require grad (one launch of flash_attention_lse_bf16 and
+    one of flash_attention_bwd_bf16), its output equal to the serving
+    kernel's bit for bit and lse within LSE_BF16_TOL of max(1, |lse|) of
+    the plain one; dq, dk, dv within TOL of the plain version's autograd
+    on the same bf16 inputs and within the float64 bar
+    (``bf16_vs_float64``, with BWD_FLOOR of the case's largest gradient
+    beside its ulp); a second run equal bit for bit.  With
+    ``delta``, prints the delta choice: fp32 gradients by the formulas
+    with delta from the kernel's bf16 output and from the unrounded fp32
+    one, each one's distance from float64."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_lse_plain, flash_attention_plain)
+
+    reset_launch_counts()
+    got = grads_of(flash_attention, q, k, v, dout, **kw)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    check(n["flash_attention_lse_bf16"] == 1 and
+          n["flash_attention_bwd_bf16"] == 1 and
+          n["flash_attention_bf16"] == 0,
+          f"flash_attention_bwd_bf16 {label}: launches {n}")
+    again = grads_of(flash_attention, q, k, v, dout, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash_attention_bwd_bf16 {label}: two launches differ")
+    plain = grads_of(flash_attention_plain, q, k, v, dout, **kw)
+    f64 = grads_of(flash64, q, k, v, dout, **kw)
+    with torch.no_grad():
+        check(torch.equal(got[0], flash_attention_cuda(q, k, v, **kw)),
+              f"flash_attention_lse_bf16 {label}: the output is not the "
+              "serving kernel's bit for bit")
+        _, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+        want = flash_attention_lse_plain(q, k, v, **kw)[1]
+    err = (lse - want).abs()
+    worst = (err / want.abs().clamp(min=1.0)).max().item()
+    check(worst <= LSE_BF16_TOL, f"flash_attention_lse_bf16 {label}: lse "
+          f"{worst:.3e} of max(1, |lse|) from the plain one")
+    ERRS["flash_attention_lse_bf16"] = max(ERRS["flash_attention_lse_bf16"],
+                                           err.max().item())
+    # the float64 bar's floor: the fp32 backward's, BWD_FLOOR of the
+    # case's largest gradient (where a row sees one key, dP - delta cancels
+    # and the exact dq and dk are 0, so a bar relative to their own
+    # magnitude is 0: the floor takes the fp32 sums' rounding there)
+    floor = BWD_FLOOR * max(w.abs().max().item() for w in f64[1:])
+    for name, g, p, w in zip(("dq", "dk", "dv"), got[1:], plain[1:],
+                             f64[1:]):
+        check(g.dtype == torch.bfloat16, f"{label} {name}: {g.dtype}")
+        compare("flash_attention_bwd_bf16", g, p, f"{label} {name}")
+        bf16_vs_float64("flash_attention_bwd_bf16", g, p, w,
+                        f"{label} {name}", floor)
+    if not delta:
+        return
+    with torch.no_grad():
+        out32 = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        dist = {}
+        for src, o in (("bf16 o", got[0]), ("fp32 o", out32)):
+            grads = flash_bwd_formula(q, k, v, dout, o, kw, torch.float32)
+            dist[src] = {name: (g.double() - w).abs().max().item()
+                         for name, g, w in zip(("dq", "dk", "dv"), grads,
+                                               f64[1:])}
+        dist["plain autograd"] = {
+            name: (p.double() - w).abs().max().item()
+            for name, p, w in zip(("dq", "dk", "dv"), plain[1:], f64[1:])}
+    BF16_DELTA[label] = dist
+    print(f"  flash_attention_bwd_bf16 {label}: delta's source, fp32 "
+          f"gradients by the formulas against float64: " + "; ".join(
+              f"{src} " + ", ".join(f"{n} {x:.3e}" for n, x in d.items())
+              for src, d in dist.items()))
+
+
+def bf16_train_timing(label, b, sq, sk, h, hk, d, kw):
+    """Device ms of the bf16 pair at one path shape: the backward alone
+    (``autograd.grad`` of a retained graph) and forward + backward, of the
+    kernels, of the plain version's autograd and of SDPA's bf16 (one call
+    with ``enable_gqa``; no cap; the window as a mask; timed only), the
+    backward's bound (10 D operations a visible pair at the bf16 rate; 2
+    bytes an element of q, k, v, o, dO, dq, dk, dv, 4 of lse); and the lse
+    forward against its plain version and SDPA's bf16 forward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_lse_plain, flash_attention_plain)
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(b * sq + d)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(bf)
+                     for shape in ((b, sq, h, d), (b, sk, hk, d),
+                                   (b, sk, hk, d), (b, sq, h, d)))
+    causal, w = kw.get("causal", True), kw.get("window")
+    mask = flash_mask(sq, sk, kw, q.device)[0] if w else None
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True).transpose(1, 2)
+
+    def kernels(q, k, v):
+        return flash_attention(q, k, v, **kw)
+
+    def plain(q, k, v):
+        return flash_attention_plain(q, k, v, **kw)
+
+    big = sq * sk > 1 << 20
+    n, reps = (2, 3) if big else (20, 5)
+    t = {}
+    for name, fn in (("ms", kernels), ("plain_ms", plain),
+                     ("library_ms", sdpa)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves)
+        t[name] = device_ms(lambda: torch.autograd.grad(
+            out, leaves, dout, retain_graph=True),
+            n=1 if big and name == "plain_ms" else n, reps=reps)
+
+        def both():
+            ls = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            torch.autograd.grad(fn(*ls), ls, dout)
+
+        t[f"fwd_bwd_{name}"] = device_ms(
+            both, n=1 if big and name == "plain_ms" else max(1, n // 2),
+            reps=reps)
+        del out, leaves
+    pairs = b * h * visible_pairs(sq, causal, w, sk=sk)
+    t["bound"] = bound(2 * (4 * q.numel() + 4 * k.numel()) + 4 * b * h * sq,
+                       10 * d * pairs, BF16_OPS_S)
+    t["visible_pairs"] = pairs
+    with torch.no_grad():
+        fwd = dict(
+            ms=device_ms(lambda: flash_attention_cuda(q, k, v, lse=True,
+                                                      **kw), n=n, reps=reps),
+            plain_ms=device_ms(lambda: flash_attention_lse_plain(
+                q, k, v, **kw), n=1 if big else 8, reps=reps),
+            library_ms=device_ms(lambda: sdpa(q, k, v), n=n, reps=reps),
+            bound=bound(2 * (2 * q.numel() + 2 * k.numel())
+                        + 4 * b * h * sq, 4 * d * pairs, BF16_OPS_S))
+    shape = f"B{b} Sq{sq} Sk{sk} H{h}/{hk} D{d} {kw}"
+    print(f"  flash_attention_bwd_bf16 {label} {shape}: backward kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, SDPA bf16"
+          f"{' without the cap' if kw.get('cap') else ''} "
+          f"{t['library_ms']:.4f}, bound {t['bound'][0]:.5f} "
+          f"({t['bound'][1]}); forward + backward {t['fwd_bwd_ms']:.4f}, "
+          f"plain {t['fwd_bwd_plain_ms']:.4f}, SDPA "
+          f"{t['fwd_bwd_library_ms']:.4f}")
+    print(f"  flash_attention_lse_bf16 {label}: kernel {fwd['ms']:.4f} ms, "
+          f"plain {fwd['plain_ms']:.4f}, SDPA bf16 {fwd['library_ms']:.4f}, "
+          f"bound {fwd['bound'][0]:.5f} ({fwd['bound'][1]})")
+    return t, fwd
+
+
+def bf16_train_kernel_checks(dev, rows):
+    """flash_attention_lse_bf16 and flash_attention_bwd_bf16 (phase 2):
+    the plan's tiles against the library's, ``bf16_train_check`` at every
+    case of BF16_TRAIN_CASES (the delta choice measured at the path
+    shapes), then the pair timed at BF16_TRAIN_TIMED.  Adds
+    rows["flash_attention_lse_bf16"] and rows["flash_attention_bwd_bf16"]."""
+    from repro_torch.kernels.flash_attention.kernel import bwd_plan
+
+    bwd_bf16_tiles_match()
+    gen = torch.Generator().manual_seed(29)
+    t0 = time.perf_counter()
+    for label, (b, sq, sk, h, hk, d, kw) in BF16_TRAIN_CASES.items():
+        q, k, v, dout = (torch.randn(shape, generator=gen).to(
+            dev, torch.bfloat16) for shape in ((b, sq, h, d), (b, sk, hk, d),
+                                               (b, sk, hk, d), (b, sq, h, d)))
+        splits = bwd_plan(b, sq, sk, h, hk, d, bf16=True)["splits"]
+        bf16_train_check(f"{label} B{b} Sq{sq} Sk{sk} H{h}/{hk} D{d} {kw} "
+                         f"({splits} split(s))", q, k, v, dout, kw,
+                         label in BF16_TRAIN_PATH)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    print(f"  flash_attention_bwd_bf16: {len(BF16_TRAIN_CASES)} cases in "
+          f"{time.perf_counter() - t0:.1f} s, within "
+          f"{TOL['flash_attention_bwd_bf16']} of the plain version "
+          f"({ERRS['flash_attention_bwd_bf16']:.3e}), against float64 at "
+          f"most {BF16_F64['flash_attention_bwd_bf16']:.3f} of the bar; lse "
+          f"{ERRS['flash_attention_lse_bf16']:.3e} from the plain one")
+    bwd, lse = {}, {}
+    for label in BF16_TRAIN_TIMED:
+        bwd[label], lse[label] = bf16_train_timing(
+            label, *BF16_TRAIN_CASES[label])
+        torch.cuda.empty_cache()
+    top = BF16_TRAIN_TIMED[0]
+    rows["flash_attention_bwd_bf16"] = {**bwd.pop(top), **bwd}
+    rows["flash_attention_lse_bf16"] = {**lse.pop(top), **lse}
 
 
 def int8_yardstick(x_q, w_q, sx, sw):
@@ -3287,8 +3620,9 @@ BWD_PATH = {"mllm_s140": (16, 140, 8, 4, 32), "mllm_s76": (16, 76, 8, 4, 32),
             "small_s28": (16, 28, 4, 4, 32), "small_s44": (16, 44, 4, 4, 32),
             "chatglm3_b8_s64": (8, 64, 32, 2, 128)}
 #: (b) pretraining's steps: the big MLLM, the distilled small one, TinyDet
-#: (the reference's defaults are 1600 / 500 / 250)
-PRETRAIN_STEPS = (400, 150, 100)
+#: (the reference's defaults are 1600 / 500 / 250; halved from 400 / 150 /
+#: 100 to keep the script's time as phases 22 and 23 came)
+PRETRAIN_STEPS = (200, 75, 50)
 #: (b) losses are compared as the mean of the first and of the last
 #: LOSS_WINDOW steps
 LOSS_WINDOW = 20
@@ -5002,30 +5336,8 @@ def bf16_step_train(dev, smi):
         "chatglm3_bf16_step_vs_cpu": summary}
 
 
-def bf16_grad_refused(dev):
-    """Phase 21 (e): bf16 CUDA inputs that require grad, with grad on: the
-    flash op raises ValueError (no bf16 backward kernel), launches nothing
-    and casts nothing."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-
-    q, k, v = (torch.randn(1, 9, 4, 32, device=dev, dtype=torch.bfloat16)
-               for _ in range(3))
-    q.requires_grad_(True)
-    reset_launch_counts()
-    try:
-        flash_attention(q, k, v)
-    except ValueError as e:
-        print(f"  bf16 flash_attention with grad on: ValueError ({e})")
-    else:
-        raise SmokeFailure("bf16 flash_attention with grad on was not "
-                           "refused")
-    check(not any(launch_counts().values()), "bf16 flash_attention with "
-          f"grad on launched {launch_counts()}")
-
-
 def bf16_phase(dev, smi, fp32_serving):
-    """Phase 21: the LM zoo in bf16, (a) through (e).  Returns the launch
+    """Phase 21: the LM zoo in bf16, (a) through (d).  Returns the launch
     counts by path, the serving numbers and a summary."""
     t21 = time.perf_counter()
     counts, serving, summary = {}, {}, {}
@@ -5044,11 +5356,468 @@ def bf16_phase(dev, smi, fp32_serving):
           "chatglm3-6b depth 2 card vs CPU")
     more, summary["bf16_step"] = bf16_step_train(dev, smi)
     counts.update(more)
-    print("[21e] a bf16 flash_attention with grad on is refused")
-    bf16_grad_refused(dev)
     summary["seconds"] = time.perf_counter() - t21
     print(f"[21] {summary['seconds']:.1f} s; {smi}")
     return counts, serving, summary
+
+
+# ---------------------------------------------------------------------------
+# phase 22: bf16 training on the card
+# ---------------------------------------------------------------------------
+
+#: (a), (b): ``Trainer`` with the loss at bf16 (the launcher's AdamW, int8
+#: moments for chatglm3, 2 micro-batches) for ``steps`` steps on one batch
+#: of the token stream repeated, the learning rate warmed up over
+#: ``warmup`` steps, then a cosine to 0.  chatglm3-6b's weights are
+#: ``conditioned`` (its attention at the reference's init saturates, and
+#: its bf16 loss did not fall: 11.903 to 11.906 over 20 steps at lr 1e-3,
+#: NVIDIA H100 80GB HBM3, 700 W); its (a) runs the same recipe twice more
+#: as controls, in fp32 and in bf16 with the attention's plain versions
+BF16_TRAIN = {
+    "chatglm3-6b": dict(batch=16, seq=64, int8=True, lr=3e-5, warmup=2,
+                        steps=8, conditioned=True),
+    "mamba2-130m": dict(batch=8, seq=512, int8=False, lr=1e-3, warmup=10,
+                        steps=10, conditioned=False)}
+#: (a)'s gate: the bf16 kernels' loss falls at least this share of the fp32
+#: control's fall over the same steps
+BF16_FALL_SHARE = 0.5
+
+
+def conditioned(lm):
+    """``lm``'s attention projections rescaled in place to std 1/sqrt(their
+    true fan-in).  The reference's init reads a weight's fan-in from its
+    second-to-last axis: for wq, wk, wv (d_model, heads, head_dim) that is
+    the head count, for wo (heads, head_dim, d_model) the head dim, so at
+    chatglm3-6b's width q and k come out 10-20 times too large and the
+    softmax saturates.  bf16 rounding then changes which key a query
+    takes: at chatglm3's shapes with d_model 1024, depth 2, on the CPU,
+    the bf16 gradients lay 17-152% of a leaf's largest |g| from fp32's at
+    the reference's init, 1.0-2.3% after the rescale."""
+    with torch.no_grad():
+        for name, p in lm.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("wq", "wk", "wv"):
+                p.mul_((p.shape[-2] / p.shape[-3]) ** 0.5)
+            elif leaf == "wo":
+                p.mul_(p.shape[-3] ** -0.5)
+    return lm
+
+
+class RepeatedBatch:
+    """A data iterator (``Trainer``'s) that yields ``stream``'s first batch
+    at every step."""
+
+    def __init__(self, stream):
+        self.stream, self.batch = stream, stream.next_batch()
+
+    def next_batch(self):
+        return self.batch
+
+    def state(self):
+        return self.stream.state()
+
+    def set_state(self, state):
+        self.stream.set_state(state)
+
+
+def bf16_train_run(label, arch, dev, dtype=torch.bfloat16):
+    """``arch`` at full width and depth (seed 0 on the card, ``conditioned``
+    where BF16_TRAIN says) trained by ``Trainer`` with the loss at
+    ``dtype`` on BF16_TRAIN's recipe.  Returns the launch counts and a
+    summary (losses, step seconds, peak)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import LM
+    from repro_torch.training import (OptimizerConfig, TokenStream,
+                                      TrainConfig, Trainer)
+
+    r = BF16_TRAIN[arch]
+    cfg = get_config(arch)
+    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    if r["conditioned"]:
+        conditioned(lm)
+    data = RepeatedBatch(TokenStream(cfg.vocab_size, r["batch"], r["seq"],
+                                     device=dev))
+    trainer = Trainer(lambda b: lm.loss(b, dtype=dtype),
+                      dict(lm.named_parameters()),
+                      OptimizerConfig(lr=r["lr"], warmup_steps=r["warmup"],
+                                      total_steps=r["steps"],
+                                      quantized_state=r["int8"]),
+                      TrainConfig(steps=r["steps"], grad_accum=2,
+                                  log_every=0), data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = trainer.train()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["history"]
+    print(f"  {label}: {cfg.n_layers} layers at full width"
+          f"{', conditioned' if r['conditioned'] else ''}, "
+          f"{'int8' if r['int8'] else 'fp32'} moments, batch {r['batch']} x "
+          f"{r['seq']} repeated, 2 micro-batches, {r['steps']} steps at lr "
+          f"{r['lr']:g} (warm-up {r['warmup']}), the loss at "
+          f"{str(dtype).split('.')[-1]}: losses {losses}, step s "
+          f"{out['step_times']}, peak {peak / 1e9:.2f} GB "
+          f"(max_memory_allocated)")
+    check(all(math.isfinite(x) for x in losses) and
+          len(losses) == r["steps"], f"{label}: losses {losses}")
+    check(peak / 1e9 < PEAK_LIMIT_GB, f"{label}: peak {peak / 1e9:.2f} GB")
+    del trainer, lm, data
+    torch.cuda.empty_cache()
+    return counts, {"n_layers": cfg.n_layers, "losses": losses,
+                    "step_s": out["step_times"],
+                    "max_memory_allocated": peak}
+
+
+def launched(label, counts, want, steps):
+    """Each symbol of ``want`` launched ``want[symbol]`` times a step."""
+    for symbol, k in want.items():
+        check(counts[symbol] == k * steps, f"{label}: {symbol} launched "
+              f"{counts[symbol]} times, not {k * steps}")
+
+
+def chatglm3_bf16_train(dev, smi, fp32):
+    """(a): chatglm3-6b's bf16 run on the kernels, then its two controls on
+    the same weights and batch: fp32 (flash_attention's fp32 pair) and bf16
+    with the attention's plain versions.  Gates: each loss falls from the
+    first step to the last, the kernels' by at least BF16_FALL_SHARE of
+    the fp32 control's fall; the kernels' losses are printed beside the
+    controls' and phase 18 (d)'s fp32 launcher run.  Returns the kernels'
+    run's launch counts and a summary."""
+    from repro_torch.configs import get_config
+
+    layers = get_config("chatglm3-6b").n_layers * 2   # x micro-batches
+    steps = BF16_TRAIN["chatglm3-6b"]["steps"]
+    counts, summary = bf16_train_run("chatglm3_bf16_train", "chatglm3-6b",
+                                     dev)
+    launched("chatglm3_bf16_train", counts,
+             {"flash_attention_lse_bf16": layers,
+              "flash_attention_bwd_bf16": layers,
+              "flash_attention_lse_f32": 0, "flash_attention_bwd_f32": 0},
+             steps)
+    c32, summary["control_fp32"] = bf16_train_run(
+        "chatglm3_fp32_control", "chatglm3-6b", dev, torch.float32)
+    launched("chatglm3_fp32_control", c32,
+             {"flash_attention_lse_f32": layers,
+              "flash_attention_bwd_f32": layers}, steps)
+    with plain_attention():
+        cplain, summary["control_bf16_plain"] = bf16_train_run(
+            "chatglm3_bf16_plain_control", "chatglm3-6b", dev)
+    launched("chatglm3_bf16_plain_control", cplain,
+             {"flash_attention_lse_bf16": 0, "flash_attention_bwd_bf16": 0},
+             steps)
+    fall = {k: v["losses"][0] - v["losses"][-1] for k, v in (
+        ("kernels", summary), ("fp32", summary["control_fp32"]),
+        ("plain", summary["control_bf16_plain"]))}
+    dist = {k: max(abs(a - b) for a, b in zip(
+        v["losses"], summary["control_fp32"]["losses"]))
+        for k, v in (("kernels", summary),
+                     ("plain", summary["control_bf16_plain"]))}
+    summary["fall"], summary["from_fp32"] = fall, dist
+    print(f"  chatglm3-6b: the loss's fall over {steps} steps: bf16 kernels "
+          f"{fall['kernels']:.4f}, fp32 control {fall['fp32']:.4f}, bf16 "
+          f"plain control {fall['plain']:.4f} (gate: each above 0, the "
+          f"kernels' at least {BF16_FALL_SHARE:g} of fp32's); the largest "
+          f"step's distance from the fp32 control's loss: kernels "
+          f"{dist['kernels']:.4e}, plain {dist['plain']:.4e}; phase 18 (d)'s "
+          f"fp32 launcher run (reference init, lr 1e-3, fresh batches): "
+          f"losses {fp32['losses']}, step s {fp32['step_s']}, peak "
+          f"{fp32['max_memory_allocated'] / 1e9:.2f} GB; {smi}")
+    check(fall["fp32"] > 0 and fall["plain"] > 0,
+          f"chatglm3-6b's controls: the loss did not fall ({fall})")
+    check(fall["kernels"] >= BF16_FALL_SHARE * fall["fp32"],
+          f"chatglm3-6b at bf16: the loss fell {fall['kernels']:.4f}, the "
+          f"fp32 control's {fall['fp32']:.4f}")
+    return counts, summary
+
+
+#: (c) card == CPU at bf16: chatglm3-6b at full width, depth 2, batch 2 x
+#: 32, two steps, ``conditioned``, held as phase 21 (c) holds bf16 logits:
+#: each gradient leaf no farther from an fp32 run's on the CPU (the same
+#: weights) than BF16_LM_WITNESS times the CPU bf16 run's.  At the
+#: reference's init the bf16 gradients lay 35-163% of a leaf's largest |g|
+#: from fp32's, on either device, and the witness could not tell a wrong
+#: kernel from rounding
+BF16_TRAIN_CPU = dict(depth=2, batch=2, seq=32, steps=2)
+
+
+def bf16_grads_vs_fp32(label, card, make, batches, opt, steps):
+    """The first ``steps`` AdamW steps of ``card`` with the loss at bf16;
+    before each, a CPU copy of its parameters gives the bf16 loss and
+    gradients and the fp32 ones: each gradient leaf of the card no farther
+    from the fp32 one than BF16_LM_WITNESS times the CPU bf16 run's (plus
+    1e-6 of the leaf's largest |g|), and the loss within CARD_CPU_TOL
+    relative of the fp32 loss or that witness.  Returns the launch counts
+    of the card's steps and a summary."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training.optimizer import adamw_init, adamw_update
+
+    cpu = make("cpu")
+    for m in (card, cpu):
+        for p in m.parameters():
+            p.requires_grad_(True)
+
+    def loss_and_grads(m, batch, dtype):
+        for p in m.parameters():
+            p.grad = None
+        dev = next(m.parameters()).device
+        loss = m.loss({k: v.to(dev) for k, v in batch.items()}, dtype=dtype)
+        loss.backward()
+        return loss.item(), {n: p.grad.cpu() for n, p in
+                             m.named_parameters()}
+
+    params = dict(card.named_parameters())
+    state = adamw_init(params, opt)
+    counts, out = {}, []
+    for t in range(steps):
+        batch = batches(t)
+        cpu.load_state_dict(card.state_dict())
+        reset_launch_counts()
+        loss_k, g_k = loss_and_grads(card, batch, torch.bfloat16)
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        loss_c, g_c = loss_and_grads(cpu, batch, torch.bfloat16)
+        loss_32, g_32 = loss_and_grads(cpu, batch, torch.float32)
+        rel_k = abs(loss_k - loss_32) / abs(loss_32)
+        rel_c = abs(loss_c - loss_32) / abs(loss_32)
+        check(math.isfinite(loss_k) and rel_k <= max(
+            CARD_CPU_TOL, BF16_LM_WITNESS * rel_c), f"{label} step {t + 1}: "
+            f"loss card {loss_k}, CPU bf16 {loss_c}, fp32 {loss_32}")
+        worst = []
+        for n, g in g_32.items():
+            scale = max(g.abs().max().item(), 1e-30)
+            d_k = (g_k[n] - g).abs().max().item() / scale
+            d_c = (g_c[n] - g).abs().max().item() / scale
+            check(math.isfinite(d_k) and
+                  d_k <= BF16_LM_WITNESS * d_c + 1e-6,
+                  f"{label} step {t + 1}: the gradient of {n} is {d_k:.3e} "
+                  f"of its largest |g| from the fp32 one, the CPU bf16 "
+                  f"run's {d_c:.3e}")
+            worst.append((d_k / max(d_c, 1e-30), n, d_k, d_c))
+        worst.sort(reverse=True)
+        print(f"  {label} step {t + 1}: loss card {loss_k:.6f}, CPU bf16 "
+              f"{loss_c:.6f}, fp32 {loss_32:.6f}; gradients from the fp32 "
+              f"ones, relative to each leaf's largest |g|, card | CPU bf16, "
+              f"the nearest the gate: " + ", ".join(
+                  f"{n} {a:.2e} | {b:.2e}" for _, n, a, b in worst[:3]))
+        out.append({"loss_card": loss_k, "loss_cpu_bf16": loss_c,
+                    "loss_fp32": loss_32,
+                    "worst_ratio": worst[0][0]})
+        adamw_update(params, {n: p.grad for n, p in params.items()}, state,
+                     opt)
+    del cpu
+    return counts, {"steps": out}
+
+
+def bf16_train_phase(dev, smi, fp32):
+    """Phase 22: ``LM.loss(batch, dtype=torch.bfloat16)`` trained on the
+    card, fp32 masters, gradients back in fp32: (a) chatglm3-6b at full
+    width and depth, int8 moments, ``conditioned``, beside its fp32 and
+    plain-attention controls (``chatglm3_bf16_train``:
+    flash_attention_lse_bf16 and flash_attention_bwd_bf16 a layer a
+    micro-batch); (b) mamba2-130m (``mamba2_bf16_train``: the SSD computes
+    in fp32 inside, so ssd_scan's forward and backward), its loss falling;
+    (c) chatglm3-6b at depth 2, ``conditioned``, card == CPU at bf16 on two
+    steps against an fp32 run with the CPU bf16 run's witness
+    (``bf16_grads_vs_fp32``, ``chatglm3_bf16_train_vs_cpu``).  ``fp32`` is
+    phase 18's training summary.  Returns the launch counts by path and a
+    summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.training import TokenStream
+
+    t22 = time.perf_counter()
+    counts, summary = {}, {}
+    print("[22a] chatglm3-6b: LM.loss at bf16 through Trainer, full width "
+          "and depth, int8 moments, beside its fp32 and plain controls")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    counts["chatglm3_bf16_train"], summary["chatglm3_bf16_train"] = \
+        chatglm3_bf16_train(dev, smi, fp32["chatglm3_train"])
+    print("[22b] mamba2-130m: LM.loss at bf16 through Trainer")
+    layers = get_config("mamba2-130m").n_layers * 2
+    counts["mamba2_bf16_train"], out = bf16_train_run(
+        "mamba2_bf16_train", "mamba2-130m", dev)
+    summary["mamba2_bf16_train"] = out
+    launched("mamba2_bf16_train", counts["mamba2_bf16_train"],
+             {"ssd_scan_f32": layers, "ssd_scan_bwd_f32": layers},
+             BF16_TRAIN["mamba2-130m"]["steps"])
+    m32 = fp32["mamba2_train"]
+    print(f"  mamba2_bf16_train: the loss fell {out['losses'][0]:.4f} -> "
+          f"{out['losses'][-1]:.4f} (gate: below the first); phase 18 (g)'s "
+          f"fp32 launcher run: losses {m32['losses']}, step s "
+          f"{m32['step_s']}, peak {m32['max_memory_allocated'] / 1e9:.2f} "
+          f"GB; {smi}")
+    check(out["losses"][-1] < out["losses"][0],
+          f"mamba2-130m at bf16: the loss did not fall ({out['losses']})")
+    print("[22c] chatglm3-6b at depth 2, conditioned: card vs CPU at bf16")
+    b = BF16_TRAIN_CPU
+    small = get_config("chatglm3-6b").replace(n_layers=b["depth"])
+    card = conditioned(LM(small, device=dev).init(
+        torch.Generator(device=dev).manual_seed(6)))
+    stream = TokenStream(small.vocab_size, b["batch"], b["seq"], seed=6,
+                         device="cpu")
+    batches = [stream.next_batch() for _ in range(b["steps"])]
+    counts["chatglm3_bf16_train_vs_cpu"], summary["card_vs_cpu"] = \
+        bf16_grads_vs_fp32(f"chatglm3-6b depth {b['depth']}, loss at bf16",
+                           card, lambda device: LM(small, device=device),
+                           batches.__getitem__, _lm_train_opt(), b["steps"])
+    launched("chatglm3 bf16 card vs CPU", counts["chatglm3_bf16_train_vs_cpu"],
+             {"flash_attention_lse_bf16": b["depth"],
+              "flash_attention_bwd_bf16": b["depth"]}, b["steps"])
+    del card
+    torch.cuda.empty_cache()
+    summary["seconds"] = time.perf_counter() - t22
+    print(f"[22] {summary['seconds']:.1f} s; {smi}")
+    return counts, summary
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the dry run, the roofline and the pipeline on one card
+# ---------------------------------------------------------------------------
+
+#: (a) the archs whose every applicable cell runs on the card where it
+#: fits (``launch/dryrun.py::run_cell``)
+DRYRUN_CARD = ("gemma2-2b", "mamba2-130m", "phi3-mini-3.8b", "chatglm3-6b")
+#: a cell's report statuses the phase takes: a run on the card, or its
+#: analytic bytes over the card's
+DRYRUN_STATUSES = ("ok", "does_not_fit_one_card")
+
+
+def gpipe_world_of_one(dev):
+    """``gpipe`` on a world of one on the card (``launch/mesh.py``'s
+    process group, NCCL): one stage over every micro-batch equals the
+    stack run straight, bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distribution import PipelineConfig, gpipe
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh(1, 1, device=dev)
+    check(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+          f"the card's world: {dist.get_world_size()} ranks, "
+          f"{dist.get_backend()}")
+    pod = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+    gen = torch.Generator(device=dev).manual_seed(23)
+    w = 0.3 * torch.randn(1, 256, 256, generator=gen, device=dev)
+    x = torch.randn(64, 256, generator=gen, device=dev)
+    cfg = PipelineConfig(microbatches=8)
+    y = gpipe(lambda p, h: torch.tanh(h @ p), pod, cfg)(w, x)
+    want = torch.cat([torch.tanh(c @ w[0]) for c in x.split(8)])
+    check(torch.equal(y, want), "gpipe on a world of one differs from the "
+          "stack")
+    print(f"  gpipe on a world of one ({mesh}, NCCL): {cfg.microbatches} "
+          f"micro-batches equal to the stack bit for bit; bubble "
+          f"{cfg.bubble_fraction(1):.3f} (at 4 stages "
+          f"{cfg.bubble_fraction(4):.3f})")
+    dist.destroy_process_group()
+
+
+#: (b) the meta counts of every assigned arch run beside the other phases
+#: in a process of their own (CPU work), into reports/dryrun_torch_meta/
+DRYRUN_META_TAG = "meta"
+
+
+def start_meta_counts():
+    """``launch/dryrun.py --all --meta-only`` in its own process (two
+    threads), its log in build/dryrun_meta.log; phase 23 waits for it."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    log = open(os.path.join(ROOT, "build", "dryrun_meta.log"), "w")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="2")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--meta-only", "--tag", DRYRUN_META_TAG], cwd=ROOT, env=env,
+        stdout=log, stderr=subprocess.STDOUT)
+
+
+def dryrun_phase(dev, smi, meta):
+    """Phase 23: (a) ``run_cell`` for every applicable cell of
+    DRYRUN_CARD: the meta count, then the step at a batch of one on the
+    card where its bytes fit (``dryrun``: the kernels of each step), or
+    why not; (b) the meta count of every ASSIGNED arch's cells, from
+    ``meta`` (``start_meta_counts``' process); (c) the roofline table over
+    (a)'s reports and (b)'s for the other archs, at the H100's named
+    peaks; (d) ``gpipe`` on a world of one.  Returns the launch counts
+    and a summary."""
+    from repro_torch.common.config import applicable_cells
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun, roofline
+
+    t23 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for path in glob.glob(os.path.join(dryrun.REPORT_DIR, "*.json")):
+        os.remove(path)
+    print("[23a] the dry run's cells on the card: " + ", ".join(DRYRUN_CARD))
+    reports = {}
+    reset_launch_counts()
+    for arch in DRYRUN_CARD:
+        for cell in applicable_cells(get_config(arch)):
+            r = dryrun.run_cell(arch, cell, device=str(dev))
+            check(r["status"] in DRYRUN_STATUSES, f"dry run {arch} {cell}: "
+                  f"{r['status']} {r.get('error', '')}")
+            reports[(arch, cell)] = r
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = {"dryrun": launch_counts()}
+    ran = [r for r in reports.values() if r["status"] == "ok"]
+    # the kernels of the steps that ran: bf16 prefill and decode on every
+    # attention arch, the SSD on mamba2, the bf16 training pair where an
+    # attention arch's train_4k ran
+    want = ["flash_attention_bf16", "decode_attention_bf16", "ssd_scan_f32"]
+    if any(r["kind"] == "train" and r["arch"] != "mamba2-130m"
+           for r in ran):
+        want += ["flash_attention_lse_bf16", "flash_attention_bwd_bf16"]
+    for k in want:
+        check(counts["dryrun"][k] > 0, f"dry run: {k} never launched")
+    print(f"  {len(ran)} of {len(reports)} cells ran on the card; launches "
+          f"{ {k: v for k, v in counts['dryrun'].items() if v} }")
+    print("[23b] the meta count of every assigned arch (its own process, "
+          "started in phase 1)")
+    t0 = time.perf_counter()
+    rc = meta.wait(timeout=600)
+    meta_dir = f"{dryrun.REPORT_DIR}_{DRYRUN_META_TAG}"
+    with open(os.path.join(ROOT, "build", "dryrun_meta.log")) as f:
+        for line in f.read().splitlines():
+            print(f"    {line}")
+    check(rc == 0, f"dryrun --all --meta-only exited {rc}")
+    print(f"  waited {time.perf_counter() - t0:.1f} s for it")
+    for arch in ASSIGNED:
+        for cell in applicable_cells(get_config(arch)):
+            with open(os.path.join(meta_dir, f"{arch}__{cell}__"
+                                   f"{dryrun.MESH_NAME}.json")) as f:
+                r = json.load(f)
+            check(r["status"] == "meta_only", f"dry run {arch} {cell}: "
+                  f"{r['status']} {r.get('error', '')}")
+            if (arch, cell) in reports:
+                check(r["flops"] == reports[(arch, cell)]["flops"],
+                      f"dry run {arch} {cell}: two counts differ")
+            else:
+                reports[(arch, cell)] = r
+    print("[23c] the roofline (H100 SXM: "
+          f"{roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+          f"{roofline.HBM_BW / 1e12:.2f} TB/s HBM, "
+          f"{roofline.LINK_BW / 1e9:.0f} GB/s NVLink)")
+    rows = roofline.load_all(dryrun.REPORT_DIR) + [
+        row for row in roofline.load_all(meta_dir)
+        if row["arch"] not in DRYRUN_CARD]
+    check(len(rows) == len(reports), f"roofline: {len(rows)} rows for "
+          f"{len(reports)} reports")
+    print(roofline.table(rows))
+    print("[23d] gpipe on a world of one")
+    gpipe_world_of_one(dev)
+    summary = {"cells": {f"{a} {c}": {k: r.get(k) for k in (
+        "status", "flops", "bytes_batch1", "card")}
+        for (a, c), r in reports.items()},
+        "roofline": rows, "seconds": time.perf_counter() - t23}
+    print(f"[23] {summary['seconds']:.1f} s; {smi}")
+    return counts, summary
 
 
 def training_phase(dev, rows, q8_random_score, smi):
@@ -5099,6 +5868,11 @@ def training_phase(dev, rows, q8_random_score, smi):
     return counts, summary
 
 
+def stamp(t_start, what):
+    """The wall time since the script started, after ``what``."""
+    print(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5113,6 +5887,7 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     runs, counts, busy, serving = {}, {}, {}, {}
+    meta = None
     try:
         smi = smi_line()
         print(f"[1] card: {smi}; torch {torch.__version__}, "
@@ -5130,9 +5905,13 @@ def main() -> int:
                     print(f"    {name}: {line.strip()}")
         no_stack(report, "fused_preprocess")
         sass_mma_counts()
+        meta = start_meta_counts()
+        print("[1] the dry run's meta counts started in their own process "
+              "(phase 23 reads them)")
 
         print("[2] kernels vs their plain PyTorch versions on the card")
         rows = kernel_checks(dev)
+        stamp(t_start, "phases 1-2")
 
         ctx = make_ctx(dev)
         print("[3] Q8 naive plan, full width (samsara-stream-mllm, PATCH 16)")
@@ -5174,6 +5953,7 @@ def main() -> int:
             ["frame_diff", "fused_preprocess", "flash_attention"])
         fused_vs_unfused(ctx, runs["q8_fused"], runs["q8_unfused"])
 
+        stamp(t_start, "phases 3-8")
         t13 = time.perf_counter()
         print("[13] the catalog: every query's naive plan on its dataset")
         catalog, counts["catalog"] = catalog_phase(ctx)
@@ -5192,6 +5972,7 @@ def main() -> int:
               "MultiStreamRuntime, the gate in the server, faults, fleet")
         serve_counts, serve_summary = serving_phase(ctx)
         counts.update(serve_counts)
+        stamp(t_start, "phases 13-17")
         del ctx
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -5224,6 +6005,7 @@ def main() -> int:
         counts.update(more_counts)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+        stamp(t_start, "phases 9-12")
         from repro_torch.queries.catalog import QUERIES
 
         print("[18] training on the card")
@@ -5249,11 +6031,26 @@ def main() -> int:
             dev, smi, serving["chatglm3_serve"])
         counts.update(bf16_counts)
         serving.update(bf16_serving)
-    except (SmokeFailure, RuntimeError, ValueError, KeyError,
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print("[22] bf16 training: LM.loss at bf16 on the card")
+        bf16_train_counts, bf16_train_summary = bf16_train_phase(
+            dev, smi, train_summary)
+        counts.update(bf16_train_counts)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print("[23] the dry run, the roofline and gpipe on one card")
+        dryrun_counts, dryrun_summary = dryrun_phase(dev, smi, meta)
+        counts.update(dryrun_counts)
+    except (SmokeFailure, RuntimeError, ValueError, KeyError, OSError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
         return 1
+    finally:
+        if meta is not None and meta.poll() is None:
+            meta.kill()
+            meta.wait()
 
     kernels = []
     for name, (symbol, source, replaces) in KERNELS.items():
@@ -5301,13 +6098,18 @@ def main() -> int:
     print(json.dumps({"moe": moe_summary}, default=str))
     print(json.dumps({"encdec": encdec_summary}, default=str))
     print(json.dumps({"bf16": {**bf16_summary, "kernels_vs_float64":
-                               BF16_F64}}, default=str))
+                               BF16_F64, "bwd_delta": BF16_DELTA}},
+                     default=str))
+    print(json.dumps({"bf16_train": bf16_train_summary}, default=str))
+    print(json.dumps({"dryrun": dryrun_summary}, default=str))
     print(f"[total] {time.perf_counter() - t_start:.1f} s (phase 17 "
           f"{serve_summary['seconds']:.1f} s, phase 18 "
           f"{train_summary['seconds']:.1f} s, phase 19 "
           f"{moe_summary['seconds']:.1f} s, phase 20 "
           f"{encdec_summary['seconds']:.1f} s, phase 21 "
-          f"{bf16_summary['seconds']:.1f} s)")
+          f"{bf16_summary['seconds']:.1f} s, phase 22 "
+          f"{bf16_train_summary['seconds']:.1f} s, phase 23 "
+          f"{dryrun_summary['seconds']:.1f} s)")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ shape (2e-5 of the largest gradient, ``chip_smoke.TOL``) and prints its
 device time there (``chip_smoke.device_ms``): the backward alone
 (``autograd.grad`` of a retained graph) and forward + backward.  It hashes
 the forward's output (the serving entry point, and the training one with
-its log-sum-exp) at every ``BWD_PATH`` shape and at phase 2's timed
+its log-sum-exp; at the ``BWD_PATH`` shapes also the backward's dq, dk
+and dv) at every ``BWD_PATH`` shape and at phase 2's timed
 prefill shapes (the stream MLLM's B16 S140/76/28 and the server's B32/B64
 buckets, gemma2's, chatglm3's and phi3's prefill of 8192): the script
 prints whether every run of every tree gave the same bits, and exits
@@ -48,9 +49,11 @@ instead, at phase 2's timed bf16 shapes (``chip_smoke.BF16_TIMED`` and
 seamless's prefill cross attention), of the other trees and this one in
 turns as above: each run checks its output against the plain version
 (``chip_smoke.TOL``: 2e-2, absolute plus relative) and that two launches
-are equal bit for bit, and prints ptxas' registers and spills for the bf16
-functions of its flash_attention library; SDPA's bf16 time is printed
-once (this tree's first run).  Exits non-zero if a check fails.
+are equal bit for bit, hashes the output at each shape (the script prints
+whether every run of every tree gave the same bits), and prints ptxas'
+registers and spills for the bf16 functions of its flash_attention
+library; SDPA's bf16 time is printed once (this tree's first run).  Exits
+non-zero if a check fails or the bits differ.
 """
 from __future__ import annotations
 
@@ -83,7 +86,15 @@ VARIANTS = {"333": (3, 3, 3), "633": (6, 3, 3), "363": (3, 6, 3),
 
 
 def _digest(t) -> str:
-    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+    """A tensor's bytes hashed (any dtype: bf16 has no numpy type)."""
+    raw = t.detach().cpu().contiguous().view(-1).view(torch_uint8())
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+
+def torch_uint8():
+    import torch
+
+    return torch.uint8
 
 
 def _ptxas(log: str) -> dict:
@@ -213,6 +224,9 @@ def worker(tree: str, sdpa: bool) -> dict:
         bwd, both = _bwd_ms(cs, flash_attention, q, k, v, dout)
         out["times"][label] = {"bwd": bwd, "fwd_bwd": both, "err": err}
         digests(label, q, k, v, {})
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        flash_attention(*leaves).backward(dout)
+        out["digests"][label] += [_digest(x.grad) for x in leaves]
         if sdpa:
             b, s, h, hk, d = shape
 
@@ -264,7 +278,7 @@ def bf16_worker(tree: str, sdpa: bool) -> dict:
     ptxas = {k: v for k, v in _ptxas(str(report["flash_attention"]["log"]))
              .items() if "bf16" in k}
     out = {"times": {}, "errs": {}, "sdpa": {}, "ptxas": ptxas,
-           "failed": []}
+           "failed": [], "digests": {}}
     gen = torch.Generator(device="cuda").manual_seed(27)
     tol = cs.TOL["flash_attention_bf16"]
     for label, (b, sq, sk, h, hk, d, kw) in _bf16_shapes(cs).items():
@@ -275,6 +289,7 @@ def bf16_worker(tree: str, sdpa: bool) -> dict:
         want = flash_attention_plain(q, k, v, **kw).float()
         bad = ((got.float() - want).abs() > tol + tol * want.abs()).sum()
         out["errs"][label] = (got.float() - want).abs().max().item()
+        out["digests"][label] = _digest(got)
         if bad or not torch.equal(got, flash_attention_cuda(q, k, v, **kw)):
             out["failed"].append(f"{label}: {int(bad)} values outside "
                                  f"{tol}, or two launches differ")
@@ -316,6 +331,11 @@ def compare_bf16(trees) -> int:
                     r["times"][shape] for r in rs)
                 print(f"  this tree / {label} = {ratio:.3f} (the better "
                       f"turn of each)")
+    digests = {json.dumps(r["digests"], sort_keys=True)
+               for rs in results.values() for r in rs}
+    print(f"flash_attention_bf16's outputs: every run of every tree gave "
+          f"the same bits: {len(digests) == 1}")
+    ok = len(digests) == 1
     for label, rs in results.items():
         for r in rs:
             for f in r["failed"]:
@@ -399,15 +419,18 @@ def compare(trees) -> int:
     print(f"chatglm3_b8_s64: this tree {best['.', 'chatglm3_b8_s64']:.4f} "
           f"ms against SDPA on repeated kv heads "
           f"{sdpa['chatglm3_b8_s64']['sdpa_repeated']:.4f}")
-    # the forward's bits and ptxas report, every run of every tree
+    # the forward's (and the backward's) bits and ptxas report, every run
+    # of every tree
     ok = True
     ref = this[0]
     for shape, digest in ref["digests"].items():
         eq = all(r["digests"][shape] == digest for rs in results.values()
                  for r in rs)
         ok &= eq
-        print(f"forward {shape}: output and lse equal in every run of every "
-              f"tree, bit for bit (sha256): {eq}")
+        what = "output, lse, dq, dk and dv" if shape in ref["times"] \
+            else "output and lse"
+        print(f"{shape}: {what} equal in every run of every tree, bit for "
+              f"bit (sha256): {eq}")
     same = all(r["ptxas"] == ref["ptxas"] for rs in results.values()
                for r in rs)
     print(f"forward's ptxas registers and spills equal in every tree: "

@@ -4,8 +4,8 @@ Counterpart of ``repro/common/config.py``.  ``ArchConfig``,
 ``AttentionConfig``, ``MoEConfig``, ``SSMConfig`` and ``BlockSpecEntry``
 are ported with the fields the stream MLLM and the LMs (dense attention,
 Mamba2 and MoE stacks, an encoder with cross attention, stub frontends)
-use.  The shape cells wait for the slice that runs
-them.
+use, and the assigned shape cells (``ShapeCell``, ``SHAPE_CELLS``,
+``applicable_cells``) that the dry run (``launch/dryrun.py``) runs.
 
 Block kind strings are ``"<mixer>+<mlp>"``:
   mixer: ``attn`` | ``attn_local`` | ``attn_global`` | ``mamba``
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.common.utils import pad_to_multiple
 
@@ -75,7 +75,9 @@ class ArchConfig:
     final_softcap: Optional[float] = None
     tie_embeddings: bool = True
     frontend: Optional[str] = None   # "patch" | "audio": stub embeddings
+    sub_quadratic: bool = False      # eligible for long_500k
     mlp_gated: bool = True
+    grad_accum: int = 1              # micro-batches a dry-run train step
     remat: bool = True
     notes: str = ""
 
@@ -92,6 +94,11 @@ class ArchConfig:
         return self.n_layers // len(self.block_pattern)
 
     @property
+    def has_attention(self) -> bool:
+        return any(BlockSpecEntry.parse(k).mixer.startswith("attn")
+                   for k in self.block_pattern)
+
+    @property
     def has_mamba(self) -> bool:
         return any(BlockSpecEntry.parse(k).mixer == "mamba"
                    for k in self.block_pattern)
@@ -100,6 +107,18 @@ class ArchConfig:
     def has_moe(self) -> bool:
         return any(BlockSpecEntry.parse(k).mlp == "moe"
                    for k in self.block_pattern)
+
+    def n_params_dense_equiv(self) -> int:
+        """Parameter count N (all parameters)."""
+        from repro_torch.models.model import param_count_estimate
+
+        return param_count_estimate(self)
+
+    def n_params_active(self) -> int:
+        """Parameters a token uses (an MoE layer's top-k experts only)."""
+        from repro_torch.models.model import param_count_estimate
+
+        return param_count_estimate(self, active_only=True)
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
@@ -116,3 +135,34 @@ class BlockSpecEntry:
     def parse(kind: str) -> "BlockSpecEntry":
         mixer, mlp = kind.split("+")
         return BlockSpecEntry(mixer, mlp)
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPE_CELLS: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable_cells(cfg: ArchConfig) -> Tuple[str, ...]:
+    """The shape cells this architecture runs: ``long_500k`` only where
+    attention is not quadratic (the SSM and hybrid archs)."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        cells.append("long_500k")
+    return tuple(cells)

@@ -10,12 +10,14 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means CUDA.  A CUDA device on a host without CUDA raises:
-    the port never carries on silently on the CPU."""
+    the port never carries on silently on the CPU.  ``"meta"`` only when
+    the caller names it: tensors with shapes and dtypes and no storage
+    (the dry run's abstract inputs, ``launch/specs.py``)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch paths")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

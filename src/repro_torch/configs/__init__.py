@@ -36,6 +36,20 @@ REGISTRY: Dict[str, ArchConfig] = {
     )
 }
 
+#: the assigned architectures, in the reference's order (the dry run's)
+ASSIGNED = [
+    "moonshot-v1-16b-a3b",
+    "qwen3-moe-235b-a22b",
+    "jamba-1.5-large-398b",
+    "seamless-m4t-medium",
+    "chatglm3-6b",
+    "gemma2-2b",
+    "glm4-9b",
+    "phi3-mini-3.8b",
+    "pixtral-12b",
+    "mamba2-130m",
+]
+
 _SMOKE: Dict[str, Callable[[], ArchConfig]] = {
     "gemma2-2b": gemma2_2b.smoke,
     "mamba2-130m": mamba2_130m.smoke,

@@ -16,6 +16,7 @@ CONFIG = ArchConfig(
     attention=AttentionConfig(n_heads=32, n_kv_heads=2, head_dim=128,
                               rotary_pct=0.5),
     block_pattern=("attn+dense",),
+    grad_accum=2,
     notes="32 query heads over 2 kv heads: a group of 16 in the kernels.",
 )
 

@@ -20,6 +20,7 @@ CONFIG = ArchConfig(
     post_block_norm=True,
     embed_scale=True,
     final_softcap=30.0,
+    grad_accum=2,
     notes="13 periods of (local, global).",
 )
 

@@ -36,6 +36,8 @@ CONFIG = ArchConfig(
     ssm=SSMConfig(d_state=16, d_conv=4, head_dim=128, expand=2, n_groups=8,
                   chunk=256),
     block_pattern=_PATTERN,
+    sub_quadratic=True,
+    grad_accum=8,
     notes="1:7 attn:mamba, MoE every other layer; 9 periods of 8.",
 )
 
@@ -53,5 +55,6 @@ def smoke() -> ArchConfig:
         ssm=SSMConfig(d_state=16, d_conv=4, head_dim=16, expand=2,
                       n_groups=2, chunk=32),
         block_pattern=_PATTERN,
+        sub_quadratic=True,
         remat=False,
     )

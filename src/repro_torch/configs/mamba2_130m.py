@@ -16,6 +16,7 @@ CONFIG = ArchConfig(
     ssm=SSMConfig(d_state=128, d_conv=4, head_dim=64, expand=2, n_groups=1,
                   chunk=256),
     block_pattern=("mamba+none",),
+    sub_quadratic=True,
     notes="vocab padded 50280->50432.",
 )
 
@@ -31,5 +32,6 @@ def smoke() -> ArchConfig:
         ssm=SSMConfig(d_state=16, d_conv=4, head_dim=16, expand=2,
                       n_groups=1, chunk=32),
         block_pattern=("mamba+none",),
+        sub_quadratic=True,
         remat=False,
     )

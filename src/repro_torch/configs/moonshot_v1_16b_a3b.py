@@ -20,6 +20,7 @@ CONFIG = ArchConfig(
     moe=MoEConfig(n_experts=64, top_k=6, d_ff_expert=1408,
                   n_shared_experts=2),
     block_pattern=("attn+moe",),
+    grad_accum=4,
     notes="64e top-6 MoE; MHA; shared experts add a dense 2x1408 path.",
 )
 

@@ -14,6 +14,7 @@ CONFIG = ArchConfig(
     vocab_size=32064,
     attention=AttentionConfig(n_heads=32, n_kv_heads=32, head_dim=96),
     block_pattern=("attn+dense",),
+    grad_accum=2,
 )
 
 

@@ -21,6 +21,7 @@ CONFIG = ArchConfig(
     block_pattern=("attn+dense",),
     tie_embeddings=False,
     frontend="patch",
+    grad_accum=4,
     notes="kv heads replicated 8->16 for TP=16; patch-embed stub frontend.",
 )
 

@@ -19,6 +19,7 @@ CONFIG = ArchConfig(
     moe=MoEConfig(n_experts=128, top_k=8, d_ff_expert=1536),
     block_pattern=("attn+moe",),
     tie_embeddings=False,
+    grad_accum=8,
     notes="128 experts top-8; qk-norm; kv heads replicated 4->16 for TP=16.",
 )
 

@@ -24,6 +24,7 @@ CONFIG = ArchConfig(
     norm="layernorm",
     mlp_gated=False,
     frontend="audio",
+    grad_accum=2,
     notes="enc-dec; vocab padded 256206->256256 for TP divisibility.",
 )
 

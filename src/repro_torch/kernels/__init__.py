@@ -14,8 +14,9 @@ Every Pallas kernel of the JAX package has its counterpart here:
   flash_attention  — causal/local GQA attention with online softmax
                      (the MLLM extract's attention), and its backward
                      (``csrc/flash_attention_bwd.cu``, no Pallas
-                     counterpart: the training path's gradient); fp32,
-                     and bf16 for serving (``flash_attention_bf16``)
+                     counterpart: the training path's gradient); fp32
+                     and bf16 (``flash_attention_bf16``, its lse forward
+                     and ``flash_attention_bwd_bf16``)
   fused_prefix     — a plan's whole pixel prefix (diff grid, colour
                      fractions, crop/preprocess, signature) in one pass
   decode_attention — one query token per sequence against its KV cache
@@ -29,10 +30,13 @@ Every Pallas kernel of the JAX package has its counterpart here:
   int8_matmul      — int8 x int8 product with int32 accumulation and row /
                      column scales (``serving/quantize.py``'s int8 weights)
 
-Dispatch rule (every ops.py wrapper follows it): the device of the input
-tensor decides.  A CPU tensor takes the plain version in ``ref.py``; a CUDA
-tensor launches the kernel or raises.  Nothing falls back from one to the
-other, and nothing looks at which hardware the host has.  Only
+Dispatch rule (every ops.py wrapper follows it, through
+``_build.plain_device``): the device of the input tensor decides.  A CPU
+tensor takes the plain version in ``ref.py``; a ``meta`` tensor (shapes
+without storage: the dry run, ``launch/dryrun.py``) takes it too, which
+computes nothing there, so no work moves from the card; a CUDA tensor
+launches the kernel or raises.  Nothing falls back from one to the other,
+and nothing looks at which hardware the host has.  Only
 flash_attention and ssd_scan take inputs that require grad on the card
 (their ``autograd.Function``s); every other kernel refuses them.
 """

@@ -139,6 +139,14 @@ class CudaKernel:
             self.launches += 1
 
 
+def plain_device(t: torch.Tensor) -> bool:
+    """Whether a wrapper takes its plain version for ``t``: a CPU tensor
+    (the plain version computes), or a ``meta`` one (shapes only: the
+    plain version computes nothing, so this is no fallback; the dry run
+    counts its operations)."""
+    return t.device.type in ("cpu", "meta")
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     """The kernels take contiguous tensors on one CUDA device, and no input
     that autograd would differentiate: a kernel writes a fresh tensor

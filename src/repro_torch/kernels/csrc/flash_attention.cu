@@ -625,9 +625,9 @@ __global__ void __launch_bounds__(kThreadsB, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      bf16* __restrict__ o, int Sq, int Sk, int H, int G,
-                      int BQ, int causal, float cap, int window,
-                      float scale) {
+                      bf16* __restrict__ o, float* __restrict__ lse,
+                      int Sq, int Sk, int H, int G, int BQ, int causal,
+                      float cap, int window, float scale) {
   using namespace hopper;
   using C = CfgB<D>;
   constexpr int BK = C::BK, ST = C::STAGES, SPAN = C::SPAN, NBOX = C::NBOX;
@@ -832,6 +832,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     l[i] += __shfl_xor_sync(kFull, l[i], 2);
     const int r = row0 + 8 * i;
     if (r >= R || qpos[i] >= Sq) continue;
+    // the training entry point's log-sum-exp of the scaled (capped) logits:
+    // t c is a logit in log2 units, so lse = ln 2 (m c + log2 l)
+    if (lse != nullptr && tq4 == 0)
+      lse[((size_t)b * H + (size_t)hk * G + r % G) * Sq + qpos[i]] =
+          (m[i] * c + log2f(l[i])) * 0.6931471805599453f;
     bf16* orow = o + (((size_t)b * Sq + qpos[i]) * H + (size_t)hk * G +
                       r % G) * D + 2 * tq4;
 #pragma unroll
@@ -887,9 +892,9 @@ bool bf16_map(CUtensorMap* map, const void* p, int B, int S, int heads, int D,
 }
 
 template <int D>
-int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
-                int Sq, int Sk, int H, int Hk, int causal, float cap,
-                int window, cudaStream_t stream) {
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                float* lse, int B, int Sq, int Sk, int H, int Hk, int causal,
+                float cap, int window, cudaStream_t stream) {
   using C = CfgB<D>;
   const int G = H / Hk;
   const int BQ = kRowsB / G;
@@ -905,7 +910,7 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, Hk, B);
   const float scale = (float)(1.0 / sqrt((double)D));
   flash_fwd_bf16_kernel<D><<<grid, kThreadsB, C::smem, stream>>>(
-      tq, tk, tv, o, Sq, Sk, H, G, BQ, causal, cap, window, scale);
+      tq, tk, tv, o, lse, Sq, Sk, H, G, BQ, causal, cap, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -930,13 +935,16 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                        window, stream);
 }
 
-// The serving forward on bf16 q, k, v (B, Sq, H, D) / (B, Sk, Hk, D) into a
-// bf16 o, fp32 inside (flash_fwd_bf16_kernel); q, k and v 16-byte aligned
-// (TMA's rule), o 4-byte.
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int B, int Sq,
-                                    int Sk, int H, int Hk, int D, int causal,
-                                    float cap, int window, void* stream) {
+namespace {
+
+// bf16 q, k, v (B, Sq, H, D) / (B, Sk, Hk, D) into a bf16 o, fp32 inside
+// (flash_fwd_bf16_kernel), and, where lse is not null, each row's
+// log-sum-exp (fp32, (B, H, Sq)); q, k and v 16-byte aligned (TMA's rule),
+// o 4-byte.
+int flash_forward_bf16(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int Sq, int Sk, int H, int Hk,
+                       int D, int causal, float cap, int window,
+                       void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hk <= 0 || H % Hk || H / Hk > kRowsB ||
       B > 65535 || Hk > 65535 || (Sq != Sk && (causal || window > 0)) ||
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15u) ||
@@ -947,9 +955,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   const bf16* vb = (const bf16*)v;
   bf16* ob = (bf16*)o;
   cudaStream_t st = (cudaStream_t)stream;
-#define FLASH_BF16_CASE(DIM) \
-  case DIM:                  \
-    return launch_bf16<DIM>(qb, kb, vb, ob, B, Sq, Sk, H, Hk, causal, cap, window, st);
+#define FLASH_BF16_CASE(DIM)                                               \
+  case DIM:                                                                \
+    return launch_bf16<DIM>(qb, kb, vb, ob, lse, B, Sq, Sk, H, Hk, causal, \
+                            cap, window, st);
   switch (D) {
     FLASH_BF16_CASE(16)
     FLASH_BF16_CASE(32)
@@ -960,6 +969,29 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_BF16_CASE
+}
+
+}  // namespace
+
+// The serving forward on bf16 inputs: no log-sum-exp.
+extern "C" int flash_attention_bf16(const void* q, const void* k,
+                                    const void* v, void* o, int B, int Sq,
+                                    int Sk, int H, int Hk, int D, int causal,
+                                    float cap, int window, void* stream) {
+  return flash_forward_bf16(q, k, v, o, nullptr, B, Sq, Sk, H, Hk, D, causal,
+                            cap, window, stream);
+}
+
+// The bf16 training forward: o and each row's log-sum-exp, lse (B, H, Sq)
+// fp32, which flash_attention_bwd_bf16 (flash_attention_bwd.cu) reads.  The
+// same kernel as flash_attention_bf16's: o is its output bit for bit.
+extern "C" int flash_attention_lse_bf16(const void* q, const void* k,
+                                        const void* v, void* o, void* lse,
+                                        int B, int Sq, int Sk, int H, int Hk,
+                                        int D, int causal, float cap,
+                                        int window, void* stream) {
+  return flash_forward_bf16(q, k, v, o, (float*)lse, B, Sq, Sk, H, Hk, D,
+                            causal, cap, window, stream);
 }
 
 // The bf16 forward's figures at head dim D that kernel.py::fwd_bf16_plan

@@ -129,6 +129,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "tf32.cuh"
 
 // The split terms of the three products whose A operand is a P or dS just
@@ -473,42 +474,67 @@ __device__ __forceinline__ void grad_pair(float s, float dpv, float lse,
   }
 }
 
+// a row's 16-byte chunk c as fp32: four floats (scalar loads where !vec)
+// or eight bf16 values
+__device__ __forceinline__ void chunk(const float* row, int c, bool vec,
+                                      float (&x)[4]) {
+  const float4 a = vec ? __ldg(reinterpret_cast<const float4*>(row) + c)
+                       : make_float4(row[4 * c], row[4 * c + 1],
+                                     row[4 * c + 2], row[4 * c + 3]);
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = a.z;
+  x[3] = a.w;
+}
+
+__device__ __forceinline__ void chunk(const bf16mma::bf16* row, int c, bool,
+                                      float (&x)[8]) {
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(row) + c);
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(p[j]);
+    x[2 * j] = f.x;
+    x[2 * j + 1] = f.y;
+  }
+}
+
+// flash_bwd_delta's shape: E elements a chunk, CH chunks a row, TPR lanes a
+// row (a power of two, so a row's lanes are one aligned group of a warp's),
+// ROWS rows a block
+template <class T, int D>
+struct DeltaRows {
+  static constexpr int E = 16 / (int)sizeof(T);
+  static constexpr int CH = D / E;
+  static constexpr int TPR = CH >= 32 ? 32 : CH >= 16 ? 16 : CH >= 8 ? 8
+                             : CH >= 4 ? 4 : 2;
+  static constexpr int ROWS = kDeltaThreads / TPR;
+};
+
 // delta_i = dO_i.o_i of the (B, Sq, H, D) layout's (position, head) rows,
-// TPR threads a row (four consecutive elements at a time, 16-byte loads
-// where vec), into delta (B, H, Sq)
-template <int D>
+// fp32 or bf16, TPR lanes a row a chunk at a time (16-byte loads where vec;
+// bf16 rows always), fp32 sums, into delta (B, H, Sq)
+template <class T, int D>
 __global__ void __launch_bounds__(kDeltaThreads)
-flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
+flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
                 float* __restrict__ delta, long long rows, int S, int H,
                 bool vec) {
-  constexpr int Q = D / 4;  // four-element chunks a row
-  constexpr int TPR = Q >= 32 ? 32 : (Q >= 16 ? 16 : (Q >= 8 ? 8 : 4));
+  using R = DeltaRows<T, D>;
   const long long row =
-      (long long)blockIdx.x * (kDeltaThreads / TPR) + threadIdx.x / TPR;
-  const int sub = threadIdx.x % TPR;
+      (long long)blockIdx.x * R::ROWS + threadIdx.x / R::TPR;
+  const int sub = threadIdx.x % R::TPR;
   float acc = 0.0f;
   if (row < rows) {
-    const float* orow = o + row * D;
-    const float* drow = dout + row * D;
-    for (int c = sub; c < Q; c += TPR) {
-      float4 a, b;
-      if (vec) {
-        a = __ldg(reinterpret_cast<const float4*>(orow) + c);
-        b = __ldg(reinterpret_cast<const float4*>(drow) + c);
-      } else {
-        a = make_float4(orow[4 * c], orow[4 * c + 1], orow[4 * c + 2],
-                        orow[4 * c + 3]);
-        b = make_float4(drow[4 * c], drow[4 * c + 1], drow[4 * c + 2],
-                        drow[4 * c + 3]);
-      }
-      acc = fmaf(b.x, a.x, acc);
-      acc = fmaf(b.y, a.y, acc);
-      acc = fmaf(b.z, a.z, acc);
-      acc = fmaf(b.w, a.w, acc);
+    for (int c = sub; c < R::CH; c += R::TPR) {
+      float x[R::E], y[R::E];
+      chunk(o + row * D, c, vec, x);
+      chunk(dout + row * D, c, vec, y);
+#pragma unroll
+      for (int e = 0; e < R::E; ++e) acc = fmaf(y[e], x[e], acc);
     }
   }
 #pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1)
+  for (int off = R::TPR / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(kFull, acc, off);
   if (row < rows && sub == 0) {
     const int h = (int)(row % H);
@@ -710,12 +736,24 @@ __device__ __forceinline__ void dkdv_block(const Args& A, float* smem, int kt,
   }
 }
 
+// four sums into element group i of dst: fp32 as they are, bf16 rounded
+__device__ __forceinline__ void store4(float* dst, long long i, float a,
+                                       float b, float c, float d) {
+  reinterpret_cast<float4*>(dst)[i] = make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ void store4(bf16mma::bf16* dst, long long i,
+                                       float a, float b, float c, float d) {
+  reinterpret_cast<uint2*>(dst)[i] =
+      make_uint2(bf16mma::pack(a, b), bf16mma::pack(c, d));
+}
+
 // dK = scale x the splits' dK totals, dV = their dV totals, added in split
-// order, four elements a thread
+// order (fp32 scratch) and stored once as T, four elements a thread
+template <class T>
 __global__ void __launch_bounds__(kMergeThreads)
-flash_bwd_merge(const float* __restrict__ part, float* __restrict__ dk,
-                float* __restrict__ dv, long long n4, int splits,
-                float scale) {
+flash_bwd_merge(const float* __restrict__ part, T* __restrict__ dk,
+                T* __restrict__ dv, long long n4, int splits, float scale) {
   const long long i = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
   if (i >= n4) return;
   const float4* pk = reinterpret_cast<const float4*>(part) + i;
@@ -732,9 +770,8 @@ flash_bwd_merge(const float* __restrict__ part, float* __restrict__ dk,
     c.z += y.z;
     c.w += y.w;
   }
-  reinterpret_cast<float4*>(dk)[i] =
-      make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale);
-  reinterpret_cast<float4*>(dv)[i] = c;
+  store4(dk, i, a.x * scale, a.y * scale, a.z * scale, a.w * scale);
+  store4(dv, i, c.x, c.y, c.z, c.w);
 }
 
 // dQ of the query tile at q0, query head h, batch row b
@@ -933,13 +970,11 @@ int launch(const float* q, const float* k, const float* v, const float* o,
                      (uintptr_t)dout) & 15u) == 0;
   const float scale = (float)(1.0 / sqrt((double)D));
   const long long rows_bsh = (long long)B * Sq * H;
-  constexpr int kRowsDelta = kDeltaThreads / (D / 4 >= 32 ? 32
-                                              : D / 4 >= 16 ? 16
-                                              : D / 4 >= 8 ? 8 : 4);
+  constexpr int kRowsDelta = DeltaRows<float, D>::ROWS;
   const bool vec_o = (((uintptr_t)o | (uintptr_t)dout) & 15u) == 0;
-  flash_bwd_delta<D><<<(unsigned)((rows_bsh + kRowsDelta - 1) / kRowsDelta),
-                       kDeltaThreads, 0, stream>>>(o, dout, delta, rows_bsh,
-                                                   Sq, H, vec_o);
+  flash_bwd_delta<float, D>
+      <<<(unsigned)((rows_bsh + kRowsDelta - 1) / kRowsDelta), kDeltaThreads,
+         0, stream>>>(o, dout, delta, rows_bsh, Sq, H, vec_o);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const Args A{q,  k,     v,  dout,   lse,    delta,  dq,     dk,
@@ -953,9 +988,9 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   if (err != cudaSuccess) return (int)err;
   if (splits > 1) {
     const long long n4 = (long long)B * Sk * Hk * D / 4;
-    flash_bwd_merge<<<(unsigned)((n4 + kMergeThreads - 1) / kMergeThreads),
-                      kMergeThreads, 0, stream>>>(part, dk, dv, n4, splits,
-                                                  scale);
+    flash_bwd_merge<float>
+        <<<(unsigned)((n4 + kMergeThreads - 1) / kMergeThreads),
+           kMergeThreads, 0, stream>>>(part, dk, dv, n4, splits, scale);
     err = cudaGetLastError();
   }
   return (int)err;
@@ -1020,4 +1055,524 @@ extern "C" int flash_attention_bwd_f32(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_BWD_CASE
+}
+
+// ---------------------------------------------------------------------------
+// flash_attention_bwd_bf16: the same gradient on bf16 inputs.  q, k, v, o
+// and dO are bf16, lse is flash_attention_lse_bf16's fp32 (B, H, Sq); dQ,
+// dK and dV are written in bf16, every sum runs in fp32 and each output is
+// rounded once, at the store.  The plan is the fp32 kernel's: delta, then
+// one launch of dK/dV blocks (a key tile, kv head, split of the group's
+// heads from kernel.py::bwd_plan, batch row) and dQ blocks (a query tile,
+// head, batch row), then the splits' merge in split order where the plan
+// splits; no atomics, so a launch repeats the last one bit for bit.
+//
+// - delta_i = dO_i.o_i from the bf16 o the forward stored (the plain
+//   autograd's is the unrounded fp32 o's; chip_smoke.py's phase 2 prints
+//   both choices' distance from float64).
+// - A block holds R = 64 resident rows (K and V of its keys, or Q and dO of
+//   its queries) and streams tiles of BC rows of the other pair through a
+//   two-stage cp.async ring (16-byte copies, zero fill past Sq and Sk).
+//   Rows are padded by 8 bf16 (16 bytes), so the fragments' 32-bit loads
+//   and ldmatrix's rows are free of bank conflicts.
+// - Per tile, two phases between block barriers.  (1) Each warp takes 16
+//   resident rows x BC / WD streamed columns and computes S (or S^T) and dP
+//   (or dP^T) over all of D on bf16 mma.sync.m16n8k16 (the products of two
+//   bf16 values are exact in fp32), then P = exp(c - lse) and dS = P (dP -
+//   delta) (times 1 - (c / cap)^2 with a cap) in fp32, masked, and stores
+//   them to shared memory as bf16.  (2) Each warp takes 16 resident rows x
+//   DC columns of D and adds P^T.dO and dS^T.Q (dK/dV blocks) or dS.K (dQ
+//   blocks) into fp32 accumulators: A from the stored P or dS, B by
+//   ldmatrix.trans from the streamed tile.
+// - P and dS enter their products as one bf16 term, their rounding
+//   (bf16.cuh's hi): each gradient element sums many products of both
+//   signs, so a per-term rounding of 2^-9 stays far below the output's own
+//   bf16 rounding (phase 2 holds every product to the float64 bar; the
+//   forward's P.V needs a lo term because one dominant key's p carries the
+//   output).
+// - Sums: one fp32 accumulator a warp per output element across all tiles
+//   and heads (at most a few hundred mma steps: far below a bf16 ulp).
+// Warps: 4 row groups x WD (D 128: 2, D 256: 4, else 1); BC 64 (32 at D
+// 256).  A simple kernel: wgmma and TMA are later work.
+// ---------------------------------------------------------------------------
+namespace {
+
+using bf16mma::bf16;
+
+template <int D>
+struct CfgBw {
+  static constexpr int R = 64;                   // resident rows a block
+  static constexpr int BC = D == 256 ? 32 : 64;  // streamed rows a tile
+  static constexpr int DC = D >= 128 ? 64 : D;   // output columns a warp
+  static constexpr int WD = D / DC;              // warps over D
+  static constexpr int WARPS = 4 * WD;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int NCT = BC / WD / 8;  // score n tiles a warp (phase 1)
+  static constexpr int NDT = DC / 8;       // output n tiles a warp (phase 2)
+  static constexpr int LD = D + 8;         // row stride (bf16)
+  static constexpr int LP = BC + 8;        // P and dS row stride (bf16)
+  static constexpr int STAGES = 2;
+  // bytes: resident rows (2 tensors), streamed tiles (STAGES x 2 tensors),
+  // P and dS, the streamed rows' lse and delta (fp32, STAGES)
+  static constexpr int XB = 2 * R * LD * 2;
+  static constexpr int YB = STAGES * 2 * BC * LD * 2;
+  static constexpr int PB = 2 * R * LP * 2;
+  static constexpr int SB = STAGES * 2 * BC * 4;
+  static constexpr size_t smem = (size_t)XB + YB + PB + SB;
+  static_assert(NCT >= 1 && NDT % 2 == 0 && BC % 16 == 0, "tiles");
+  static_assert(smem <= 232448, "flash_attention_bwd_bf16: shared memory");
+};
+
+// rows p0 .. p0+n-1 of head h of a bf16 (B, S, NH, D) tensor into dst (row
+// stride D + 8), 16 bytes a copy; zeros past S
+template <int D, int TH>
+__device__ __forceinline__ void load_rows_bf16(bf16* dst,
+                                               const bf16* __restrict__ src,
+                                               int b, int S, int NH, int h,
+                                               int p0, int n) {
+  constexpr int LD = D + 8, CH = D / 8;
+  for (int e = threadIdx.x; e < n * CH; e += TH) {
+    const int r = e / CH, c = (e % CH) * 8, pos = p0 + r;
+    const bool ok = pos < S;
+    cp_async(dst + r * LD + c,
+             ok ? src + (((size_t)b * S + pos) * NH + h) * D + c : src, ok,
+             true);
+  }
+}
+
+// phase 1: a warp's S = X1.Y1^T and dP = X2.Y2^T over all of D, 16 rows
+// (x1, x2: the warp's first resident row) x NCT 8-column tiles (y1, y2:
+// its first streamed row)
+template <class C, int D>
+__device__ __forceinline__ void scores_bf16(const bf16* x1, const bf16* y1,
+                                            const bf16* x2, const bf16* y2,
+                                            float (&s)[C::NCT][4],
+                                            float (&dp)[C::NCT][4]) {
+  constexpr int LD = C::LD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < C::NCT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
+#pragma unroll
+  for (int k0 = 0; k0 < D; k0 += 16) {
+    uint32_t a1[4], a2[4];
+    const bf16* r1 = x1 + g * LD + k0 + 2 * t;
+    const bf16* r2 = x2 + g * LD + k0 + 2 * t;
+    a1[0] = bf16mma::ld32(r1);
+    a1[1] = bf16mma::ld32(r1 + 8 * LD);
+    a1[2] = bf16mma::ld32(r1 + 8);
+    a1[3] = bf16mma::ld32(r1 + 8 * LD + 8);
+    a2[0] = bf16mma::ld32(r2);
+    a2[1] = bf16mma::ld32(r2 + 8 * LD);
+    a2[2] = bf16mma::ld32(r2 + 8);
+    a2[3] = bf16mma::ld32(r2 + 8 * LD + 8);
+#pragma unroll
+    for (int nt = 0; nt < C::NCT; ++nt) {
+      const bf16* c1 = y1 + (nt * 8 + g) * LD + k0 + 2 * t;
+      const bf16* c2 = y2 + (nt * 8 + g) * LD + k0 + 2 * t;
+      bf16mma::mma16(s[nt], a1, bf16mma::ld32(c1), bf16mma::ld32(c1 + 8));
+      bf16mma::mma16(dp[nt], a2, bf16mma::ld32(c2), bf16mma::ld32(c2 + 8));
+    }
+  }
+}
+
+// a warp's fragments (16 rows x NCT 8-column tiles) into shared memory as
+// bf16, row stride LP; dst: the warp's first row and column
+template <class C>
+__device__ __forceinline__ void store_bf16(bf16* dst,
+                                           const float (&x)[C::NCT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < C::NCT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(dst + (g + 8 * i) * C::LP + nt * 8 +
+                                   2 * t) =
+          bf16mma::pack(x[nt][2 * i], x[nt][2 * i + 1]);
+}
+
+// phase 2: acc (16 rows x NDT 8-column tiles) += A.Y, A the warp's 16 rows
+// of a stored P or dS (a_s: its first row) over the tile's BC streamed
+// rows, Y those rows' DC columns (y: row 0, the warp's first column)
+template <class C>
+__device__ __forceinline__ void accumulate_bf16(float (&acc)[C::NDT][4],
+                                                const bf16* a_s,
+                                                const bf16* y) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k0 = 0; k0 < C::BC; k0 += 16) {
+    uint32_t a[4];
+    const bf16* ar = a_s + g * C::LP + k0 + 2 * t;
+    a[0] = bf16mma::ld32(ar);
+    a[1] = bf16mma::ld32(ar + 8 * C::LP);
+    a[2] = bf16mma::ld32(ar + 8);
+    a[3] = bf16mma::ld32(ar + 8 * C::LP + 8);
+    const bf16* yr =
+        y + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * C::LD + (lane >> 4) * 8;
+#pragma unroll
+    for (int dp = 0; dp < C::NDT / 2; ++dp) {
+      uint32_t r[4];
+      bf16mma::ldsm4t(r, yr + dp * 16);
+      bf16mma::mma16(acc[2 * dp], a, r[0], r[1]);
+      bf16mma::mma16(acc[2 * dp + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+struct ArgsB {
+  const bf16 *q, *k, *v, *dout;
+  const float *lse, *delta;
+  bf16 *dq, *dk, *dv;
+  float* part;
+  int B, Sq, Sk, H, Hk, G, splits, causal, window;
+  float cap, scale;
+};
+
+// dK and dV of key tile kt, split sp, kv head hk, batch row b
+template <int D>
+__device__ __forceinline__ void dkdv_block_bf16(const ArgsB& A,
+                                                unsigned char* smem, int kt,
+                                                int sp, int hk, int b) {
+  using C = CfgBw<D>;
+  constexpr int R = C::R, BC = C::BC, LD = C::LD, LP = C::LP, TH = C::THREADS,
+                ST = C::STAGES;
+  const int Sq = A.Sq, Sk = A.Sk, H = A.H, G = A.G;
+  const int causal = A.causal, window = A.window;
+  bf16* x_s = reinterpret_cast<bf16*>(smem);  // [K, V][R][LD]
+  bf16* y_s = x_s + 2 * R * LD;               // [stage][Q, dO][BC][LD]
+  bf16* p_s = y_s + ST * 2 * BC * LD;         // [P, dS][R][LP]
+  float* st_s = reinterpret_cast<float*>(p_s + 2 * R * LP);  // [stage][lse, delta][BC]
+  const int k0 = kt * R;
+  const int g0 = sp * G / A.splits, g1 = (sp + 1) * G / A.splits;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rg = warp / C::WD, cg = warp % C::WD;
+  const int c0 = cg * C::NCT * 8;  // phase 1: the warp's streamed columns
+  const int kw = k0 + rg * 16;     // the warp's first key
+
+  // the queries that can see a key of the tile
+  const int klast = min(Sk, k0 + R) - 1;
+  const int qbeg = causal ? k0 : 0;
+  const int qend = window > 0 ? min(Sq, klast + window) : Sq;
+  const int nq = (qend - qbeg + BC - 1) / BC;
+  const int T = (g1 - g0) * nq;
+
+  auto load_y = [&](int stage, int j) {
+    const int h = hk * G + g0 + j / nq, q0 = qbeg + (j % nq) * BC;
+    bf16* base = y_s + stage * 2 * BC * LD;
+    load_rows_bf16<D, TH>(base, A.q, b, Sq, H, h, q0, BC);
+    load_rows_bf16<D, TH>(base + BC * LD, A.dout, b, Sq, H, h, q0, BC);
+    if (threadIdx.x < 2 * BC) {
+      const int pos = q0 + threadIdx.x % BC;
+      const float* src = threadIdx.x < BC ? A.lse : A.delta;
+      const bool ok = pos < Sq;
+      cp_async(st_s + stage * 2 * BC + threadIdx.x,
+               ok ? src + ((size_t)b * H + h) * Sq + pos : src, ok, false);
+    }
+  };
+  load_rows_bf16<D, TH>(x_s, A.k, b, Sk, A.Hk, hk, k0, R);
+  load_rows_bf16<D, TH>(x_s + R * LD, A.v, b, Sk, A.Hk, hk, k0, R);
+  load_y(0, 0);
+  cp_commit();
+
+  float acc_k[C::NDT][4], acc_v[C::NDT][4];
+#pragma unroll
+  for (int dt = 0; dt < C::NDT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[dt][e] = acc_v[dt][e] = 0.0f;
+
+  for (int t = 0; t < T; ++t) {
+    const int st = t % ST, q0 = qbeg + (t % nq) * BC;
+    cp_wait<0>();
+    __syncthreads();  // tile t landed; every warp is done with tile t-1
+    if (t + 1 < T) load_y((t + 1) % ST, t + 1);
+    cp_commit();
+    const bf16* qy = y_s + st * 2 * BC * LD;
+    const bf16* oy = qy + BC * LD;
+    const float* lse_c = st_s + st * 2 * BC;
+    const float* dl_c = lse_c + BC;
+    {
+      float sc[C::NCT][4], dp[C::NCT][4];
+      scores_bf16<C, D>(x_s + rg * 16 * LD, qy + c0 * LD,
+                        x_s + (R + rg * 16) * LD, oy + c0 * LD, sc, dp);
+#pragma unroll
+      for (int nt = 0; nt < C::NCT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kw + gq + 8 * (e >> 1);
+          const int jc = c0 + nt * 8 + 2 * tq + (e & 1), qpos = q0 + jc;
+          const bool vis = key < Sk && qpos < Sq &&
+                           (!causal || key <= qpos) &&
+                           (window <= 0 || key > qpos - window);
+          float p, ds;
+          grad_pair(sc[nt][e], dp[nt][e], lse_c[jc], dl_c[jc], vis, A.cap,
+                    A.scale, p, ds);
+          sc[nt][e] = p;
+          dp[nt][e] = ds;
+        }
+      store_bf16<C>(p_s + rg * 16 * LP + c0, sc);
+      store_bf16<C>(p_s + (R + rg * 16) * LP + c0, dp);
+    }
+    __syncthreads();  // P^T and dS^T of the tile are stored
+    accumulate_bf16<C>(acc_v, p_s + rg * 16 * LP, oy + cg * C::DC);
+    accumulate_bf16<C>(acc_k, p_s + (R + rg * 16) * LP, qy + cg * C::DC);
+  }
+  cp_wait<0>();
+
+  const size_t n = (size_t)A.B * Sk * A.Hk * D;  // one split's elements
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kw + gq + 8 * i;
+    if (key >= Sk) continue;
+    const size_t row = (((size_t)b * Sk + key) * A.Hk + hk) * D;
+#pragma unroll
+    for (int dt = 0; dt < C::NDT; ++dt) {
+      const int d = cg * C::DC + dt * 8 + 2 * tq;
+      if (A.splits == 1) {
+        *reinterpret_cast<uint32_t*>(A.dk + row + d) =
+            bf16mma::pack(acc_k[dt][2 * i] * A.scale,
+                          acc_k[dt][2 * i + 1] * A.scale);
+        *reinterpret_cast<uint32_t*>(A.dv + row + d) =
+            bf16mma::pack(acc_v[dt][2 * i], acc_v[dt][2 * i + 1]);
+      } else {
+        *reinterpret_cast<float2*>(A.part + sp * n + row + d) =
+            make_float2(acc_k[dt][2 * i], acc_k[dt][2 * i + 1]);
+        *reinterpret_cast<float2*>(A.part + (A.splits + sp) * n + row + d) =
+            make_float2(acc_v[dt][2 * i], acc_v[dt][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// dQ of the query tile at q0, query head h, batch row b
+template <int D>
+__device__ __forceinline__ void dq_block_bf16(const ArgsB& A,
+                                              unsigned char* smem, int q0,
+                                              int h, int b) {
+  using C = CfgBw<D>;
+  constexpr int R = C::R, BC = C::BC, LD = C::LD, LP = C::LP, TH = C::THREADS,
+                ST = C::STAGES;
+  const int Sq = A.Sq, Sk = A.Sk, H = A.H, Hk = A.Hk;
+  const int causal = A.causal, window = A.window;
+  bf16* x_s = reinterpret_cast<bf16*>(smem);  // [Q, dO][R][LD]
+  bf16* y_s = x_s + 2 * R * LD;               // [stage][K, V][BC][LD]
+  bf16* p_s = y_s + ST * 2 * BC * LD;         // dS [R][LP]
+  const int hk = h / A.G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rg = warp / C::WD, cg = warp % C::WD;
+  const int c0 = cg * C::NCT * 8;
+  const int qw = q0 + rg * 16;  // the warp's first query
+
+  // the keys any row of the tile sees (flash_attention.cu's range)
+  const int kend = causal ? min(Sk, q0 + R) : Sk;
+  const int kbeg = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int T = (kend - kbeg + BC - 1) / BC;
+
+  auto load_y = [&](int stage, int kk0) {
+    bf16* base = y_s + stage * 2 * BC * LD;
+    load_rows_bf16<D, TH>(base, A.k, b, Sk, Hk, hk, kk0, BC);
+    load_rows_bf16<D, TH>(base + BC * LD, A.v, b, Sk, Hk, hk, kk0, BC);
+  };
+  load_rows_bf16<D, TH>(x_s, A.q, b, Sq, H, h, q0, R);
+  load_rows_bf16<D, TH>(x_s + R * LD, A.dout, b, Sq, H, h, q0, R);
+  load_y(0, kbeg);
+  cp_commit();
+
+  float lr[2], dr[2];  // this thread's two rows' lse and delta (0 past Sq)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = qw + gq + 8 * i;
+    const size_t at = ((size_t)b * H + h) * Sq + pos;
+    lr[i] = pos < Sq ? __ldg(A.lse + at) : 0.0f;
+    dr[i] = pos < Sq ? __ldg(A.delta + at) : 0.0f;
+  }
+  float acc[C::NDT][4];
+#pragma unroll
+  for (int dt = 0; dt < C::NDT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
+
+  for (int t = 0; t < T; ++t) {
+    const int st = t % ST, kk0 = kbeg + t * BC;
+    cp_wait<0>();
+    __syncthreads();  // tile t landed; every warp is done with tile t-1
+    if (t + 1 < T) load_y((t + 1) % ST, kk0 + BC);
+    cp_commit();
+    const bf16* ky = y_s + st * 2 * BC * LD;
+    const bf16* vy = ky + BC * LD;
+    {
+      float sc[C::NCT][4], dp[C::NCT][4];
+      scores_bf16<C, D>(x_s + rg * 16 * LD, ky + c0 * LD,
+                        x_s + (R + rg * 16) * LD, vy + c0 * LD, sc, dp);
+#pragma unroll
+      for (int nt = 0; nt < C::NCT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, qpos = qw + gq + 8 * i;
+          const int key = kk0 + c0 + nt * 8 + 2 * tq + (e & 1);
+          const bool vis = qpos < Sq && key < Sk &&
+                           (!causal || key <= qpos) &&
+                           (window <= 0 || key > qpos - window);
+          float p, ds;
+          grad_pair(sc[nt][e], dp[nt][e], lr[i], dr[i], vis, A.cap, A.scale,
+                    p, ds);
+          dp[nt][e] = ds;
+        }
+      store_bf16<C>(p_s + rg * 16 * LP + c0, dp);
+    }
+    __syncthreads();  // dS of the tile is stored
+    accumulate_bf16<C>(acc, p_s + rg * 16 * LP, ky + cg * C::DC);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = qw + gq + 8 * i;
+    if (pos >= Sq) continue;
+    bf16* row = A.dq + (((size_t)b * Sq + pos) * H + h) * D;
+#pragma unroll
+    for (int dt = 0; dt < C::NDT; ++dt)
+      *reinterpret_cast<uint32_t*>(row + cg * C::DC + dt * 8 + 2 * tq) =
+          bf16mma::pack(acc[dt][2 * i] * A.scale,
+                        acc[dt][2 * i + 1] * A.scale);
+  }
+}
+
+// both kinds of block in one launch, in the fp32 kernel's order
+template <int D>
+__global__ void __launch_bounds__(CfgBw<D>::THREADS, 1)
+flash_bwd_bf16_main(const ArgsB A, long long n_dkdv) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  constexpr int R = CfgBw<D>::R;
+  long long i = blockIdx.x;
+  if (i < n_dkdv) {
+    const int nt = (A.Sk + R - 1) / R;  // key tiles
+    const int x = (int)(i % ((long long)nt * A.splits));
+    i /= (long long)nt * A.splits;
+    dkdv_block_bf16<D>(A, smem_b, x % nt, x / nt, (int)(i % A.Hk),
+                       (int)(i / A.Hk));
+  } else {
+    const int nt = (A.Sq + R - 1) / R;  // query tiles
+    i -= n_dkdv;
+    const int x = (int)(i % nt);
+    i /= nt;
+    dq_block_bf16<D>(A, smem_b, (nt - 1 - x) * R, (int)(i % A.H),
+                     (int)(i / A.H));
+  }
+}
+
+template <int D>
+int config_bf16(int* out) {
+  using C = CfgBw<D>;
+  out[0] = C::R;
+  out[1] = C::BC;
+  out[2] = (int)C::smem;
+  out[3] = C::THREADS;
+  return 0;
+}
+
+template <int D>
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                const bf16* dout, const float* lse, float* delta, float* part,
+                bf16* dq, bf16* dk, bf16* dv, int B, int Sq, int Sk, int H,
+                int Hk, int causal, float cap, int window, int splits,
+                cudaStream_t stream) {
+  using C = CfgBw<D>;
+  const int G = H / Hk;
+  const int nkt = (Sk + C::R - 1) / C::R, nqt = (Sq + C::R - 1) / C::R;
+  if (splits < 1 || splits > G || (splits > 1 && part == nullptr) ||
+      ((long long)nkt * splits * Hk + (long long)nqt * H) * B > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_bf16_main<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::smem);
+  if (err != cudaSuccess) return (int)err;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const long long rows_bsh = (long long)B * Sq * H;
+  constexpr int kRowsDelta = DeltaRows<bf16, D>::ROWS;
+  flash_bwd_delta<bf16, D>
+      <<<(unsigned)((rows_bsh + kRowsDelta - 1) / kRowsDelta), kDeltaThreads,
+         0, stream>>>(o, dout, delta, rows_bsh, Sq, H, true);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const ArgsB A{q,  k,  v,  dout, lse,    delta,  dq,     dk,     dv,
+                part, B, Sq, Sk,   H,      Hk,     G,      splits, causal,
+                window, cap, scale};
+  const long long n_dkdv = (long long)nkt * splits * Hk * B;
+  const long long n_dq = (long long)nqt * H * B;
+  flash_bwd_bf16_main<D><<<(unsigned)(n_dkdv + n_dq), C::THREADS, C::smem,
+                           stream>>>(A, n_dkdv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (splits > 1) {
+    const long long n4 = (long long)B * Sk * Hk * D / 4;
+    flash_bwd_merge<bf16>
+        <<<(unsigned)((n4 + kMergeThreads - 1) / kMergeThreads),
+           kMergeThreads, 0, stream>>>(part, dk, dv, n4, splits, scale);
+    err = cudaGetLastError();
+  }
+  return (int)err;
+}
+
+}  // namespace
+
+// The bf16 backward's tiles at head dim D that kernel.py::bwd_bf16_tiles
+// mirrors: out[0..3] = resident rows a block, streamed rows a tile, shared
+// memory bytes, threads a block.
+extern "C" int flash_attention_bwd_bf16_config(int D, int* out) {
+  switch (D) {
+    case 16: return config_bf16<16>(out);
+    case 32: return config_bf16<32>(out);
+    case 64: return config_bf16<64>(out);
+    case 96: return config_bf16<96>(out);
+    case 128: return config_bf16<128>(out);
+    case 256: return config_bf16<256>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// flash_attention_bwd_f32's arguments on bf16 tensors: q, o, dout, dq (B,
+// Sq, H, D) and k, v, dk, dv (B, Sk, Hk, D) bf16, 16-byte aligned; lse
+// (flash_attention_lse_bf16's) and the scratch delta (B, H, Sq) fp32; part
+// the splits' fp32 scratch (2, splits, B, Sk, Hk, D) or null with one split.
+extern "C" int flash_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* part, void* dq,
+    void* dk, void* dv, int B, int Sq, int Sk, int H, int Hk, int D,
+    int causal, float cap, int window, int splits, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hk <= 0 || H % Hk || B > 65535 ||
+      H > 65535 || (Sq != Sk && (causal || window > 0)) ||
+      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
+        (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) &
+       15u))
+    return (int)cudaErrorInvalidValue;
+  const bf16* qb = (const bf16*)q;
+  const bf16* kb = (const bf16*)k;
+  const bf16* vb = (const bf16*)v;
+  const bf16* ob = (const bf16*)o;
+  const bf16* gb = (const bf16*)dout;
+  const float* lf = (const float*)lse;
+  float* df = (float*)delta;
+  float* pf = (float*)part;
+  bf16* dqb = (bf16*)dq;
+  bf16* dkb = (bf16*)dk;
+  bf16* dvb = (bf16*)dv;
+  cudaStream_t st = (cudaStream_t)stream;
+#define FLASH_BWD_BF16_CASE(DIM)                                            \
+  case DIM:                                                                 \
+    return launch_bf16<DIM>(qb, kb, vb, ob, gb, lf, df, pf, dqb, dkb, dvb,  \
+                            B, Sq, Sk, H, Hk, causal, cap, window, splits,  \
+                            st);
+  switch (D) {
+    FLASH_BWD_BF16_CASE(16)
+    FLASH_BWD_BF16_CASE(32)
+    FLASH_BWD_BF16_CASE(64)
+    FLASH_BWD_BF16_CASE(96)
+    FLASH_BWD_BF16_CASE(128)
+    FLASH_BWD_BF16_CASE(256)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FLASH_BWD_BF16_CASE
 }

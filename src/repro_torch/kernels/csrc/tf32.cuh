@@ -50,8 +50,9 @@ __device__ __forceinline__ void split2(float2 x, uint32_t& hi0, uint32_t& lo0,
 }
 
 // one 16-byte (vec) or 4-byte copy into shared memory; zeros if !valid
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool valid, bool vec) {
+template <class T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid,
+                                         bool vec) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   if (vec)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"

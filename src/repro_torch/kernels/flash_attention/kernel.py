@@ -1,7 +1,7 @@
-"""Bindings of ``csrc/flash_attention.cu`` (the forward, with or without
-each row's log-sum-exp, and the serving forward on bf16 inputs) and
-``csrc/flash_attention_bwd.cu`` (its gradient, fp32); see the sources for
-the design notes.  Queries and keys may differ in length (Sq != Sk, cross
+"""Bindings of ``csrc/flash_attention.cu`` (the forward on fp32 or bf16
+inputs, with or without each row's log-sum-exp) and
+``csrc/flash_attention_bwd.cu`` (its gradient, fp32 or bf16); see the
+sources for the design notes.  Queries and keys may differ in length (Sq != Sk, cross
 attention) where no positional mask applies: ``causal=False`` and no
 window."""
 from __future__ import annotations
@@ -24,11 +24,19 @@ KERNEL_BF16 = CudaKernel("flash_attention", "flash_attention_bf16",
 #: the training forward: the output and each row's log-sum-exp
 KERNEL_LSE = CudaKernel("flash_attention", "flash_attention_lse_f32",
                         [_P] * 5 + [_I] * 7 + [_F, _I])
+#: the bf16 training forward: the bf16 serving kernel writing each row's
+#: log-sum-exp (fp32) beside its output
+KERNEL_LSE_BF16 = CudaKernel("flash_attention", "flash_attention_lse_bf16",
+                             [_P] * 5 + [_I] * 7 + [_F, _I])
 #: the backward: dQ, dK, dV (delta, dK/dV and dQ in one launch, the splits'
 #: merge where the plan splits the group); its last int is ``bwd_plan``'s
 #: split count
 KERNEL_BWD = CudaKernel("flash_attention_bwd", "flash_attention_bwd_f32",
                         [_P] * 11 + [_I] * 7 + [_F, _I, _I])
+#: the backward on bf16 inputs (dQ, dK, dV in bf16, fp32 sums), the same
+#: plan and arguments
+KERNEL_BWD_BF16 = CudaKernel("flash_attention_bwd", "flash_attention_bwd_bf16",
+                             [_P] * 11 + [_I] * 7 + [_F, _I, _I])
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 MAX_GROUP = 64
 H100_SMS = 132
@@ -67,12 +75,32 @@ def bwd_tiles(d: int) -> Dict[str, int]:
     return dict(rows=rows, cols=cols, smem=smem, per_sm=per_sm)
 
 
+def bwd_bf16_tiles(d: int) -> Dict[str, int]:
+    """``bwd_tiles`` of the bf16 backward (``CfgBw<D>`` in
+    ``csrc/flash_attention_bwd.cu``): 64 resident rows a block, streamed
+    tiles of 64 rows (32 at D 256), warps of 16 rows x 64 columns of D (D
+    up to 96: all of D), a two-stage ring of the two streamed tensors, P
+    and dS of a tile, and the streamed rows' lse and delta; rows padded by
+    8 bf16.  The card checks them against the library's
+    ``flash_attention_bwd_bf16_config``."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {d} (takes "
+                         f"{HEAD_DIMS})")
+    rows, cols = 64, 32 if d == 256 else 64
+    threads = 32 * 4 * (d // 64 if d >= 128 else 1)
+    smem = 2 * (2 * rows * (d + 8) + 2 * 2 * cols * (d + 8)
+                + 2 * rows * (cols + 8)) + 4 * 2 * 2 * cols
+    per_sm = max(1, min(SMEM_SM // (smem + 1024), 2048 // threads))
+    return dict(rows=rows, cols=cols, smem=smem, threads=threads,
+                per_sm=per_sm)
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
 def bwd_plan(b: int, sq: int, sk: int, h: int, hk: int, d: int, *,
-             sms: int = H100_SMS) -> Dict[str, int]:
+             sms: int = H100_SMS, bf16: bool = False) -> Dict[str, int]:
     """The backward's split count and scratch at one shape (``sq``
     queries, ``sk`` keys), from the shape alone.
 
@@ -85,11 +113,12 @@ def bwd_plan(b: int, sq: int, sk: int, h: int, hk: int, d: int, *,
     pass), among those whose blocks the card holds at once (``sms`` x the
     blocks an SM holds).  With more than one split, each writes its totals
     to an fp32 scratch (2, splits, B, Sk, Hk, D) of ``scratch`` elements,
-    which the merge pass adds in split order."""
+    which the merge pass adds in split order.  ``bf16``: the bf16
+    backward's tiles (``bwd_bf16_tiles``), the same rule."""
     if h % hk or not 0 < h // hk <= MAX_GROUP:
         raise ValueError(f"flash_attention_bwd: {h} q heads over {hk} kv "
                          f"heads (groups up to {MAX_GROUP})")
-    t = bwd_tiles(d)
+    t = bwd_bf16_tiles(d) if bf16 else bwd_tiles(d)
     g = h // hk
     blocks = _cdiv(sk, t["rows"]) * hk * b
     nq = _cdiv(sq, t["cols"])
@@ -213,17 +242,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hk, D) -> (B, Sq, H, D) in their dtype.  Any Sq, Sk (Sk != Sq with
     ``causal=False`` and no window); D in ``HEAD_DIMS``; H/Hk at most
     ``MAX_GROUP``.  bf16 runs ``flash_attention_bf16`` (fp32 inside, the
-    output rounded once).  With ``lse`` (fp32 only: the training forward)
-    returns (out, lse) where lse (B, H, Sq) is each row's log-sum-exp of
+    output rounded once).  With ``lse`` (the training forward) returns
+    (out, lse) where lse (B, H, Sq), fp32, is each row's log-sum-exp of
     its scaled (and capped) logits, which ``flash_attention_bwd_cuda``
-    takes (``flash_attention_lse_f32``; the output is the same
-    kernel's)."""
+    takes (``flash_attention_lse_f32`` / ``flash_attention_lse_bf16``;
+    the output is the serving kernel's bit for bit)."""
     dev = _check("flash_attention", q, k, v, causal, cap, window,
                  (torch.float32, torch.bfloat16))
-    if lse and q.dtype != torch.float32:
-        raise ValueError("flash_attention: the log-sum-exp (training) "
-                         "forward takes float32; bf16 has a serving forward "
-                         "only")
     b, s, h, d = q.shape
     out = torch.empty_like(q)
     rows = torch.empty((b, h, s), device=dev) if lse else None
@@ -231,8 +256,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dims = (b, s, k.shape[1], h, k.shape[2], d,
                 *_options(causal, cap, window))
         if lse:
-            KERNEL_LSE.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), rows.data_ptr(), *dims)
+            kernel = KERNEL_LSE if q.dtype == torch.float32 \
+                else KERNEL_LSE_BF16
+            kernel.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), rows.data_ptr(), *dims)
         else:
             kernel = KERNEL if q.dtype == torch.float32 else KERNEL_BF16
             kernel.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -248,8 +275,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              window: Optional[int] = None):
     """The gradient of ``flash_attention_cuda(q, k, v, ...)`` at ``dout``
     (B, Sq, H, D), given its output ``out`` and ``lse`` (from ``lse=True``
-    with the same options): (dq, dk, dv) in the layouts of q, k, v."""
-    dev = _check("flash_attention_bwd", q, k, v, causal, cap, window)
+    with the same options): (dq, dk, dv) in the layouts and dtype of q, k,
+    v.  fp32 runs ``flash_attention_bwd_f32``; bf16 (q, k, v, out, dout
+    bf16 and 16-byte aligned, lse fp32) ``flash_attention_bwd_bf16``, with
+    fp32 sums and each gradient rounded once."""
+    dev = _check("flash_attention_bwd", q, k, v, causal, cap, window,
+                 (torch.float32, torch.bfloat16))
     require_cuda("flash_attention_bwd", out, lse, dout)
     b, s, h, d = q.shape
     if out.shape != q.shape or dout.shape != q.shape or \
@@ -257,17 +288,24 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
                          f"dout {tuple(dout.shape)}, lse {tuple(lse.shape)}"
                          f" for q {tuple(q.shape)}")
-    if not (out.dtype == dout.dtype == lse.dtype == torch.float32):
-        raise ValueError("flash_attention_bwd: the CUDA kernel takes "
-                         "float32")
+    bf16 = q.dtype == torch.bfloat16
+    if not (out.dtype == dout.dtype == q.dtype and
+            lse.dtype == torch.float32):
+        raise ValueError(f"flash_attention_bwd: out and dout in q's dtype "
+                         f"{q.dtype} and an fp32 lse (got {out.dtype}, "
+                         f"{dout.dtype}, {lse.dtype})")
+    if bf16 and any(t.data_ptr() % 16 for t in (out, dout)):
+        raise ValueError("flash_attention_bwd: the bf16 kernel needs "
+                         "16-byte aligned tensors")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     if b and s:
         sk, hk = k.shape[1], k.shape[2]
-        plan = bwd_plan(b, s, sk, h, hk, d, sms=_sms(dev.index))
+        plan = bwd_plan(b, s, sk, h, hk, d, sms=_sms(dev.index), bf16=bf16)
         delta = torch.empty((b, h, s), device=dev)      # scratch
         part = torch.empty(plan["scratch"], device=dev)  # the splits' totals
-        KERNEL_BWD.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kernel = KERNEL_BWD_BF16 if bf16 else KERNEL_BWD
+        kernel.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                           delta.data_ptr(),
                           part.data_ptr() if plan["scratch"] else None,

@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels._build import plain_device
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd_cuda, flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
@@ -15,7 +16,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
 class FlashAttentionFn(torch.autograd.Function):
     """The CUDA forward (with each row's log-sum-exp) and its hand-written
-    backward (``csrc/flash_attention_bwd.cu``) as one autograd node."""
+    backward (``csrc/flash_attention_bwd.cu``) as one autograd node: the
+    fp32 pair or, on bf16 inputs, the bf16 pair (``flash_attention_lse_bf16``,
+    ``flash_attention_bwd_bf16``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, cap, window):
@@ -46,20 +49,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensor takes the plain version, which autograd differentiates; a CUDA
     one takes the forward kernel, and, when grad mode is on and an input
     requires grad, ``FlashAttentionFn`` (the forward kernel with its
-    log-sum-exp, then the backward kernel).  The backward kernel takes
-    fp32: bf16 CUDA inputs that require grad raise ``ValueError``."""
-    if q.device.type == "cpu":
+    log-sum-exp, then the backward kernel), in fp32 or bf16 (q, k and v of
+    one dtype: the bf16 pair keeps fp32 sums and the fp32 lse)."""
+    if plain_device(q):
         return flash_attention_plain(q, k, v, causal=causal, cap=cap,
                                      window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if torch.float32 != q.dtype or q.dtype != k.dtype \
-                or q.dtype != v.dtype:
-            raise ValueError(
-                f"flash_attention: no bf16 backward kernel yet "
-                f"(csrc/flash_attention_bwd.cu takes float32): {q.dtype} "
-                "inputs that require grad on the card are refused, not "
-                "cast; train in float32 or run under torch.no_grad()")
         return FlashAttentionFn.apply(q, k, v, causal, cap, window)
     return flash_attention_cuda(q, k, v, causal=causal, cap=cap,
                                 window=window)

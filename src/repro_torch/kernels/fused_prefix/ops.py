@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._build import plain_device
 from repro_torch.kernels.fused_prefix.kernel import fused_prefix_cuda
 from repro_torch.kernels.fused_prefix.ref import fused_prefix_ref
 
@@ -16,6 +17,6 @@ def fused_prefix(frames: torch.Tensor, prevs=None, proj=None, *, spec):
     """frames (B, C, H, W), prevs the same shape (diff stage only), proj
     (D, EMB_DIM) f32 (signature stage only); ``spec`` is the stage tuple
     documented in ``ref.py``.  Returns ``(d, fracs, x, feats, emb)``."""
-    fn = fused_prefix_ref if frames.device.type == "cpu" \
+    fn = fused_prefix_ref if plain_device(frames) \
         else fused_prefix_cuda
     return fn(frames, prevs, proj, spec=spec)

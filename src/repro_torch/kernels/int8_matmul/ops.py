@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._build import plain_device
 from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda
 from repro_torch.kernels.int8_matmul.ref import (int8_matmul_plain,
                                                  quantize_rowwise)
@@ -20,7 +21,7 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
                 sw: torch.Tensor) -> torch.Tensor:
     """x_q (M, K) int8, w_q (K, N) int8, sx (M, 1), sw (1, N) -> (M, N)
     f32."""
-    if x_q.device.type != "cpu":
+    if not plain_device(x_q):
         return int8_matmul_cuda(x_q, w_q, sx, sw)
     return int8_matmul_plain(x_q, w_q, sx, sw)
 

@@ -14,6 +14,7 @@ from typing import Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels._build import plain_device
 from repro_torch.kernels.ssd_scan.kernel import (ssd_scan_bwd_cuda,
                                                  ssd_scan_cuda)
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
@@ -39,7 +40,7 @@ class SSDScanFn(torch.autograd.Function):
 def ssd_scan(x, bmat, cmat, cs, dt):
     """The within-chunk terms in kernel layout; the device picks, and on
     CUDA autograd picks the forward kernel or ``SSDScanFn``."""
-    if x.device.type == "cpu":
+    if plain_device(x):
         return ssd_scan_ref(x, bmat, cmat, cs, dt)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, bmat, cmat, cs, dt)):

@@ -26,7 +26,8 @@ import torch
 from repro_torch.common.config import AttentionConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import apply_rope, rms_norm_simple
+from repro_torch.models.layers import apply_rope, cast_matmul, \
+    rms_norm_simple
 from repro_torch.models.param import ParamSpec
 
 
@@ -34,21 +35,25 @@ def attention_spec(d_model: int, att: AttentionConfig,
                    cross: bool = False) -> Dict[str, ParamSpec]:
     d = att.head_dim
     spec = {
-        "wq": ParamSpec((d_model, att.n_heads, d)),
-        "wk": ParamSpec((d_model, att.n_kv_heads, d)),
-        "wv": ParamSpec((d_model, att.n_kv_heads, d)),
-        "wo": ParamSpec((att.n_heads, d, d_model)),
+        "wq": ParamSpec((d_model, att.n_heads, d),
+                        axes=("fsdp", "heads", "head_dim")),
+        "wk": ParamSpec((d_model, att.n_kv_heads, d),
+                        axes=("fsdp", None, "head_dim")),
+        "wv": ParamSpec((d_model, att.n_kv_heads, d),
+                        axes=("fsdp", None, "head_dim")),
+        "wo": ParamSpec((att.n_heads, d, d_model),
+                        axes=("heads", "head_dim", "fsdp")),
     }
     if att.qk_norm and not cross:
-        spec["q_norm"] = ParamSpec((d,), "ones")
-        spec["k_norm"] = ParamSpec((d,), "ones")
+        spec["q_norm"] = ParamSpec((d,), "ones", axes=("head_dim",))
+        spec["k_norm"] = ParamSpec((d,), "ones", axes=("head_dim",))
     return spec
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """x (B, S, d), w (d, H, Dh) cast to x's dtype -> (B, S, H, Dh)."""
     d, h, dh = w.shape
-    return mm(x, w.to(x.dtype).reshape(d, h * dh)).reshape(
+    return cast_matmul(x, w.reshape(d, h * dh), mm).reshape(
         *x.shape[:-1], h, dh)
 
 
@@ -69,8 +74,8 @@ def _out_proj(params: Dict[str, torch.Tensor],
               out: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """out (B, S, H, Dh) -> (B, S, d); ``wo`` cast to out's dtype."""
     h, dh, d = params["wo"].shape
-    return mm(out.reshape(*out.shape[:-2], h * dh),
-              params["wo"].to(out.dtype).reshape(h * dh, d))
+    return cast_matmul(out.reshape(*out.shape[:-2], h * dh),
+                       params["wo"].reshape(h * dh, d), mm)
 
 
 def attend_prefill(params: Dict[str, torch.Tensor], att: AttentionConfig,

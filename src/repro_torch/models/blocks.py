@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ArchConfig, BlockSpecEntry
 from repro_torch.models import attention as attn
@@ -89,14 +90,22 @@ def stack_spec(cfg: ArchConfig, n_periods: Optional[int] = None,
                  cfg.n_periods if n_periods is None else n_periods)
 
 
+#: an attention block's cache leaves' logical axes
+KV_AXES = ("batch", "kv_seq", "kv_heads", "head_dim")
+
+
 def block_cache_shapes(cfg: ArchConfig, kind: str, batch: int,
-                       s_max: int) -> Dict[str, Tuple[int, ...]]:
-    """Shape of each cache leaf of one block."""
+                       s_max: int) -> Dict[str, Tuple[Tuple[int, ...],
+                                                      Tuple]]:
+    """(shape, logical axes) of each cache leaf of one block, as the
+    reference's."""
     if _entry(kind).mixer == "mamba":
-        return ssm_mod.mamba_decode_cache_spec(cfg.d_model, cfg.ssm, batch)
+        return {leaf: (shape, ssm_mod.CACHE_AXES[leaf]) for leaf, shape in
+                ssm_mod.mamba_decode_cache_spec(cfg.d_model, cfg.ssm,
+                                                batch).items()}
     att = cfg.attention
     kv = (batch, s_max, att.n_kv_heads, att.head_dim)
-    return {"k": kv, "v": kv}
+    return {"k": (kv, KV_AXES), "v": (kv, KV_AXES)}
 
 
 def apply_block(cfg: ArchConfig, kind: str, params: Dict[str, Any],
@@ -236,15 +245,19 @@ def apply_stack(cfg: ArchConfig, stacked: Dict[str, Any], x: torch.Tensor,
                 cache: Optional[Dict[str, Any]] = None,
                 lens: Optional[torch.Tensor] = None,
                 cross_kv: Optional[Sequence[CrossKV]] = None,
-                mm=torch.matmul, return_aux: bool = False):
+                mm=torch.matmul, return_aux: bool = False,
+                remat: bool = False):
     """Run every period of the stacked weights in order.  ``cache`` is a
     dict per block key ``i{j}`` of (n_periods, B, ...) tensors, filled
     (``prefill_cache``) or advanced (``decode``) in place.  ``cross_kv``
     gives each period's cross (K, V) by block key (a stack with cross
-    attention).  ``mm`` is ``apply_block``'s.  Returns x, or with
-    ``return_aux`` (x, the MoE aux loss): each period's blocks summed in
-    order, then the periods, from a float32 zero, as the reference's scan
-    carries it."""
+    attention).  ``mm`` is ``apply_block``'s.  ``remat`` (without a
+    cache, under autograd): each period's blocks run under
+    ``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of a
+    period, so the graph holds a period's input and not its activations,
+    which its backward computes again.  Returns x, or with ``return_aux``
+    (x, the MoE aux loss): each period's blocks summed in order, then the
+    periods, from a float32 zero, as the reference's scan carries it."""
     _check(cfg)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; have {MODES}")
@@ -256,21 +269,31 @@ def apply_stack(cfg: ArchConfig, stacked: Dict[str, Any], x: torch.Tensor,
                          f"stack of {n}")
     period = _periods(stacked, n)
     cache_at = None if cache is None else _periods(cache, n, cast=False)
+    remat = remat and cache is None and torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
         p_params = period(i)
         p_cache = None if cache_at is None else cache_at(i)
-        p_aux: List[torch.Tensor] = []
-        for j, kind in enumerate(cfg.block_pattern):
-            key = f"i{j}"
-            x = apply_block(
-                cfg, kind, p_params[key], x, mode=mode, positions=positions,
-                cache=None if p_cache is None else p_cache[key], lens=lens,
-                cross_kv=None if cross_kv is None else cross_kv[i][key],
-                mm=mm, aux=p_aux)
-        if p_aux:
+
+        def run(x, i=i, p_params=p_params, p_cache=p_cache):
+            p_aux: List[torch.Tensor] = []
+            for j, kind in enumerate(cfg.block_pattern):
+                key = f"i{j}"
+                x = apply_block(
+                    cfg, kind, p_params[key], x, mode=mode,
+                    positions=positions,
+                    cache=None if p_cache is None else p_cache[key],
+                    lens=lens,
+                    cross_kv=None if cross_kv is None else cross_kv[i][key],
+                    mm=mm, aux=p_aux)
+            if not p_aux:
+                return x, None
             a = torch.zeros((), dtype=torch.float32, device=x.device)
             for one in p_aux:
                 a = a + one
+            return x, a
+
+        x, a = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+        if a is not None:
             total = total + a
     return (x, total) if return_aux else x

@@ -3,9 +3,9 @@
 Counterpart of ``repro/models/layers.py``.  Plain functions on tensors;
 weights are passed explicitly and keep the reference's (in, out) storage.
 The activations' dtype is the compute dtype: a matmul weight is cast to it
-where it is used (``w.to(x.dtype)``, a no-op when they agree), as the
-reference's ``w.astype(dtype)``; norms, rotary angles and the
-cross-entropy compute in fp32 and return the input's dtype.
+where it is used (``cast_matmul``: ``x @ w.to(x.dtype)``, the cast a no-op
+when they agree), as the reference's ``w.astype(dtype)``; norms, rotary
+angles and the cross-entropy compute in fp32 and return the input's dtype.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.models.param import ParamSpec
 
@@ -23,9 +24,9 @@ from repro_torch.models.param import ParamSpec
 
 def norm_spec(d: int, kind: str) -> Dict[str, ParamSpec]:
     if kind == "layernorm":
-        return {"scale": ParamSpec((d,), "ones"),
-                "bias": ParamSpec((d,), "zeros")}
-    return {"scale": ParamSpec((d,), "ones")}
+        return {"scale": ParamSpec((d,), "ones", axes=("embed",)),
+                "bias": ParamSpec((d,), "zeros", axes=("embed",))}
+    return {"scale": ParamSpec((d,), "ones", axes=("embed",))}
 
 
 def apply_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
@@ -109,10 +110,10 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 def mlp_spec(d_model: int, d_ff: int,
              gated: bool = True) -> Dict[str, ParamSpec]:
-    spec = {"w_in": ParamSpec((d_model, d_ff)),
-            "w_out": ParamSpec((d_ff, d_model))}
+    spec = {"w_in": ParamSpec((d_model, d_ff), axes=("fsdp", "mlp")),
+            "w_out": ParamSpec((d_ff, d_model), axes=("mlp", "fsdp"))}
     if gated:
-        spec["w_gate"] = ParamSpec((d_model, d_ff))
+        spec["w_gate"] = ParamSpec((d_model, d_ff), axes=("fsdp", "mlp"))
     return spec
 
 
@@ -134,6 +135,66 @@ def frame_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(x, w.expand(x.shape[0], *w.shape))
 
 
+class _CastMatmul(torch.autograd.Function):
+    """``x @ w.to(x.dtype)`` whose graph saves the weight ``w`` (a
+    parameter or a view of one, held anyway) and casts it again in the
+    backward.  Under plain autograd the product would save the cast copy
+    for the backward: at bf16 a second copy of every weight, 2 bytes a
+    value, from its use to the end of the backward (chatglm3-6b's bf16
+    training peak fell from 76.43 to 65.10 GB without it, on an H100).
+    x (..., K) with w (K, N) is folded to (rows, K) as ``torch.matmul``
+    folds it; x (E, C, K) with w (E, K, N) is a ``bmm``.  The backward
+    takes the products autograd's ``mm`` and ``bmm`` take (for a
+    column-major operand too), so the gradients keep their bits."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        wc = w.to(x.dtype)
+        if w.dim() == 3:
+            return torch.bmm(x, wc)
+        return x.reshape(-1, wc.shape[0]).mm(wc).view(
+            *x.shape[:-1], wc.shape[1])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        wc = w.to(x.dtype)
+        gx = gw = None
+        if w.dim() == 3:
+            if ctx.needs_input_grad[0]:
+                gx = g.bmm(wc.transpose(1, 2))
+            if ctx.needs_input_grad[1]:
+                gw = x.transpose(1, 2).bmm(g).to(w.dtype)
+            return gx, gw
+        x2 = x.reshape(-1, wc.shape[0])
+        g2 = g.reshape(-1, wc.shape[1])
+        if ctx.needs_input_grad[0]:
+            gx = (wc.mm(g2.t()).t() if _column_major(x2)
+                  else g2.mm(wc.t())).view(x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = (g2.t().mm(x2).t() if _column_major(wc)
+                  else x2.t().mm(g2)).to(w.dtype)
+        return gx, gw
+
+
+def _column_major(m: torch.Tensor) -> bool:
+    return m.stride(0) == 1 and m.stride(1) == m.shape[0]
+
+
+def cast_matmul(x: torch.Tensor, w: torch.Tensor,
+                mm=torch.matmul) -> torch.Tensor:
+    """``mm(x, w.to(x.dtype))`` for x (..., K) and w (K, N) (or x (E, C, K)
+    and w (E, K, N) with ``mm=torch.bmm``).  Where that casts a weight
+    that autograd differentiates, the product is ``_CastMatmul``'s, whose
+    graph holds no cast copy of w."""
+    if w.dtype == x.dtype or mm not in (torch.matmul, torch.bmm) or \
+            not (torch.is_grad_enabled() and w.requires_grad):
+        return mm(x, w.to(x.dtype))
+    return _CastMatmul.apply(x, w)
+
+
 def apply_mlp(w_in: torch.Tensor, w_gate: Optional[torch.Tensor],
               w_out: torch.Tensor, x: torch.Tensor,
               act: str = "silu", mm=torch.matmul) -> torch.Tensor:
@@ -142,12 +203,11 @@ def apply_mlp(w_in: torch.Tensor, w_gate: Optional[torch.Tensor],
     approximation, as ``jax.nn.gelu``'s default.  Weights are (in, out),
     cast to x's dtype; ``mm`` computes each product (``frame_matmul`` for
     the stream MLLM)."""
-    dt = x.dtype
-    h = mm(x, w_in.to(dt))
+    h = cast_matmul(x, w_in, mm)
     h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
     if w_gate is not None:
-        h = h * mm(x, w_gate.to(dt))
-    return mm(h, w_out.to(dt))
+        h = h * cast_matmul(x, w_gate, mm)
+    return cast_matmul(h, w_out, mm)
 
 
 # --------------------------------------------------------------------------
@@ -158,9 +218,10 @@ def embed_spec(vocab: int, d_model: int,
                tie: bool = True) -> Dict[str, ParamSpec]:
     """The token table, tied to the unembedding, or with an unembedding
     (d_model, vocab) of its own."""
-    spec = {"table": ParamSpec((vocab, d_model), "small")}
+    spec = {"table": ParamSpec((vocab, d_model), "small",
+                               axes=("vocab", "fsdp"))}
     if not tie:
-        spec["unembed"] = ParamSpec((d_model, vocab))
+        spec["unembed"] = ParamSpec((d_model, vocab), axes=("fsdp", "vocab"))
     return spec
 
 
@@ -184,8 +245,8 @@ def unembed(params: Dict[str, Any], x: torch.Tensor,
     """x (B, S, d) -> logits (B, S, V) in x's dtype over the padded vocab,
     through the unembedding where there is one, else the tied table."""
     if "unembed" in params:
-        return softcap(x @ params["unembed"].to(x.dtype), final_cap)
-    return softcap(x @ params["table"].to(x.dtype).t(), final_cap)
+        return softcap(cast_matmul(x, params["unembed"]), final_cap)
+    return softcap(cast_matmul(x, params["table"].t()), final_cap)
 
 
 # --------------------------------------------------------------------------

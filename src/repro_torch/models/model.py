@@ -42,13 +42,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.common.config import ArchConfig
+from repro_torch.common.config import ArchConfig, BlockSpecEntry
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (cross_entropy, embed_spec,
                                        embed_tokens, norm, norm_spec,
                                        unembed)
-from repro_torch.models.param import ParamTree, init_params, step_cast
+from repro_torch.models.param import (ParamTree, count_params, init_params,
+                                      step_cast)
 
 #: the batch keys of the stub frontends' inputs, beside tokens and labels
 FRONTEND_KEYS = ("frames", "patch_embeds", "patch_pos")
@@ -224,20 +225,23 @@ class LM(ParamTree):
                        dtype: Optional[torch.dtype] = None,
                        frames: Optional[torch.Tensor] = None,
                        patch_embeds: Optional[torch.Tensor] = None,
-                       patch_pos: Optional[torch.Tensor] = None
+                       patch_pos: Optional[torch.Tensor] = None,
+                       remat: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) (with ``frames`` for an encoder-decoder, patches
         for the patch frontend) -> (logits (B, S, padded vocab) in
         ``dtype``, the MoE aux loss (fp32; 0 without MoE blocks)), no
         cache; differentiable in the parameters that require grad
-        (training)."""
+        (training).  ``remat``: the decoder's periods are recomputed in
+        the backward (``blocks.apply_stack``)."""
         dtype = self._dtype(dtype)
         params = self._params()
         x = self._embed(params, tokens, patch_embeds, patch_pos, dtype)
         positions = torch.arange(tokens.shape[1], device=self.device)[None]
         x, aux = blk.apply_stack(
             self.cfg, params["stack"], x, positions, return_aux=True,
-            cross_kv=self._cross_from_frames(params, frames, dtype))
+            cross_kv=self._cross_from_frames(params, frames, dtype),
+            remat=remat)
         return self._head(params, x), aux
 
     def forward(self, tokens: torch.Tensor, **inputs) -> torch.Tensor:
@@ -255,15 +259,18 @@ class LM(ParamTree):
         return self(tokens, dtype=dtype, **inputs)
 
     def loss(self, batch: Dict[str, torch.Tensor],
-             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+             dtype: Optional[torch.dtype] = None,
+             remat: bool = False) -> torch.Tensor:
         """Next-token loss of ``{"tokens", "labels"}`` (B, S), with
         ``"frames"`` or ``"patch_embeds"`` / ``"patch_pos"`` where the
         model takes them, the model run at ``dtype``: mean nll + z-loss (in
         fp32) + the MoE aux loss (router z-loss and load balance, 0 without
         MoE blocks); labels below 0 are read as 0, as the reference
-        does."""
+        does.  ``remat``: ``logits_and_aux``'s (the reference's
+        ``cfg.remat``; the port's training keeps every period's
+        activations unless asked)."""
         logits, aux = self.logits_and_aux(
-            batch["tokens"], dtype=dtype,
+            batch["tokens"], dtype=dtype, remat=remat,
             **{k: batch[k] for k in FRONTEND_KEYS if k in batch})
         labels = batch["labels"].to(self.device).long().clamp_min(0)
         nll, zl = cross_entropy(logits, labels)
@@ -272,20 +279,12 @@ class LM(ParamTree):
     # ------------------------------------------------------------------
     def cache_shapes(self, batch: int, s_max: int,
                      t_src: int = 0) -> Dict[str, Any]:
-        """{"layers": {"i{j}": {leaf: (n_periods, batch, ...)}}}, with
-        {"cross": {"i{j}": {"k", "v": (n_periods, batch, t_src, Hk, Dh)}}}
-        for an encoder-decoder."""
-        cfg = self.cfg
-        out: Dict[str, Any] = {"layers": {
-            f"i{j}": {leaf: (cfg.n_periods,) + shape for leaf, shape in
-                      blk.block_cache_shapes(cfg, kind, batch, s_max).items()}
-            for j, kind in enumerate(cfg.block_pattern)}}
-        if cfg.encoder_decoder:
-            att = cfg.attention
-            kv = (cfg.n_periods, batch, t_src, att.n_kv_heads, att.head_dim)
-            out["cross"] = {f"i{j}": {"k": kv, "v": kv}
-                            for j in range(len(cfg.block_pattern))}
-        return out
+        """The cache's (shape, logical axes) pairs, as the reference's:
+        {"layers": {"i{j}": {leaf: ((n_periods, batch, ...), ("layers",
+        "batch", ...))}}}, with {"cross": {"i{j}": {"k", "v": ((n_periods,
+        batch, t_src, Hk, Dh), axes)}}} for an encoder-decoder (the
+        reference's cross leaves are a (k, v) pair; the port names them)."""
+        return cache_shapes(self.cfg, batch, s_max, t_src)
 
     def init_cache(self, batch: int, s_max: int, t_src: int = 0,
                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
@@ -294,7 +293,7 @@ class LM(ParamTree):
         dtype = self._dtype(dtype)
         return {part: {key: {leaf: torch.zeros(shape, device=self.device,
                                                dtype=dtype)
-                             for leaf, shape in leaves.items()}
+                             for leaf, (shape, _) in leaves.items()}
                        for key, leaves in tree.items()}
                 for part, tree in self.cache_shapes(batch, s_max,
                                                     t_src).items()}
@@ -372,3 +371,41 @@ class LM(ParamTree):
                             mode="decode", cache=cache["layers"], lens=lens,
                             cross_kv=cross)
         return self._head(params, x), cache
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, s_max: int,
+                 t_src: int = 0) -> Dict[str, Any]:
+    """``LM.cache_shapes`` from the config alone (no parameters)."""
+    out: Dict[str, Any] = {"layers": {
+        f"i{j}": {leaf: ((cfg.n_periods,) + shape, ("layers",) + axes)
+                  for leaf, (shape, axes) in
+                  blk.block_cache_shapes(cfg, kind, batch, s_max).items()}
+        for j, kind in enumerate(cfg.block_pattern)}}
+    if cfg.encoder_decoder:
+        att = cfg.attention
+        kv = ((cfg.n_periods, batch, t_src, att.n_kv_heads, att.head_dim),
+              ("layers", "batch", None, "kv_heads", "head_dim"))
+        out["cross"] = {f"i{j}": {"k": kv, "v": kv}
+                        for j in range(len(cfg.block_pattern))}
+    return out
+
+
+# --------------------------------------------------------------------------
+# Parameter counting (MODEL_FLOPS = 6 N D in launch/roofline.py)
+# --------------------------------------------------------------------------
+
+def param_count_estimate(cfg: ArchConfig, active_only: bool = False) -> int:
+    """All parameters of ``LM.spec(cfg)``; with ``active_only`` an MoE
+    layer's experts count at top_k of n_experts (the reference's
+    estimate)."""
+    total = count_params(LM.spec(cfg))
+    if active_only and cfg.has_moe:
+        n_moe_layers = sum(
+            1 for k in cfg.block_pattern if BlockSpecEntry.parse(k).mlp == "moe"
+        ) * cfg.n_periods
+        per_layer_expert = 3 * cfg.moe.n_experts * cfg.d_model * \
+            cfg.moe.d_ff_expert
+        inactive_frac = (cfg.moe.n_experts - cfg.moe.top_k) / \
+            cfg.moe.n_experts
+        total -= int(n_moe_layers * per_layer_expert * inactive_frac)
+    return total

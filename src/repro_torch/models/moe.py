@@ -23,22 +23,26 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import MoEConfig
 from repro_torch.common.utils import ceil_div
+from repro_torch.models.layers import cast_matmul
 from repro_torch.models.param import ParamSpec
 
 
 def moe_spec(d_model: int, moe: MoEConfig) -> Dict[str, ParamSpec]:
     e, f = moe.n_experts, moe.d_ff_expert
     spec = {
-        "router": ParamSpec((d_model, e), "small"),
-        "w_in": ParamSpec((e, d_model, f)),
-        "w_gate": ParamSpec((e, d_model, f)),
-        "w_out": ParamSpec((e, f, d_model)),
+        "router": ParamSpec((d_model, e), "small", axes=(None, None)),
+        "w_in": ParamSpec((e, d_model, f),
+                          axes=("experts", "expert_fsdp", "expert_ff")),
+        "w_gate": ParamSpec((e, d_model, f),
+                            axes=("experts", "expert_fsdp", "expert_ff")),
+        "w_out": ParamSpec((e, f, d_model),
+                           axes=("experts", "expert_ff", "expert_fsdp")),
     }
     if moe.n_shared_experts:
         fs = f * moe.n_shared_experts
-        spec["shared_in"] = ParamSpec((d_model, fs))
-        spec["shared_gate"] = ParamSpec((d_model, fs))
-        spec["shared_out"] = ParamSpec((fs, d_model))
+        spec["shared_in"] = ParamSpec((d_model, fs), axes=("fsdp", "mlp"))
+        spec["shared_gate"] = ParamSpec((d_model, fs), axes=("fsdp", "mlp"))
+        spec["shared_out"] = ParamSpec((fs, d_model), axes=("mlp", "fsdp"))
     return spec
 
 
@@ -86,10 +90,9 @@ def _expert_ffn(w_in: torch.Tensor, w_gate: torch.Tensor,
                 w_out: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     """xb (E, C, d) -> (E, C, d): each expert's SwiGLU on its slots, the
     weights cast to xb's dtype."""
-    dt = xb.dtype
-    h = torch.bmm(xb, w_in.to(dt))
-    g = torch.bmm(xb, w_gate.to(dt))
-    return torch.bmm(F.silu(h) * g, w_out.to(dt))
+    h = cast_matmul(xb, w_in, torch.bmm)
+    g = cast_matmul(xb, w_gate, torch.bmm)
+    return cast_matmul(F.silu(h) * g, w_out, torch.bmm)
 
 
 def apply_moe(params: Dict[str, Any], x: torch.Tensor, moe: MoEConfig
@@ -102,9 +105,12 @@ def apply_moe(params: Dict[str, Any], x: torch.Tensor, moe: MoEConfig
     idx, weights, aux = _route(params["router"], x2d, moe)
     slot, keep = dispatch_slots(idx, e, cap)
     flat_tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    # each kept assignment writes its own slot: no two writes meet
-    buf = x2d.new_zeros((e * cap, d)).index_put(
-        (slot[keep],), x2d[flat_tok[keep]])
+    # each kept assignment writes its own slot, so no two writes meet
+    # there; the dropped ones all write the overflow row, which is cut off
+    # (no index depends on how many are kept: shapes alone decide, as the
+    # dry run's meta tensors need)
+    buf = x2d.new_zeros((e * cap + 1, d)).index_put(
+        (slot,), x2d[flat_tok])[:e * cap]
     yb = _expert_ffn(params["w_in"], params["w_gate"], params["w_out"],
                      buf.reshape(e, cap, d)).reshape(e * cap, d)
     yb = torch.cat([yb, yb.new_zeros((1, d))], dim=0)
@@ -115,8 +121,7 @@ def apply_moe(params: Dict[str, Any], x: torch.Tensor, moe: MoEConfig
         y = y + contrib[:, i]
     y = y.reshape(b, s, d)
     if moe.n_shared_experts:
-        dt = x.dtype
-        h = x @ params["shared_in"].to(dt)
-        g = x @ params["shared_gate"].to(dt)
-        y = y + (F.silu(h) * g) @ params["shared_out"].to(dt)
+        h = cast_matmul(x, params["shared_in"])
+        g = cast_matmul(x, params["shared_gate"])
+        y = y + cast_matmul(F.silu(h) * g, params["shared_out"])
     return y, aux

@@ -1,7 +1,11 @@
-"""Parameter specs: one tree describes shapes and init, as in the reference.
+"""Parameter specs: one tree describes shapes, logical axes and init, as
+in the reference.
 
 Counterpart of ``repro/models/param.py``.  A spec tree is a nested dict
-whose leaves are ``ParamSpec``.  ``ParamTree`` turns it into an
+whose leaves are ``ParamSpec``.  From it: ``axes_tree`` (each leaf's
+logical axes, for ``common/sharding.py``), ``abstract`` (tensors on the
+``meta`` device, the reference's ``ShapeDtypeStruct``s: shapes and dtypes,
+no storage), ``count_params``, and ``ParamTree``, which turns it into an
 ``nn.Module`` whose parameter names are the tree's paths joined with dots
 (``backbone.stack.i0.mixer.wq``), so the reference's parameter tree maps onto
 it key for key (``repro_torch.bridge``).  ``init_params`` fills it with the
@@ -64,14 +68,52 @@ class ParamSpec:
     #: fan-in override, for layouts where it is not the second-to-last dim
     #: (conv kernels are stored OIHW here, HWIO in the reference)
     fan_in: Optional[int] = None
+    #: logical axis names, one a dim (None: that dim, or all, unnamed); a
+    #: leaf stored in another layout than the reference's names its dims
+    #: in this one
+    axes: Optional[Tuple[Optional[str], ...]] = None
+
+    def __post_init__(self):
+        if self.axes is not None:
+            assert len(self.axes) == len(self.shape), (self.shape, self.axes)
+
+    @property
+    def logical_axes(self) -> Tuple[Optional[str], ...]:
+        return self.axes if self.axes is not None else \
+            (None,) * len(self.shape)
 
 
 def stack(spec: Any, n: int) -> Any:
-    """Add a leading per-period dimension of size n to every param."""
+    """Add a leading per-period dimension of size n ("layers") to every
+    param."""
     if isinstance(spec, ParamSpec):
         return ParamSpec((n,) + spec.shape, spec.init, spec.scale,
-                         spec.fan_in)
+                         spec.fan_in, ("layers",) + spec.logical_axes)
     return {k: stack(v, n) for k, v in spec.items()}
+
+
+def _map_specs(fn: Callable[[ParamSpec], Any], spec: Any) -> Any:
+    if isinstance(spec, ParamSpec):
+        return fn(spec)
+    return {k: _map_specs(fn, v) for k, v in spec.items()}
+
+
+def axes_tree(spec: Any) -> Any:
+    """Each leaf's logical axes, in the spec's tree."""
+    return _map_specs(lambda p: p.logical_axes, spec)
+
+
+def abstract(spec: Any, dtype: torch.dtype = torch.float32) -> Any:
+    """Each leaf as a tensor on the ``meta`` device: its shape and
+    ``dtype``, no storage."""
+    return _map_specs(lambda p: torch.empty(p.shape, dtype=dtype,
+                                            device="meta"), spec)
+
+
+def count_params(spec: Any) -> int:
+    if isinstance(spec, ParamSpec):
+        return math.prod(spec.shape)
+    return sum(count_params(v) for v in spec.values())
 
 
 class ParamTree(nn.Module):

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import SSMConfig
 from repro_torch.kernels.ssd_scan.ops import ssd
-from repro_torch.models.layers import rms_norm_simple
+from repro_torch.models.layers import cast_matmul, rms_norm_simple
 from repro_torch.models.param import ParamSpec
 
 
@@ -34,28 +34,32 @@ def mamba_spec(d_model: int, ssm: SSMConfig) -> Dict[str, ParamSpec]:
     h, _ = ssm_dims(d_model, ssm)
     p, n, g, k = ssm.head_dim, ssm.d_state, ssm.n_groups, ssm.d_conv
     return {
-        "z_proj": ParamSpec((d_model, h, p)),
-        "x_proj": ParamSpec((d_model, h, p)),
-        "B_proj": ParamSpec((d_model, g, n)),
-        "C_proj": ParamSpec((d_model, g, n)),
-        "dt_proj": ParamSpec((d_model, h), "small"),
-        "dt_bias": ParamSpec((h,), "zeros"),
-        "A_log": ParamSpec((h,), "zeros"),
-        "D": ParamSpec((h,), "ones"),
-        "conv_w_x": ParamSpec((h, p, k), "small"),
-        "conv_b_x": ParamSpec((h, p), "zeros"),
-        "conv_w_B": ParamSpec((g, n, k), "small"),
-        "conv_b_B": ParamSpec((g, n), "zeros"),
-        "conv_w_C": ParamSpec((g, n, k), "small"),
-        "conv_b_C": ParamSpec((g, n), "zeros"),
-        "norm_scale": ParamSpec((h, p), "ones"),
-        "out_proj": ParamSpec((h, p, d_model)),
+        "z_proj": ParamSpec((d_model, h, p), axes=("fsdp", "ssm_heads", None)),
+        "x_proj": ParamSpec((d_model, h, p), axes=("fsdp", "ssm_heads", None)),
+        "B_proj": ParamSpec((d_model, g, n), axes=("fsdp", None, "ssm_state")),
+        "C_proj": ParamSpec((d_model, g, n), axes=("fsdp", None, "ssm_state")),
+        "dt_proj": ParamSpec((d_model, h), "small", axes=("fsdp", "ssm_heads")),
+        "dt_bias": ParamSpec((h,), "zeros", axes=("ssm_heads",)),
+        "A_log": ParamSpec((h,), "zeros", axes=("ssm_heads",)),
+        "D": ParamSpec((h,), "ones", axes=("ssm_heads",)),
+        "conv_w_x": ParamSpec((h, p, k), "small",
+                              axes=("ssm_heads", None, "conv")),
+        "conv_b_x": ParamSpec((h, p), "zeros", axes=("ssm_heads", None)),
+        "conv_w_B": ParamSpec((g, n, k), "small",
+                              axes=(None, "ssm_state", "conv")),
+        "conv_b_B": ParamSpec((g, n), "zeros", axes=(None, "ssm_state")),
+        "conv_w_C": ParamSpec((g, n, k), "small",
+                              axes=(None, "ssm_state", "conv")),
+        "conv_b_C": ParamSpec((g, n), "zeros", axes=(None, "ssm_state")),
+        "norm_scale": ParamSpec((h, p), "ones", axes=("ssm_heads", None)),
+        "out_proj": ParamSpec((h, p, d_model),
+                              axes=("ssm_heads", None, "fsdp")),
     }
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) times w (d, *out) cast to x's dtype -> (..., *out)."""
-    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).reshape(
+    return cast_matmul(x, w.reshape(w.shape[0], -1)).reshape(
         *x.shape[:-1], *w.shape[1:])
 
 
@@ -139,6 +143,14 @@ def mamba_prefill_with_cache(params: Dict[str, torch.Tensor], ssm: SSMConfig,
     cache["conv_B"].copy_(Bm0[:, -(k - 1):])
     cache["conv_C"].copy_(Cm0[:, -(k - 1):])
     return out
+
+
+#: the decode cache's logical axes by leaf (the reference's
+#: ``mamba_decode_cache_spec`` gives them beside the shapes)
+CACHE_AXES = {"ssm": ("batch", "ssm_heads", None, "ssm_state"),
+              "conv_x": ("batch", "conv", "ssm_heads", None),
+              "conv_B": ("batch", "conv", None, "ssm_state"),
+              "conv_C": ("batch", "conv", None, "ssm_state")}
 
 
 def mamba_decode_cache_spec(d_model: int, ssm: SSMConfig,

@@ -9,8 +9,10 @@ package reads the other's trees.
     package that wrote it (``"package": "repro_torch"``), so a reader can
     refuse a checkpoint written by another package (the stream-model
     cache does: the reference stores conv kernels HWIO, the port OIHW);
-  * restore puts every tensor on the manager's device (one card: there is
-    no mesh to re-shard onto);
+  * restore puts every tensor on the manager's device and, where given a
+    sharding (``common/sharding.py``'s ``NamedSharding``, by the same
+    keys), lays it out on that mesh (``sharding.place``: the identity on
+    a world of one; a mesh of more ranks than the world is refused);
   * retention: keeps the last ``keep`` checkpoints.
 A tree is nested dicts (and lists) of tensors, numpy arrays or scalars.
 """
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.sharding import place
 
 #: the ``package`` this package's manifests carry
 PACKAGE = "repro_torch"
@@ -106,14 +109,20 @@ class CheckpointManager:
         with open(os.path.join(self._step_dir(step), "manifest.json")) as f:
             return json.load(f)
 
-    def restore(self, step: int) -> Any:
+    def restore(self, step: int, shardings: Any = None) -> Any:
         """The tree saved at ``step``, every leaf a tensor on the
-        manager's device (a 0-d array becomes a 0-d tensor)."""
+        manager's device (a 0-d array becomes a 0-d tensor).
+        ``shardings``: a prefix tree of ``NamedSharding``s keyed as the
+        saved tree; a matching leaf is placed on its mesh (the reference's
+        elastic re-shard), the rest load whole."""
         d = self._step_dir(step)
+        flat_shard = _flatten(shardings) if shardings is not None else {}
         out: Dict[str, Any] = {}
         for key in self.manifest(step)["keys"]:
             arr = np.load(os.path.join(d, key.replace("/", "__") + ".npy"))
-            out[key] = torch.from_numpy(arr).to(self.device)
+            t = torch.from_numpy(arr).to(self.device)
+            sh = flat_shard.get(key)
+            out[key] = place(t, sh) if sh is not None else t
         return _unflatten(out)
 
 

@@ -113,8 +113,13 @@ def _at(tree: Dict[str, Any], name: str) -> Any:
 class Trainer:
     def __init__(self, loss_fn, params: Mapping[str, torch.Tensor],
                  opt_cfg: OptimizerConfig, train_cfg: TrainConfig,
-                 data_iter, ckpt: Optional[CheckpointManager] = None):
+                 data_iter, ckpt: Optional[CheckpointManager] = None,
+                 param_shardings: Any = None):
+        """``param_shardings``: the parameters' ``NamedSharding``s, nested
+        by dotted name (``common/sharding.py::param_sharding_tree``),
+        re-applied to the parameters a restore loads."""
         self.loss_fn = loss_fn
+        self.param_shardings = param_shardings
         self.params = dict(params)
         for p in self.params.values():
             p.requires_grad_(True)
@@ -156,7 +161,9 @@ class Trainer:
         step = step if step is not None else self.ckpt.latest_step()
         if step is None:
             return False
-        tree = self.ckpt.restore(step)
+        tree = self.ckpt.restore(step, shardings={
+            "params": self.param_shardings} if self.param_shardings
+            else None)
         with torch.no_grad():
             for name, p in self.params.items():
                 p.copy_(_at(tree["params"], name))

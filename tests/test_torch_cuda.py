@@ -1058,18 +1058,110 @@ def test_flash_attention_bf16_refuses_unaligned(dev):
 
 
 def test_flash_attention_bf16_refuses_grad_and_lse(dev):
-    """No bf16 backward: bf16 inputs that require grad raise, with no
-    launch and no cast; the log-sum-exp (training) forward takes fp32."""
+    """bf16 inputs that require grad take the bf16 training pair (one
+    launch of ``flash_attention_lse_bf16`` and, at the backward, one of
+    ``flash_attention_bwd_bf16``; none of the serving forward); q, k and v
+    of two dtypes are refused before any launch, and the bf16 backward
+    refuses an lse that is not fp32."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bwd_cuda
+
     gen = torch.Generator().manual_seed(23)
     q, k, v = (_bf16(gen, 1, 9, 4, 32).to(dev) for _ in range(3))
     q.requires_grad_(True)
     reset_launch_counts()
-    with pytest.raises(ValueError, match="bf16 backward"):
-        flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="log-sum-exp"):
-        with torch.no_grad():
-            flash_attention_cuda(q, k, v, lse=True)
+    with pytest.raises(ValueError, match="one of"):
+        flash_attention(q, k.float(), v)
     assert not any(launch_counts().values())
+    out = flash_attention(q, k, v)
+    assert launch_counts() == _counts(flash_attention_lse_bf16=1)
+    out.backward(torch.ones_like(out))
+    assert launch_counts() == _counts(flash_attention_lse_bf16=1,
+                                      flash_attention_bwd_bf16=1)
+    assert q.grad.dtype == torch.bfloat16
+    with torch.no_grad():
+        o, lse = flash_attention_cuda(q, k, v, lse=True)
+        with pytest.raises(ValueError, match="fp32 lse"):
+            flash_attention_bwd_cuda(q, k, v, o, lse.bfloat16(), o)
+
+
+def _bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude x (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(x, 1e-30))) - 7)
+
+
+#: the bf16 backward's cases (B, Sq, Sk, H, Hk, D, options): every head
+#: dim, groups 1-64, causal and not, cap, window, ragged lengths about the
+#: 64-row tiles (32 streamed rows at D 256), Sq != Sk, and the split plans
+BWD_BF16_CASES = [
+    pytest.param(*c, id="-".join(str(x) for x in c[:6]) + "-" +
+                 "-".join(f"{a}{b}" for a, b in c[6].items()))
+    for c in [
+        (8, 64, 64, 32, 2, 128, dict(causal=True)),
+        (1, 300, 300, 8, 4, 256, dict(causal=True, cap=50.0, window=100)),
+        (2, 129, 129, 32, 32, 96, dict(causal=True)),
+        (2, 65, 65, 16, 16, 128, dict(causal=True)),
+        (2, 128, 512, 16, 16, 64, dict(causal=False)),
+        (2, 45, 130, 8, 4, 32, dict(causal=False)),
+        (1, 33, 33, 64, 1, 16, dict(causal=True)),
+        (1, 130, 130, 64, 1, 64, dict(causal=True)),
+        (2, 45, 45, 4, 2, 96, dict(causal=True, cap=20.0)),
+        (2, 63, 63, 4, 2, 256, dict(causal=True, window=7)),
+        (1, 1, 1, 2, 1, 32, dict(causal=True)),
+        (32, 64, 64, 14, 2, 128, dict(causal=True)),
+        (2, 200, 77, 8, 8, 64, dict(causal=False))]]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,d,kw", BWD_BF16_CASES)
+def test_flash_attention_bwd_bf16_kernel(dev, b, sq, sk, h, hk, d, kw):
+    """bf16 inputs that require grad: one launch of the lse forward and
+    one of the backward.  The output equals the serving kernel's bit for
+    bit and lse is within 2e-5 max(1, |lse|) of the plain one; dq, dk, dv
+    (bf16) within 3e-2 (absolute and relative, the reference sweep's bf16
+    tolerance) of the plain version's autograd on the same bf16 inputs
+    and, against float64 on those inputs, within twice that autograd's
+    distance plus one bf16 ulp of the gradient's largest magnitude (plus
+    1e-6 of the case's largest gradient); a second backward equal bit for
+    bit."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_lse_plain, flash_attention_plain)
+
+    gen = torch.Generator().manual_seed(sq + sk + d)
+    q, k, v = _bf16(gen, b, sq, h, d), _bf16(gen, b, sk, hk, d), \
+        _bf16(gen, b, sk, hk, d)
+    dout = _bf16(gen, b, sq, h, d)
+    qd, kd, vd, gd = (t.to(dev) for t in (q, k, v, dout))
+    runs = []
+    for fn, dt in ((flash_attention, None), (flash_attention_plain, None),
+                   (flash_attention_plain, torch.float64),
+                   (flash_attention, None)):
+        leaves = [(t if dt is None else t.to(dt)).clone().requires_grad_(True)
+                  for t in (qd, kd, vd)]
+        reset_launch_counts()
+        out = fn(*leaves, **kw)
+        out.backward(gd.to(out.dtype))
+        torch.cuda.synchronize()
+        if fn is flash_attention:
+            assert launch_counts() == _counts(flash_attention_lse_bf16=1,
+                                              flash_attention_bwd_bf16=1)
+        runs.append([out.detach()] + [t.grad for t in leaves])
+    kern, plain, f64, again = runs
+    with torch.no_grad():
+        assert torch.equal(kern[0], flash_attention_cuda(qd, kd, vd, **kw))
+        _, lse = flash_attention_cuda(qd, kd, vd, lse=True, **kw)
+        lse_p = flash_attention_lse_plain(qd, kd, vd, **kw)[1]
+    assert ((lse - lse_p).abs() / lse_p.abs().clamp(min=1.0)).max() <= 2e-5
+    # a floor of 1e-6 of the case's largest gradient (chip_smoke.BWD_FLOOR):
+    # at S 1 the exact dq and dk are 0 (dP - delta cancels)
+    floor = 1e-6 * max(f64[n].abs().max().item() for n in (1, 2, 3))
+    for n in (1, 2, 3):
+        g, gp, g64 = kern[n].double(), plain[n].double(), f64[n]
+        assert kern[n].dtype == torch.bfloat16
+        torch.testing.assert_close(g, gp, atol=3e-2, rtol=3e-2)
+        top = g64.abs().max().item()
+        bar = 2 * (gp - g64).abs().max().item() + _bf16_ulp(top) + floor
+        assert (g - g64).abs().max().item() <= bar, n
+        assert torch.equal(kern[n], again[n])
 
 
 @pytest.mark.parametrize("b,s,h,hk,d,lens,kw", [

@@ -231,6 +231,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
                         torch.ones(1, 8))
     qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
     flash_attention(qb, kb, kb)
+    flash_attention(qb.clone().requires_grad_(True), kb,
+                    kb).float().sum().backward()
     decode_attention(qb[:, :1], kb, kb, torch.tensor([[28]],
                                                      dtype=torch.int32))
     assert launch_counts() == before
@@ -240,7 +242,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
                            "decode_attention_f32", "ssd_scan_f32",
                            "ssd_scan_bwd_f32", "int8_transpose_kn",
                            "int8_mma_f32", "flash_attention_bf16",
-                           "decode_attention_bf16"}
+                           "decode_attention_bf16", "flash_attention_lse_bf16",
+                           "flash_attention_bwd_bf16"}
 
 
 @pytest.mark.parametrize("call", ["frame_diff", "fused_preprocess", "flash",
